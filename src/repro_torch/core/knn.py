@@ -1,0 +1,203 @@
+"""Algorithm 2 — distributed l-nearest-neighbors over k shards, end to end.
+
+Port of ``repro.core.knn``.  Per query batch, with the shard as
+dimension 0 of every per-shard tensor:
+
+  1-2. distances and the per-shard top-L (Steps 8 and 2): one fused
+       distance_topk kernel on the card (``local_distance_top_l``), or
+       l2_distance then local_topk for the gather baseline
+  3.   sample-and-prune to O(l) survivors (``core.sampling``)
+  4.   Algorithm 1 selection on the survivors (``core.selection``)
+  5.   per-shard winner mask, and optionally the replicated (B, l)
+       result gather (``gather_selected``)
+
+The kernels are reached through ``kernels.ops``, which dispatches by the
+tensors' device: the hand-written kernels for CUDA tensors, their plain
+versions for CPU tensors.  ``knn_simple`` is the paper's baseline
+"simple method": gather every shard's local top-l and reduce.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import sampling
+from repro_torch.core.selection import (SelectionResult, select_l_smallest,
+                                        selected_mask)
+from repro_torch.kernels import ops as kops
+from repro_torch.parallel.collectives import all_gather, psum
+
+INT32_MAX = 2**31 - 1
+
+
+class KnnResult(NamedTuple):
+    """Distributed l-NN answer.  ``mask``/``local_dists``/``local_ids``
+    are per-shard ``(k, B, L)``; ``dists``/``ids`` are the replicated
+    ``(B, L)`` winners when gathered, else None."""
+
+    mask: torch.Tensor
+    local_dists: torch.Tensor
+    local_ids: torch.Tensor
+    selection: SelectionResult
+    prune: sampling.PruneResult
+    dists: Optional[torch.Tensor]
+    ids: Optional[torch.Tensor]
+
+
+def squared_l2_distances(queries, points):
+    """``(B, d) x (k, m, d) -> (k, B, m)`` squared euclidean distances."""
+    return kops.l2_distance(queries, points)
+
+
+def _gather_ids(ids, idx):
+    """Global ids behind local indices ``idx`` (``(..., B, l)``) from
+    ``ids`` (``(..., m)`` or ``(..., B, m)``); the sentinel index maps to
+    the sentinel id."""
+    m = ids.shape[-1]
+    if ids.dim() == idx.dim() - 1:
+        ids = ids.unsqueeze(-2).expand(idx.shape[:-1] + (m,))
+    out = ids.gather(-1, idx.clamp(max=m - 1).long())
+    return torch.where(idx == INT32_MAX, INT32_MAX, out)
+
+
+def local_top_l(d, ids, l: int):
+    """Per-shard top-l smallest of ``d`` (``(..., B, m)``), +inf padded.
+
+    ``ids`` is ``(..., m)`` or ``(..., B, m)``.  A shard with ``m <= l``
+    points is padded with the paper's fake +inf points (id 2**31-1) and
+    left in place, as the reference does.
+    """
+    m = d.shape[-1]
+    if ids.dim() == d.dim() - 1:
+        ids = ids.unsqueeze(-2).expand(d.shape)
+    if m <= l:
+        pad = d.shape[:-1] + (l - m,)
+        return (torch.cat([d, torch.full(pad, float("inf"), dtype=d.dtype,
+                                         device=d.device)], -1),
+                torch.cat([ids, torch.full(pad, INT32_MAX, dtype=ids.dtype,
+                                           device=d.device)], -1))
+    v, idx = kops.local_topk(d, l)
+    return v, _gather_ids(ids, idx)
+
+
+def local_distance_top_l(queries, points, point_ids, l: int):
+    """Steps 8 and 2 fused: ``(B, d) x (k, m, d) -> (k, B, l)`` distances
+    and global ids, without the ``(k, B, m)`` matrix (distance_topk)."""
+    if points.shape[-2] <= l:
+        return local_top_l(kops.l2_distance(queries, points), point_ids, l)
+    v, idx = kops.distance_topk(queries, points, l)
+    return v, _gather_ids(point_ids, idx)
+
+
+def gather_selected(d, gid, mask, l: int):
+    """Pack the selected elements into replicated ``(B, l)`` buffers.
+
+    Rank-stable pack: shard j's winners land after those of shards < j
+    (an exclusive cumsum of the counts over dimension 0).  The
+    reference's scatter-add "drop" of unselected elements becomes an
+    extra column ``l`` that is sliced away.  Unfilled slots are +inf /
+    2**31-1.
+    """
+    k, B, L = d.shape
+    my_cnt = mask.sum(-1, dtype=torch.int32)                     # (k, B)
+    all_cnt = all_gather(my_cnt)
+    offset = torch.cumsum(all_cnt, 0, dtype=torch.int32) - all_cnt
+    rank = torch.cumsum(mask.to(torch.int32), -1, dtype=torch.int32) - 1
+    col = torch.where(mask, offset.unsqueeze(-1) + rank, l).clamp(max=l)
+    col = col.long()
+    dbuf = torch.zeros((k, B, l + 1), dtype=d.dtype, device=d.device)
+    dbuf.scatter_add_(-1, col, torch.where(mask, d, 0.0))
+    ibuf = torch.zeros((k, B, l + 1), dtype=torch.int32, device=d.device)
+    ibuf.scatter_add_(-1, col, torch.where(mask, gid, 0).to(torch.int32))
+    dists = psum(dbuf[..., :l])
+    ids = psum(ibuf[..., :l])
+    filled = (torch.arange(l, device=d.device).unsqueeze(0)
+              < psum(my_cnt).unsqueeze(-1))
+    return (torch.where(filled, dists, float("inf")),
+            torch.where(filled, ids, INT32_MAX))
+
+
+def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
+                  use_sampling, num_pivots, gather_results) -> KnnResult:
+    """Shared Algorithm 2 body: ``l_buf`` is the static per-shard buffer
+    width, ``l_run`` the selection rank (an int or a ``(B,)`` tensor)."""
+    d, gid = local_distance_top_l(queries, points, point_ids, l_buf)
+    if use_sampling:
+        prune = sampling.sample_prune(d, gen, l_run)
+    else:
+        finite = torch.isfinite(d)
+        B = d.shape[1]
+        prune = sampling.PruneResult(
+            valid=finite,
+            radius=torch.full((B,), float("inf"), device=d.device),
+            survivors=psum(finite.sum(-1, dtype=torch.int32)),
+            applied=torch.zeros(B, dtype=torch.bool, device=d.device))
+    sel = select_l_smallest(d, gid, l_run, gen, valid=prune.valid,
+                            num_pivots=num_pivots)
+    mask = selected_mask(d, gid, sel, valid=prune.valid)
+    dists = ids = None
+    if gather_results:
+        dists, ids = gather_selected(d, gid, mask, l_buf)
+    return KnnResult(mask=mask, local_dists=d, local_ids=gid, selection=sel,
+                     prune=prune, dists=dists, ids=ids)
+
+
+def knn_query(points, point_ids, queries, l: int, gen: torch.Generator, *,
+              use_sampling: bool = True, num_pivots: int = 1,
+              gather_results: bool = True) -> KnnResult:
+    """Full Algorithm 2: ``points`` ``(k, m, dim)``, ``point_ids``
+    ``(k, m)`` int32 globally unique, ``queries`` ``(B, dim)``."""
+    return _knn_pipeline(points, point_ids, queries, l, l, gen,
+                         use_sampling=use_sampling, num_pivots=num_pivots,
+                         gather_results=gather_results)
+
+
+def knn_query_batched(points, point_ids, queries, l_max: int, l,
+                      gen: torch.Generator, *, use_sampling: bool = True,
+                      num_pivots: int = 1,
+                      gather_results: bool = True) -> KnnResult:
+    """Algorithm 2 with a per-request neighbor count, the serving form.
+
+    Buffers are sized by ``l_max``; ``l`` is a ``(B,)`` int tensor with
+    ``0 <= l[b] <= l_max``.  All rows run in lockstep through the same
+    Algorithm 1 loop.  Rows with ``l[b] == 0`` (bucket padding) select
+    nothing and come back all +inf / 2**31-1.
+    """
+    B = queries.shape[0]
+    l = torch.as_tensor(l, dtype=torch.int32, device=queries.device)
+    l = torch.clamp(l.expand(B), max=l_max)
+    return _knn_pipeline(points, point_ids, queries, l_max, l, gen,
+                         use_sampling=use_sampling, num_pivots=num_pivots,
+                         gather_results=gather_results)
+
+
+def knn_simple(points, point_ids, queries, l: int):
+    """The paper's baseline "simple method" (Section 3): local top-l, then
+    gather all k*l candidates and reduce.  Returns replicated ascending
+    ``(B, l)`` distances and ids; +inf slots carry 2**31-1."""
+    d, gid = local_top_l(kops.l2_distance(queries, points), point_ids, l)
+    k, B, _ = d.shape
+    flat_d = all_gather(d).transpose(0, 1).reshape(B, k * l)
+    flat_i = all_gather(gid).transpose(0, 1).reshape(B, k * l)
+    dists, idx = kops.local_topk(flat_d, l)
+    ids = flat_i.gather(-1, idx.long())
+    return dists, torch.where(torch.isfinite(dists), ids, INT32_MAX)
+
+
+def knn_classify(mask, labels, num_classes: int):
+    """Majority vote over the selected neighbors: ``labels`` ``(k, B, L)``
+    int aligned with the knn buffers; only the label histogram crosses
+    the shards (one psum).  Out-of-range labels vote for nothing."""
+    classes = torch.arange(num_classes, device=labels.device)
+    onehot = (labels.unsqueeze(-1) == classes) & mask.unsqueeze(-1)
+    hist = psum(onehot.sum(-2, dtype=torch.int32))               # (B, C)
+    return torch.argmax(hist, dim=-1), hist
+
+
+def knn_regress(mask, values):
+    """Mean of the selected neighbors' target values (one psum)."""
+    num = psum(torch.where(mask, values, 0.0).sum(-1))
+    den = psum(mask.sum(-1).to(torch.float32))
+    return num / torch.clamp(den, min=1.0)

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (one shared library, C ABI).
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for ``sm_90a``,
+one ``nvcc -c`` per source, all started together, then linked into one
+shared library with a plain C interface that :func:`library` loads with
+``ctypes``.  The library lands in ``build/repro_torch_kernels/`` at the
+root of the checkout, named by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one is reused.  Nothing is built
+when the module is imported: the first CUDA launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
+             / "repro_torch_kernels")
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (argtypes, restype) of every C entry point
+SIGNATURES = {
+    "knn_l2_distance": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "knn_local_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "knn_distance_topk": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P], _I),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_log = ""     # compiler output of the build this process ran, if any
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``CUDA_HOME``, ``/usr/local/cuda/bin`` or ``PATH``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels cannot be built")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
+    for f in sorted(CSRC.iterdir()):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link the library; returns
+    its path.  Reuses a library already built from the same sources."""
+    global build_log
+    out = BUILD_DIR / f"libknn_{_digest()}.so"
+    if out.is_file():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"tmp_{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    procs = []
+    for src in _sources():
+        obj = tmp / (src.stem + ".o")
+        cmd = [nvcc, *ARCH, *FLAGS, "-I", str(CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    link_tmp = tmp / out.name
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(link_tmp),
+         *[str(obj) for _, obj, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(link_tmp, out)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (args, res) in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = res
+            _lib = lib
+        return _lib

@@ -1,0 +1,86 @@
+"""Entry points for the distance and top-l kernels, dispatched by device.
+
+Port of ``repro.kernels.ops``.  The rule is the tensor's device and
+nothing else: a CPU tensor takes the kernel's plain PyTorch version; a
+CUDA tensor launches the hand-written kernel or raises (a wrong dtype,
+a non-contiguous operand, ``l > 256``).  There is no mode switch that
+sends CUDA tensors to the plain version and no fallback on error.  Each
+wrapper's ``COUNT`` counts its kernel's launches where it launches it;
+the plain versions count nothing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import distance_topk as _dtk
+from repro_torch.kernels import l2_distance as _l2
+from repro_torch.kernels import local_topk as _ltk
+from repro_torch.kernels._cuda import MAX_L
+
+COUNTERS = {c.name: c for c in (_l2.COUNT, _dtk.COUNT, _ltk.COUNT)}
+
+
+def _path(entry: str, t: torch.Tensor) -> str:
+    if t.device.type == "cuda":
+        return "cuda"
+    if t.device.type == "cpu":
+        return "plain"
+    raise ValueError(f"{entry}: no kernel for device {t.device}")
+
+
+def l2_distance(queries, points, *, valid=None):
+    """``(B, d) x (m, d) -> (B, m)`` or ``(k, m, d) -> (k, B, m)`` squared
+    L2.  ``valid`` (``(m,)`` or ``(k, m)`` bool) puts masked columns at
+    +inf after the kernel, as the reference's unfused path does."""
+    if _path("l2_distance", queries) == "cuda":
+        out = _l2.l2_distance_cuda(queries, points)
+    else:
+        out = _l2.l2_distance_plain(queries, points)
+    if valid is not None:
+        out = torch.where(valid.bool().unsqueeze(-2), out,
+                          torch.full_like(out, float("inf")))
+    return out
+
+
+def distance_topk(queries, points, l: int, *, valid=None):
+    """Fused distance + top-l: ``((..., B, l) ascending, int32 indices
+    into the point axis)``; +inf slots carry ``2**31-1``."""
+    if _path("distance_topk", queries) == "cuda":
+        return _dtk.distance_topk_cuda(queries, points, l, valid=valid)
+    return _dtk.distance_topk_plain(queries, points, l, valid=valid)
+
+
+def local_topk(values, l: int):
+    """``(..., m) -> ((..., l) ascending, (..., l) int32 indices)``."""
+    if _path("local_topk", values) == "cuda":
+        return _ltk.local_topk_cuda(values, l)
+    return _ltk.local_topk_plain(values, l)
+
+
+def launch_counts() -> dict:
+    return {name: c.n for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()
+
+
+def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
+                     k: int, device) -> dict:
+    """Which path each kernel takes for one service bucket shape, without
+    launching anything: ``cuda`` on the card, ``plain`` on the CPU.
+
+    ``dtk_chunk`` is the points per distance_topk block on the card (None
+    on the CPU).  ``l > 256`` has no kernel on the card; the server
+    refuses such a config at construction.
+    """
+    dev = torch.device(device)
+    path = "cuda" if dev.type == "cuda" else "plain"
+    reason = None if l <= MAX_L or path == "plain" else (
+        f"l={l} > MAX_L={MAX_L}: no kernel")
+    chunk = (_dtk.chunking(bucket_b, k, m_local, dev)
+             if path == "cuda" and reason is None else None)
+    return {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
+            "k": k, "path": path, "dtk_chunk": chunk, "unsupported": reason}

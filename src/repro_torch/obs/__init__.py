@@ -1,0 +1,6 @@
+from repro_torch.obs.audit import ContractAuditor
+from repro_torch.obs.metrics import (Counter, Histogram, MetricsRegistry,
+                                     default_registry)
+
+__all__ = ["ContractAuditor", "Counter", "Histogram", "MetricsRegistry",
+           "default_registry"]

@@ -1,0 +1,466 @@
+"""Micro-batched distributed l-NN query service over a static point set.
+
+Port of ``repro.runtime.knn_server`` for the static backing with exact
+routing and exact search.  Requests, each with its own l, are coalesced
+into device batches of one of the configured bucket sizes (padding rows
+carry l=0 and select nothing), answered by Algorithm 2
+(``sampler="selection"``) or the paper's simple method
+(``sampler="gather"``) over k shards held on one device, and resolved
+per request in ascending order with the k-machine round/message bill.
+
+    submit(q, l) -> [queue] -> micro-batcher (linger max_wait_ms, pad to
+        bucket) -> core.knn on the device -> QueryResult per request
+
+The entry point runs on the card: ``device=None`` means ``"cuda"`` and
+raises when there is none.  Tests pass ``device="cpu"``, which takes
+the kernels' plain versions.  A batch's random stream is a
+``torch.Generator`` seeded from ``(seed, batch_id)``, so two fresh
+servers give byte-identical answers and iteration counts.
+
+Knobs of later slices of the port (the mutable store, pruned routing,
+the approx index, prediction, tracing, shadow audits, SLOs and the HTTP
+endpoint) raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future, InvalidStateError
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import convert
+from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
+from repro_torch.core import knn as knn_mod
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels._cuda import MAX_L
+from repro_torch.obs import ContractAuditor, MetricsRegistry
+from repro_torch.parallel.collectives import accounting
+
+_ID_SENTINEL = 2**31 - 1
+_SEED_MIX = 0x9E3779B97F4A7C15
+
+
+class QueryResult(NamedTuple):
+    """Answer for one request.
+
+    ``dists``/``ids`` have the request's own length l, ascending by
+    distance (+inf / 2**31-1 sentinel slots last when fewer than l points
+    exist).  ``values`` maps ids through the optional value table, -1
+    where absent.  ``rounds``/``messages`` are the carrying batch's
+    k-machine bill (``parallel.collectives.accounting``).
+    ``host_syncs`` counts the carrying batch's device-to-host reads: the
+    Algorithm 1 loop's done checks plus the answer readbacks.
+    """
+
+    dists: np.ndarray
+    ids: np.ndarray
+    values: Optional[np.ndarray]
+    l: int
+    iterations: int        # Algorithm 1 iterations of the carrying batch
+    rounds: int            # k-machine rounds of the carrying batch
+    messages: int          # O(1)-word messages of the carrying batch
+    survivors: int         # Lemma 2.3 post-prune candidate count (this row)
+    bucket: int            # device batch shape the request rode in
+    queued_s: float        # enqueue -> dispatch
+    latency_s: float       # enqueue -> result
+    host_syncs: int = 0
+
+
+@dataclasses.dataclass
+class ServerStats:
+    """Serving counters, safe to update and read from any thread;
+    ``snapshot()`` is the consistent multi-field view."""
+
+    queries: int = 0
+    batches: int = 0
+    padded_rows: int = 0
+    bucket_counts: dict = dataclasses.field(default_factory=dict)
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def observe(self, bucket: int, n_real: int):
+        with self._lock:
+            self.queries += n_real
+            self.batches += 1
+            self.padded_rows += bucket - n_real
+            self.bucket_counts[bucket] = self.bucket_counts.get(bucket, 0) + 1
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"queries": self.queries, "batches": self.batches,
+                    "padded_rows": self.padded_rows,
+                    "bucket_counts": dict(self.bucket_counts)}
+
+
+@dataclasses.dataclass
+class _Pending:
+    query: np.ndarray
+    l: int
+    t_enqueue: float
+    future: Future
+
+
+def _later_slice(what: str, item: int, name: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item}: "
+        f"{name})")
+
+
+def _check_config(cfg: KnnServiceConfig) -> None:
+    """Reject bad values like the reference, and every knob of a later
+    slice of the port; no knob is silently ignored."""
+    if not cfg.bucket_sizes or list(cfg.bucket_sizes) != sorted(
+            set(cfg.bucket_sizes)):
+        raise ValueError(f"bucket_sizes must be ascending and unique, "
+                         f"got {cfg.bucket_sizes}")
+    if cfg.route not in ("exact", "pruned"):
+        raise ValueError(f"route must be 'exact' or 'pruned', "
+                         f"got {cfg.route!r}")
+    if cfg.route_compute not in ("host", "device"):
+        raise ValueError(f"route_compute must be 'host' or 'device', "
+                         f"got {cfg.route_compute!r}")
+    if cfg.search not in ("exact", "approx"):
+        raise ValueError(f"search must be 'exact' or 'approx', "
+                         f"got {cfg.search!r}")
+    if cfg.predict not in ("none", "vote", "regress"):
+        raise ValueError(f"predict must be 'none', 'vote' or 'regress', "
+                         f"got {cfg.predict!r}")
+    if cfg.predict_mode not in ("exact", "ensemble"):
+        raise ValueError(f"predict_mode must be 'exact' or 'ensemble', "
+                         f"got {cfg.predict_mode!r}")
+    if cfg.sampler not in ("selection", "gather"):
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    if cfg.distance_impl != "auto":
+        raise ValueError(
+            f"distance_impl={cfg.distance_impl!r}: the port picks the "
+            f"kernel or its plain version by the device; only 'auto'")
+    if cfg.route == "pruned":
+        _later_slice("route='pruned'", 5, "pruned routing")
+    if cfg.search == "approx":
+        _later_slice("search='approx'", 6, "approx index")
+    if cfg.predict != "none":
+        _later_slice(f"predict={cfg.predict!r}", 7, "prediction")
+    for knob in ("obs_trace", "obs_audit_every", "obs_http_port",
+                 "slo_latency_p99_s", "slo_recall_floor",
+                 "slo_staleness_generations", "slo_contract_violations",
+                 "slo_label_agreement_floor"):
+        if getattr(cfg, knob):
+            _later_slice(f"{knob}={getattr(cfg, knob)!r}", 8,
+                         "rest of obs and the operator layer")
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; a missing card is an error, never a
+    quiet move to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain versions on the CPU")
+    return dev
+
+
+class KnnServer:
+    """Serve l-NN queries against a static point set split into k shards.
+
+    ``points``: an ``(n, dim)`` numpy array (split by the reference's
+    row -> shard rule, ``convert.shards_from_numpy``) or an ``(n, dim)``
+    float32 tensor (viewed in place on its device when it is there).
+    ``values``: optional ``(n,)`` int payload, looked up on the host.
+    ``shards``: k, the counterpart of the reference's mesh axis size.
+
+    Synchronous use: ``submit(...)`` then ``flush()``, or ``query_batch``.
+    Server use: ``with server.serving(): ...`` runs the micro-batcher
+    thread, which lingers ``cfg.max_wait_ms`` after the first pending
+    request to fill a bucket.
+    """
+
+    def __init__(self, points=None, values=None, labels=None, *,
+                 store=None, cfg: KnnServiceConfig = CONFIG,
+                 shards: int = 8, device=None, seed: int = 0):
+        _check_config(cfg)
+        if store is not None:
+            _later_slice("store=", 4, "mutable store")
+        if labels is not None:
+            _later_slice("labels=", 7, "prediction")
+        if points is None:
+            raise ValueError("points required")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # the port's numerics are f32 throughout (no TF32 anywhere)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            if cfg.l_max > MAX_L:
+                raise ValueError(
+                    f"l_max={cfg.l_max} > {MAX_L}: the top-l kernels take "
+                    f"l <= {MAX_L} on the card (ROADMAP open item)")
+        self.k = int(shards)
+        if isinstance(points, torch.Tensor):
+            pts = points.to(device=self.device, dtype=torch.float32)
+            self._points, self._ids = convert.shards_from_tensor(pts, self.k)
+            n = pts.shape[0]
+            if values is not None:
+                values = np.asarray(values, np.int32)
+        else:
+            self._points, self._ids, values = convert.shards_from_numpy(
+                points, self.k, values, device=self.device)
+            n = self._ids.numel()
+        self._points = self._points.contiguous()
+        self._values = values
+        self.m_local = n // self.k
+        self.dim = int(self._points.shape[-1])
+        self.seed = int(seed)
+        self.envelopes = [
+            kops.service_envelope(b, self.m_local, self.dim, cfg.l_max,
+                                  k=self.k, device=self.device)
+            for b in cfg.bucket_sizes]
+
+        self._batch_counter = 0
+        self._cv = threading.Condition()
+        self._pending: list[_Pending] = []
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+        self.stats = ServerStats()
+        self.metrics = MetricsRegistry()
+        reg = self.metrics
+        self._m = {name: reg.histogram(f"serve.{name}") for name in (
+            "queued_s", "kernel_s", "resolve_s", "dispatch_s", "latency_s",
+            "rounds", "messages", "host_syncs")}
+        self._errors = reg.counter("serve.dispatch_errors")
+        self._contract = ContractAuditor(reg, k=self.k)
+
+    # ---- device work -----------------------------------------------------
+
+    def _generator(self, batch_id: int) -> torch.Generator:
+        """The batch's random stream, from ``(seed, batch_id)``."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed((self.seed * _SEED_MIX + batch_id) % (2**63))
+        return gen
+
+    def _run(self, q: np.ndarray, l_arr: np.ndarray, gen):
+        """One batch on the device: host ``(d, i, iterations, survivors,
+        host_syncs)`` with ``d``/``i`` of shape ``(B, l_max)``."""
+        cfg = self.cfg
+        qt = torch.from_numpy(q).to(self.device)
+        lt = torch.from_numpy(l_arr).to(self.device)
+        if cfg.sampler == "selection":
+            res = knn_mod.knn_query_batched(
+                self._points, self._ids, qt, cfg.l_max, lt, gen,
+                use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots)
+            d, i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
+            surv = res.prune.survivors.cpu().numpy()
+            return (d, i, res.selection.iterations, surv,
+                    res.selection.host_syncs + 3)
+        sd, si = knn_mod.knn_simple(self._points, self._ids, qt, cfg.l_max)
+        # per-request l: ranks >= l[b] become sentinels
+        keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
+                < lt[:, None])
+        d = torch.where(keep, sd, float("inf")).cpu().numpy()
+        i = torch.where(keep, si, _ID_SENTINEL).cpu().numpy()
+        return d, i, 0, np.zeros(len(q), np.int32), 2
+
+    def warmup(self):
+        """Run every bucket shape once, at rank ``cfg.l`` so the Algorithm
+        1 loop runs too: on the card this builds the kernels and loads
+        every CUDA module the path uses before the first request."""
+        for b in self.cfg.bucket_sizes:
+            self._run(np.zeros((b, self.dim), np.float32),
+                      np.full(b, min(self.cfg.l, self.cfg.l_max), np.int32),
+                      self._generator(0))
+
+    # ---- request path ----------------------------------------------------
+
+    def values_for(self, ids):
+        """Map global ids to int payload values, -1 where absent."""
+        if self._values is None:
+            raise RuntimeError("server has no value payload")
+        ids = np.asarray(ids)
+        safe = np.clip(ids, 0, len(self._values) - 1)
+        return np.where(ids == _ID_SENTINEL, -1, self._values[safe])
+
+    def submit(self, query, l: Optional[int] = None) -> Future:
+        """Enqueue one query; the Future resolves to a QueryResult."""
+        l = self.cfg.l if l is None else int(l)
+        if not 1 <= l <= self.cfg.l_max:
+            raise ValueError(f"l={l} outside [1, l_max={self.cfg.l_max}]")
+        query = np.asarray(query, np.float32)
+        if query.shape != (self.dim,):
+            raise ValueError(f"query shape {query.shape} != ({self.dim},)")
+        rec = _Pending(query, l, time.perf_counter(), Future())
+        with self._cv:
+            self._pending.append(rec)
+            self._cv.notify()
+        return rec.future
+
+    def query_batch(self, queries, ls=None) -> list[QueryResult]:
+        """Synchronous convenience: submit all, flush, collect."""
+        queries = np.asarray(queries, np.float32)
+        if ls is None:
+            ls = [None] * len(queries)
+        futs = [self.submit(q, l) for q, l in zip(queries, ls)]
+        self.flush()
+        return [f.result() for f in futs]
+
+    def flush(self):
+        """Drain the queue now, bucket by bucket (synchronous path)."""
+        while True:
+            with self._cv:
+                if not self._pending:
+                    return
+                chunk = self._take_chunk_locked()
+            self._dispatch(chunk)
+
+    def _take_chunk_locked(self) -> list[_Pending]:
+        n = min(len(self._pending), self.cfg.bucket_sizes[-1])
+        chunk, self._pending = self._pending[:n], self._pending[n:]
+        return chunk
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.cfg.bucket_sizes:
+            if b >= n:
+                return b
+        return self.cfg.bucket_sizes[-1]
+
+    def _dispatch(self, chunk: list[_Pending]):
+        cfg = self.cfg
+        n = len(chunk)
+        bucket = self._bucket_for(n)
+        q = np.zeros((bucket, self.dim), np.float32)
+        l_arr = np.zeros(bucket, np.int32)      # padding rows keep l=0
+        for row, rec in enumerate(chunk):
+            q[row] = rec.query
+            l_arr[row] = rec.l
+        with self._cv:
+            batch_id = self._batch_counter
+            self._batch_counter += 1
+        t_dispatch = time.perf_counter()
+        try:
+            d, i, iters, surv, syncs = self._run(q, l_arr,
+                                                 self._generator(batch_id))
+        except Exception as exc:
+            # a failed dispatch must never strand its futures (the chunk
+            # already left the queue) or kill the micro-batcher thread
+            self._errors.inc()
+            for rec in chunk:
+                _resolve(rec.future, error=exc)
+            return
+        t_done = time.perf_counter()
+
+        rounds, messages = accounting(
+            sampler=cfg.sampler, iterations=iters, touched=self.k,
+            l_max=cfg.l_max, use_sampling=cfg.use_sampling)
+        self.stats.observe(bucket, n)
+        # the gather bill charges the static buffer width l_max per peer,
+        # so its envelope is checked against that width
+        audit_l = (cfg.l_max if cfg.sampler == "gather"
+                   else max(rec.l for rec in chunk))
+        self._contract.check(
+            l_max=audit_l, n_live=self.m_local * self.k, rounds=rounds,
+            messages=messages, use_sampling=cfg.use_sampling,
+            sampler=cfg.sampler, generation=0)
+
+        t_res0 = time.perf_counter()
+        for row, rec in enumerate(chunk):
+            # ascending by distance: gather_selected packs by shard rank,
+            # and l is small, so sort on the host
+            order = np.argsort(d[row, :rec.l], kind="stable")
+            dists = d[row, order]
+            ids = i[row, order]
+            values = None if self._values is None else self.values_for(ids)
+            _resolve(rec.future, result=QueryResult(
+                dists=dists, ids=ids, values=values, l=rec.l,
+                iterations=iters, rounds=rounds, messages=messages,
+                survivors=int(surv[row]), bucket=bucket,
+                queued_s=t_dispatch - rec.t_enqueue,
+                latency_s=t_done - rec.t_enqueue, host_syncs=syncs))
+            self._m["queued_s"].observe(t_dispatch - rec.t_enqueue)
+            self._m["latency_s"].observe(time.perf_counter() - rec.t_enqueue)
+        t_res1 = time.perf_counter()
+        m = self._m
+        m["kernel_s"].observe(t_done - t_dispatch)
+        m["resolve_s"].observe(t_res1 - t_res0)
+        m["dispatch_s"].observe(t_res1 - t_dispatch)
+        m["rounds"].observe(rounds)
+        m["messages"].observe(messages)
+        m["host_syncs"].observe(syncs)
+
+    def obs_snapshot(self) -> dict:
+        """Serving counters, this server's metrics, the process-wide
+        kernel launch counts, and the contract audit."""
+        return {"server": self.stats.snapshot(),
+                "metrics": self.metrics.snapshot(),
+                "launches": kops.launch_counts(),
+                "audit": {"contract": self._contract.snapshot()}}
+
+    # ---- background micro-batcher ----------------------------------------
+
+    def start(self):
+        """Run the micro-batcher thread (linger-then-dispatch loop)."""
+        if self._running:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._serve_loop,
+                                        name="knn-microbatcher", daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        """Quiesce the micro-batcher and drain the queue: every pending
+        request resolves before this returns, each dispatched once, in
+        FIFO order; idempotent and safe to race with itself."""
+        with self._cv:
+            self._running = False
+            self._cv.notify_all()
+            t, self._thread = self._thread, None
+        if t is not None:
+            t.join()
+        self.flush()
+
+    def serving(self):
+        return _Serving(self)
+
+    def _serve_loop(self):
+        linger = self.cfg.max_wait_ms / 1e3
+        full = self.cfg.bucket_sizes[-1]
+        while True:
+            with self._cv:
+                while self._running and not self._pending:
+                    self._cv.wait(timeout=0.1)
+                if not self._running:
+                    return
+                deadline = self._pending[0].t_enqueue + linger
+                while (self._running and len(self._pending) < full
+                       and time.perf_counter() < deadline):
+                    self._cv.wait(timeout=max(
+                        deadline - time.perf_counter(), 1e-4))
+                chunk = self._take_chunk_locked()
+            if chunk:
+                self._dispatch(chunk)
+
+
+def _resolve(future: Future, result=None, error=None):
+    """Resolve a future, tolerating client-side cancellation."""
+    try:
+        if error is not None:
+            future.set_exception(error)
+        else:
+            future.set_result(result)
+    except InvalidStateError:
+        pass      # already cancelled by the client: nothing owed
+
+
+class _Serving:
+    def __init__(self, server: KnnServer):
+        self._server = server
+
+    def __enter__(self):
+        self._server.start()
+        return self._server
+
+    def __exit__(self, *exc):
+        self._server.stop()
+        return False

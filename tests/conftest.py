@@ -22,6 +22,11 @@ import pytest  # noqa: E402
 from repro.parallel.compat import make_mesh  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where there is none")
+
+
 @pytest.fixture(scope="session")
 def mesh8():
     return make_mesh((8,), ("x",))

@@ -1,0 +1,136 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc: it is marked ``cuda`` and
+skips, with its reason, where ``torch.cuda.is_available()`` is false.
+Whether a card exists is decided inside the ``card`` fixture, never at
+import.  Run on a card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import CONFIG
+from repro_torch.kernels import distance_topk as dtk
+from repro_torch.kernels import l2_distance as l2
+from repro_torch.kernels import local_topk as ltk
+from repro_torch.kernels import ops
+from repro_torch.runtime import KnnServer
+
+pytestmark = pytest.mark.cuda
+
+F32 = dict(rtol=1e-4, atol=1e-3)
+INT32_MAX = 2**31 - 1
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA); none on this machine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(card, *shape, seed=0):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=card)
+
+
+@pytest.mark.parametrize("shape", [(32, 8, 4096, 64), (13, 1, 777, 300),
+                                   (4, 3, 96, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_distance_kernel(card, shape, dtype):
+    B, k, m, d = shape
+    q = _randn(card, B, d).to(dtype)
+    p = _randn(card, k, m, d, seed=1).to(dtype)
+    before = l2.COUNT.n
+    out = l2.l2_distance_cuda(q, p)
+    torch.cuda.synchronize()
+    assert l2.COUNT.n == before + 1
+    torch.testing.assert_close(out, l2.l2_distance_plain(q, p), **F32)
+
+
+@pytest.mark.parametrize("shape,l", [((32, 8, 8192, 64), 128),
+                                     ((13, 1, 777, 300), 1),
+                                     ((13, 2, 777, 300), 256),
+                                     ((4, 2, 96, 64), 128)])
+def test_distance_topk_kernel(card, shape, l):
+    B, k, m, d = shape
+    q, p = _randn(card, B, d), _randn(card, k, m, d, seed=2)
+    before = (dtk.COUNT.n, ltk.COUNT.n)
+    v, i = dtk.distance_topk_cuda(q, p, l)
+    torch.cuda.synchronize()
+    # one launch, plus local_topk's merge when the points were chunked
+    merges = int(m > dtk.chunking(B, k, m, card))
+    assert (dtk.COUNT.n, ltk.COUNT.n) == (before[0] + 1, before[1] + merges)
+    rv, ri = dtk.distance_topk_plain(q, p, l)
+    torch.testing.assert_close(v, rv, **F32)
+    fin = torch.isfinite(rv)
+    assert bool((i[~fin] == INT32_MAX).all())
+    full = l2.l2_distance_plain(q, p)
+    true = full.gather(-1, torch.where(fin, i, 0).long())
+    torch.testing.assert_close(torch.where(fin, true, 0.0),
+                               torch.where(fin, v, 0.0), **F32)
+
+
+def test_distance_topk_kernel_masked(card):
+    k, m = 4, 2048
+    q, p = _randn(card, 5, 32), _randn(card, k, m, 32, seed=3)
+    valid = torch.rand((k, m), device=card) > 0.4
+    v, i = dtk.distance_topk_cuda(q, p, 16, valid=valid)
+    rv, ri = dtk.distance_topk_plain(q, p, 16, valid=valid)
+    torch.testing.assert_close(v, rv, **F32)
+    dead = (~valid).unsqueeze(1).expand(k, 5, m).gather(2, i.long())
+    assert not bool(dead.any())
+    v, i = dtk.distance_topk_cuda(q, p, 8,
+                                  valid=torch.zeros_like(valid))
+    assert bool(torch.isinf(v).all()) and bool((i == INT32_MAX).all())
+
+
+@pytest.mark.parametrize("shape,l,launches", [
+    ((256, 65536), 128, 2),     # split rows: chunk launch + merge launch
+    ((32, 1024), 128, 1), ((5, 1000), 256, 1), ((3, 100), 128, 1)])
+def test_local_topk_kernel(card, shape, l, launches):
+    x = _randn(card, *shape, seed=4)
+    before = ltk.COUNT.n
+    v, i = ltk.local_topk_cuda(x, l)
+    torch.cuda.synchronize()
+    assert ltk.COUNT.n == before + launches
+    rv, ri = ltk.local_topk_plain(x, l)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def test_local_topk_kernel_ties(card):
+    x = torch.round(_randn(card, 4, 512, seed=5) * 10) / 10
+    v, i = ltk.local_topk_cuda(x, 32)
+    rv, ri = ltk.local_topk_plain(x, 32)
+    assert torch.equal(i, ri)
+
+
+def test_wrappers_raise_instead_of_falling_back(card):
+    q, p = _randn(card, 4, 16), _randn(card, 64, 16)
+    with pytest.raises(ValueError, match="l=300"):
+        ops.distance_topk(q, p, 300)
+    with pytest.raises(TypeError):
+        ops.l2_distance(q.double(), p.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.local_topk(_randn(card, 64, 8).t(), 4)
+
+
+def test_server_on_the_card_matches_the_cpu(card):
+    pts = np.random.default_rng(0).normal(size=(8 * 2048, 32)).astype(
+        np.float32)
+    cfg = CONFIG.replace(dim=32, l_max=64, bucket_sizes=(4, 8))
+    qs = np.random.default_rng(1).normal(size=(6, 32)).astype(np.float32)
+    ls = [1, 64, 7, 30, 2, 64]
+    for sampler in ("selection", "gather"):
+        gpu = KnnServer(pts, cfg=cfg.replace(sampler=sampler), device=card)
+        cpu = KnnServer(pts, cfg=cfg.replace(sampler=sampler), device="cpu")
+        for a, b in zip(gpu.query_batch(qs, ls), cpu.query_batch(qs, ls)):
+            np.testing.assert_allclose(a.dists, b.dists, **F32)
+    with pytest.raises(ValueError, match="l_max"):
+        KnnServer(pts, cfg=cfg.replace(l_max=257), device=card)

@@ -1,0 +1,217 @@
+"""The port's kernel layer on the CPU against the JAX reference.
+
+``repro_torch.kernels.ref`` and the plain versions of the three ported
+kernels (reached through ``repro_torch.kernels.ops`` with CPU tensors)
+against ``repro.kernels.ops`` (Pallas in interpret mode, as
+tests/conftest.py sets it) and ``repro.kernels.ref``, on the shapes of
+tests/test_kernels.py.  Same inputs, made with numpy from a seed.
+Tolerances are those of tests/test_kernels.py: f32 rtol 1e-4 / atol
+1e-3, bf16 rtol 2e-2 / atol 1.0.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.local_topk import local_topk_plain
+
+SHAPES = [  # (B, d, m)
+    (8, 128, 256),
+    (16, 256, 512),
+    (1, 512, 1024),
+    (13, 300, 777),     # padding path
+    (4, 64, 96),        # padding path
+]
+INT32_MAX = 2**31 - 1
+
+
+def _tol(bf16):
+    return dict(rtol=2e-2, atol=1.0) if bf16 else dict(rtol=1e-4, atol=1e-3)
+
+
+def _inputs(rng, B, d, m, bf16=False):
+    """numpy f32 inputs (bf16-representable when ``bf16``), plus the JAX
+    and torch views of them in the working dtype."""
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    p = rng.normal(size=(m, d)).astype(np.float32)
+    if bf16:
+        q = np.array(jnp.asarray(q, jnp.bfloat16).astype(jnp.float32))
+        p = np.array(jnp.asarray(p, jnp.bfloat16).astype(jnp.float32))
+        jq, jp = jnp.asarray(q, jnp.bfloat16), jnp.asarray(p, jnp.bfloat16)
+        tq = torch.from_numpy(q).to(torch.bfloat16)
+        tp = torch.from_numpy(p).to(torch.bfloat16)
+    else:
+        jq, jp = q, p
+        tq, tp = torch.from_numpy(q), torch.from_numpy(p)
+    return jq, jp, tq, tp
+
+
+def _rows_as_sets(a):
+    return [set(r.tolist()) for r in np.asarray(a)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_l2_distance_matches_jax(rng, shape, bf16):
+    B, d, m = shape
+    jq, jp, tq, tp = _inputs(rng, B, d, m, bf16)
+    want = np.asarray(jops.l2_distance(jq, jp))
+    np.testing.assert_allclose(tops.l2_distance(tq, tp).numpy(), want,
+                               **_tol(bf16))
+    np.testing.assert_allclose(tref.l2_distance_ref(tq, tp).numpy(),
+                               np.asarray(jref.l2_distance_ref(jq, jp)),
+                               **_tol(bf16))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("l", [1, 16, 100])
+def test_distance_topk_matches_jax(rng, shape, l):
+    B, d, m = shape
+    l = min(l, m)
+    jq, jp, tq, tp = _inputs(rng, B, d, m)
+    jv, ji = jops.distance_topk(jq, jp, l)
+    tv, ti = tops.distance_topk(tq, tp, l)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **_tol(False))
+    assert _rows_as_sets(ti) == _rows_as_sets(ji)
+    rv, ri = tref.distance_topk_ref(tq, tp, l)
+    np.testing.assert_allclose(rv.numpy(), np.asarray(jv), **_tol(False))
+    assert _rows_as_sets(ri) == _rows_as_sets(ji)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_distance_topk_bf16_values(rng, shape):
+    """bf16 inputs are upcast at load; values within the bf16 tolerance
+    (id sets are only well defined without bf16 ties)."""
+    B, d, m = shape
+    jq, jp, tq, tp = _inputs(rng, B, d, m, bf16=True)
+    jv, _ = jref.distance_topk_ref(jq, jp, 16)
+    tv, _ = tops.distance_topk(tq, tp, 16)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **_tol(True))
+
+
+@pytest.mark.parametrize("shape", [(8, 512), (5, 1000), (16, 4096)])
+@pytest.mark.parametrize("l", [1, 7, 128])
+def test_local_topk_matches_jax(rng, shape, l):
+    x = rng.normal(size=shape).astype(np.float32)
+    jv, ji = jops.local_topk(x, l)
+    tv, ti = tops.local_topk(torch.from_numpy(x), l)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    rv, ri = tref.local_topk_ref(torch.from_numpy(x), l)
+    np.testing.assert_array_equal(ri.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("l", [255, 256])
+def test_topk_seam(rng, l):
+    """The card's kernels take l <= 256: both sides of the seam agree."""
+    B, d, m = 4, 32, 512
+    jq, jp, tq, tp = _inputs(rng, B, d, m)
+    jv, ji = jops.distance_topk(jq, jp, l)
+    tv, ti = tops.distance_topk(tq, tp, l)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **_tol(False))
+    assert _rows_as_sets(ti) == _rows_as_sets(ji)
+    x = rng.normal(size=(3, 700)).astype(np.float32)
+    jv, ji = jops.local_topk(x, l)
+    tv, ti = tops.local_topk(torch.from_numpy(x), l)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_duplicate_values_stable(rng):
+    """Tie-break parity with lax.top_k: equal values, smaller index first."""
+    x = np.round(rng.normal(size=(4, 512)), 1).astype(np.float32)
+    jv, ji = jops.local_topk(x, 32)
+    tv, ti = tops.local_topk(torch.from_numpy(x), 32)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_distance_topk_exact_ties(rng):
+    """Integer coordinates make every distance exact, so ties are exact
+    in both frameworks: the ids must then match one for one."""
+    q = rng.integers(-2, 3, size=(6, 4)).astype(np.float32)
+    p = rng.integers(-2, 3, size=(300, 4)).astype(np.float32)
+    jv, ji = jops.distance_topk(q, p, 40)
+    tv, ti = tops.distance_topk(torch.from_numpy(q), torch.from_numpy(p), 40)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+def test_local_topk_pads_when_l_exceeds_m(rng):
+    """l > m: the missing slots are (+inf, INT32_MAX), as the reference
+    dispatcher's padded kernel returns them."""
+    x = rng.normal(size=(3, 100)).astype(np.float32)
+    jv, ji = jops.local_topk(x, 128)
+    tv, ti = tops.local_topk(torch.from_numpy(x), 128)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 256), (13, 300, 777)])
+@pytest.mark.parametrize("l", [1, 16])
+def test_masked_distance_topk_matches_jax(rng, shape, l):
+    B, d, m = shape
+    jq, jp, tq, tp = _inputs(rng, B, d, m)
+    valid = rng.random(m) > 0.4
+    jv, ji = jops.distance_topk(jq, jp, l, valid=valid)
+    tv, ti = tops.distance_topk(tq, tp, l, valid=torch.from_numpy(valid))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **_tol(False))
+    assert _rows_as_sets(ti) == _rows_as_sets(ji)
+    dead = set(np.flatnonzero(~valid).tolist())
+    assert not any(r & dead for r in _rows_as_sets(ti))
+    rv, ri = tref.masked_distance_topk_ref(tq, tp, torch.from_numpy(valid),
+                                           l)
+    np.testing.assert_array_equal(ri.numpy(), ti.numpy())
+
+
+def test_masked_distance_topk_all_invalid(rng):
+    """Fully masked shard: all +inf distances, all sentinel ids."""
+    _, _, tq, tp = _inputs(rng, 4, 64, 256)
+    v, i = tops.distance_topk(tq, tp, 8, valid=torch.zeros(256,
+                                                           dtype=torch.bool))
+    assert torch.isinf(v).all()
+    assert (i == INT32_MAX).all()
+
+
+def test_masked_l2_distance_matches_jax(rng):
+    jq, jp, tq, tp = _inputs(rng, 8, 128, 256)
+    valid = rng.random(256) > 0.5
+    want = np.asarray(jops.l2_distance(jq, jp, valid=valid))
+    got = tops.l2_distance(tq, tp, valid=torch.from_numpy(valid)).numpy()
+    np.testing.assert_allclose(got, want, **_tol(False))
+    assert np.all(np.isinf(got[:, ~valid]))
+    np.testing.assert_allclose(
+        tref.masked_l2_distance_ref(tq, tp, torch.from_numpy(valid)).numpy(),
+        want, **_tol(False))
+
+
+def test_shard_dimension_is_one_launch_of_k_problems(rng):
+    """(k, m, d) points give the per-shard answers of (m, d) calls."""
+    _, _, tq, tp = _inputs(rng, 5, 16, 8 * 64)
+    p3 = tp.reshape(8, 64, 16)
+    d3 = tops.l2_distance(tq, p3)
+    v3, i3 = tops.distance_topk(tq, p3, 10)
+    for s in range(8):
+        torch.testing.assert_close(d3[s], tops.l2_distance(tq, p3[s]))
+        v, i = tops.distance_topk(tq, p3[s], 10)
+        torch.testing.assert_close(v3[s], v)
+        assert torch.equal(i3[s], i)
+
+
+def test_dispatch_is_by_device_only():
+    """CPU tensors take the plain version and launch nothing; a device
+    with no kernel raises instead of falling back."""
+    x = torch.arange(16, dtype=torch.float32).flip(0).reshape(2, 8)
+    before = tops.launch_counts()
+    v, i = tops.local_topk(x, 3)
+    assert tops.launch_counts() == before
+    rv, ri = local_topk_plain(x, 3)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    with pytest.raises(ValueError, match="no kernel"):
+        tops.local_topk(torch.zeros(2, 8, device="meta"), 3)
+    env = tops.service_envelope(32, 1024, 64, 128, k=8, device="cpu")
+    assert env["path"] == "plain" and env["dtk_chunk"] is None

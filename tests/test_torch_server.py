@@ -1,0 +1,211 @@
+"""The whole slice on the CPU: the port's KnnServer against the JAX one.
+
+Both servers get the same points (8 x 512, dim 32), queries and
+heterogeneous ls, for both samplers.  Answers: sorted distances within
+f32 tolerance; ids equal, except where the true l-th and (l+1)-th
+distances lie within tolerance, where only the strict interior is
+compared.  Bills: equal for the gather sampler; inside the Theorem-1
+envelope for the selection sampler (the random streams differ).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.knn_service import CONFIG as JCONFIG
+from repro.runtime import KnnServer as JaxServer
+from repro_torch import convert
+from repro_torch.configs import CONFIG
+from repro_torch.runtime import KnnServer
+from repro_torch.runtime import knn_server as tserver
+
+K = 8
+DIM = 32
+N = K * 512
+L_MAX = 16
+KW = dict(dim=DIM, l=8, l_max=L_MAX, bucket_sizes=(4, 8))
+TOL = dict(rtol=1e-4, atol=1e-3)
+INT32_MAX = 2**31 - 1
+
+
+@pytest.fixture(scope="module")
+def pts():
+    return np.random.default_rng(5).normal(size=(N, DIM)).astype(np.float32)
+
+
+def _port(pts, **kw):
+    return KnnServer(pts, cfg=CONFIG.replace(**{**KW, **kw}), shards=K,
+                     device="cpu")
+
+
+def _jax(pts, mesh, **kw):
+    return JaxServer(pts, cfg=JCONFIG.replace(**{**KW, **kw}), mesh=mesh,
+                     axis_name="x")
+
+
+def _brute(points, q):
+    d = ((q[None, :] - points) ** 2).sum(-1)
+    order = np.argsort(d, kind="stable")
+    return d[order], order
+
+
+def _same_answer(points, q, a, b):
+    """Two servers' answers to one request agree (see module docstring),
+    and both equal brute force."""
+    l = a.l
+    assert b.l == l and len(a.ids) == len(b.ids) == l
+    np.testing.assert_allclose(a.dists, b.dists, **TOL)
+    bd, bi = _brute(points, q)
+    np.testing.assert_allclose(a.dists, bd[:l], **TOL)
+    assert np.all(a.ids < N) and np.all(b.ids < N)      # no padding leaks
+    tol = TOL["atol"] + TOL["rtol"] * bd[l - 1]
+    if bd[l] - bd[l - 1] > tol:
+        assert set(a.ids.tolist()) == set(b.ids.tolist()) == set(
+            bi[:l].tolist())
+    else:
+        inner = set(bi[:l][bd[:l] < bd[l - 1] - tol].tolist())
+        assert inner <= set(a.ids.tolist()) and inner <= set(b.ids.tolist())
+
+
+@pytest.mark.parametrize("sampler", ["selection", "gather"])
+def test_server_matches_jax(mesh8, rng, pts, sampler):
+    qs = rng.normal(size=(11, DIM)).astype(np.float32)
+    ls = [1, 3, 16, 7, 12, 16, 2, 9, 5, 16, 1]     # 11 -> buckets 8 + 4
+    jsrv, tsrv = _jax(pts, mesh8, sampler=sampler), _port(pts,
+                                                          sampler=sampler)
+    jres, tres = jsrv.query_batch(qs, ls), tsrv.query_batch(qs, ls)
+    for q, a, b in zip(qs, tres, jres):
+        _same_answer(pts, q, a, b)
+        assert a.bucket == b.bucket
+        if sampler == "gather":
+            assert (a.rounds, a.messages) == (b.rounds, b.messages)
+            assert a.iterations == b.iterations == 0
+        else:
+            assert a.iterations <= 8 * int(np.ceil(np.log2(K * L_MAX))) + 16
+            assert a.survivors >= a.l
+    assert tsrv.stats.snapshot() == {
+        k: v for k, v in jsrv.stats.snapshot().items()
+        if k in ("queries", "batches", "padded_rows", "bucket_counts")}
+    audit = tsrv.obs_snapshot()["audit"]["contract"]
+    assert audit["checks"] == 2 and audit["violations"] == 0
+
+
+def test_accounting_matches_jax(mesh8, pts):
+    """The bill formula is the reference server's _accounting."""
+    from repro_torch.parallel.collectives import accounting
+    for sampler in ("selection", "gather"):
+        jsrv = _jax(pts, mesh8, sampler=sampler)
+        for it in (0, 3, 17):
+            assert accounting(sampler=sampler, iterations=it, touched=K,
+                              l_max=L_MAX, use_sampling=True) == \
+                jsrv._accounting(it, K)
+
+
+def test_server_padding_no_leak(rng, pts):
+    """A query answered alone equals the same query inside a padded batch."""
+    srv = _port(pts)
+    q = rng.normal(size=(DIM,)).astype(np.float32)
+    alone = srv.query_batch(q[None], [16])[0]
+    crowd = srv.query_batch(
+        np.stack([q, *rng.normal(size=(2, DIM)).astype(np.float32)]),
+        [16, 3, 9])[0]
+    np.testing.assert_allclose(alone.dists, crowd.dists, rtol=1e-6)
+    assert set(alone.ids.tolist()) == set(crowd.ids.tolist())
+
+
+def test_determinism_across_fresh_instances(rng, pts):
+    """Same seed => byte-identical answers and iteration counts."""
+    qs = rng.normal(size=(5, DIM)).astype(np.float32)
+    ls = [1, 3, 16, 11, 8]
+    a, b = _port(pts), _port(pts)
+    b.warmup()
+    for ra, rb in zip(a.query_batch(qs, ls), b.query_batch(qs, ls)):
+        assert ra.dists.tobytes() == rb.dists.tobytes()
+        assert np.array_equal(ra.ids, rb.ids)
+        assert ra.iterations == rb.iterations
+        assert ra.host_syncs == rb.host_syncs == ra.iterations + 4
+
+
+def test_values_lookup_with_sentinel_slots(mesh8, rng):
+    """More neighbors than points: sentinel slots map to -1, as in the
+    reference server."""
+    small = rng.normal(size=(K * 2, DIM)).astype(np.float32)
+    vals = np.arange(K * 2, dtype=np.int32) * 3
+    cfg = dict(l_max=32, bucket_sizes=(1,))
+    q = rng.normal(size=(1, DIM)).astype(np.float32)
+    jr = JaxServer(small, vals, cfg=JCONFIG.replace(**{**KW, **cfg}),
+                   mesh=mesh8, axis_name="x").query_batch(q, [32])[0]
+    tr = KnnServer(small, vals, cfg=CONFIG.replace(**{**KW, **cfg}),
+                   device="cpu").query_batch(q, [32])[0]
+    assert np.all(np.isinf(tr.dists[K * 2:]))
+    assert np.all(tr.ids[K * 2:] == INT32_MAX)
+    assert np.array_equal(tr.values, jr.values)
+    assert sorted(tr.values[:K * 2].tolist()) == vals.tolist()
+
+
+def test_rejects_bad_requests(pts):
+    srv = _port(pts)
+    with pytest.raises(ValueError):
+        srv.submit(np.zeros(DIM, np.float32), 0)
+    with pytest.raises(ValueError):
+        srv.submit(np.zeros(DIM, np.float32), L_MAX + 1)
+    with pytest.raises(ValueError):
+        srv.submit(np.zeros(DIM + 1, np.float32), 4)
+    with pytest.raises(ValueError, match="route_compute"):
+        _port(pts, route_compute="gpu")
+    with pytest.raises(ValueError, match="divide"):
+        KnnServer(pts[:-1], cfg=CONFIG.replace(**KW), device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        convert.shards_from_numpy(pts[:-3], K)
+    srv.flush()
+
+
+@pytest.mark.parametrize("knob", [
+    dict(route="pruned"), dict(search="approx"), dict(predict="vote"),
+    dict(obs_trace=True), dict(obs_audit_every=4), dict(obs_http_port=-1),
+    dict(slo_latency_p99_s=0.5), dict(slo_contract_violations=True)])
+def test_out_of_slice_knobs_raise(pts, knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _port(pts, **knob)
+
+
+def test_out_of_slice_arguments_raise(pts):
+    with pytest.raises(NotImplementedError, match="mutable store"):
+        KnnServer(pts, store=object(), cfg=CONFIG.replace(**KW),
+                  device="cpu")
+    with pytest.raises(NotImplementedError, match="prediction"):
+        KnnServer(pts, labels=np.zeros(N, np.float32),
+                  cfg=CONFIG.replace(**KW), device="cpu")
+
+
+def test_device_none_means_the_card(monkeypatch, pts):
+    """No card: device=None raises rather than taking the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KnnServer(pts, cfg=CONFIG.replace(**KW))
+    assert tserver.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_background_batcher_and_stop_drains(rng, pts):
+    """Futures submitted while the micro-batcher runs resolve to the
+    synchronous answers; stop() drains every pending request once."""
+    srv = _port(pts, max_wait_ms=20.0)
+    qs = rng.normal(size=(10, DIM)).astype(np.float32)
+    want = srv.query_batch(qs, [8] * 10)
+    srv.start()
+    futs = [srv.submit(q, 8) for q in qs]
+    srv.stop()
+    assert all(f.done() for f in futs)
+    for f, w in zip(futs, want):
+        np.testing.assert_allclose(f.result(timeout=0).dists, w.dists,
+                                   rtol=1e-6)
+    assert srv.stats.queries == 20
+    with srv.serving():
+        r = srv.submit(qs[0], 8).result(timeout=60)
+    np.testing.assert_allclose(r.dists, want[0].dists, rtol=1e-6)
+
+
+def test_envelopes_report_the_plain_path_on_cpu(pts):
+    srv = _port(pts)
+    assert [e["bucket_b"] for e in srv.envelopes] == [4, 8]
+    assert all(e["path"] == "plain" for e in srv.envelopes)
