@@ -15,9 +15,16 @@ Phases:
      KnnServer.query_batch under both samplers, check every answer
      against a brute-force top-l over all points, and check that each
      sampler's path launched its kernels;
+  3b. serve_routed: the same widths on 8 Gaussian clusters, one a shard,
+     with route="pruned" (device and host routing, both samplers) and
+     search="approx": answers byte-identical to the exact route's and
+     equal to brute force, the device router's rows equal to the host
+     router's, fewer than 8 shards touched a batch, approx recall@l and
+     candidate fraction checked, each path's kernels launched;
   4. time each kernel, its plain version and one PyTorch yardstick call
-     with CUDA events at the phase-3 shapes, beside the least time the
-     card could take for the same work;
+     (where one computes the same function) with CUDA events at the
+     serving shapes, beside the least time the card could take for the
+     same work;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -58,13 +65,15 @@ KERNELS = {
     "local_topk": dict(
         source="src/repro_torch/kernels/csrc/local_topk.cu",
         replaces="src/repro/kernels/local_topk.py:54"),
+    "route_mask": dict(
+        source="src/repro_torch/kernels/csrc/route_mask.cu",
+        replaces="src/repro/kernels/routing.py:226"),
+    "index_mask": dict(
+        source="src/repro_torch/kernels/csrc/index_mask.cu",
+        replaces="src/repro/kernels/routing.py:339"),
 }
-NOT_PORTED = [
-    dict(name="route_mask", replaces="src/repro/kernels/routing.py:226",
-         status="not ported"),
-    dict(name="index_mask", replaces="src/repro/kernels/routing.py:339",
-         status="not ported"),
-]
+# the routed phase's B = 32 routing inputs, kept for phase 4's timing
+ROUTED_INPUTS = {}
 
 
 class PhaseError(RuntimeError):
@@ -235,6 +244,54 @@ def phase_kernels(dev, results):
         main_err.setdefault("local_topk", err)
         log(f"  local_topk rows={rows} m={m} l={l} {dt} {mode or ''}: "
             f"ids equal, max abs {err:.3g}")
+    # route_mask / index_mask: 1, 2 and 4 pivots, l mixing 0 with
+    # 1..128, one empty shard, ragged B; masks must be equal
+    import numpy as np
+    from repro_torch.data import sharded_clusters
+    from repro_torch.kernels import routing as rt
+    from repro_torch.store import IndexMaintainer, build_summaries
+    per = 4096
+    pts, centers = sharded_clusters(K, per, DIM, seed=5, device=dev)
+    valid = np.ones(K * per, bool)
+    valid[2 * per:3 * per] = False
+    rng = np.random.default_rng(5)
+    idx = IndexMaintainer(K, per, DIM, 8)
+    idx.rebuild(pts, valid)
+    ipacked = rt.on_device(rt.pack_index(idx.freeze(0)), dev)
+    for pivots in (1, 2, 4):
+        packed = rt.on_device(rt.pack_summaries(
+            build_summaries(pts, K, valid=valid, num_pivots=pivots)), dev)
+        for b in (B, 5, 1):
+            q = torch.as_tensor(centers[rng.integers(0, K, b)]
+                                + rng.normal(size=(b, DIM)),
+                                dtype=torch.float32, device=dev)
+            ls = torch.as_tensor(rng.integers(0, L + 1, b),
+                                 dtype=torch.int32, device=dev)
+            ls[0] = 0
+            rows = rt.route_mask_cuda(q, ls, packed)
+            torch.cuda.synchronize()
+            want = rt.route_mask_plain(q, ls, packed)
+            if not torch.equal(rows, want):
+                raise PhaseError(f"route_mask pivots={pivots} B={b}: "
+                                 f"differs from the plain version")
+            if bool(rows[0].any()) or bool(rows[:, 2].any()):
+                raise PhaseError("route_mask kept an l=0 row or an empty "
+                                 "shard")
+            gate = rows.clone()
+            gate[:, 5] = 0                       # the gate drops shard 5
+            keep = rt.index_mask_cuda(q, ls, gate, ipacked)
+            torch.cuda.synchronize()
+            if not torch.equal(keep, rt.index_mask_plain(q, ls, gate,
+                                                         ipacked)):
+                raise PhaseError(f"index_mask B={b}: differs from the "
+                                 f"plain version")
+            if bool(keep[:, 40:48].any()):
+                raise PhaseError("index_mask kept a gated-out bucket")
+            log(f"  route_mask pivots={pivots} B={b}: {int(rows.sum())} of "
+                f"{rows.numel()} kept, equal to plain; index_mask: "
+                f"{int(keep.sum())} of {keep.numel()} kept, equal to plain")
+    for name in ("route_mask", "index_mask"):
+        errs[name] = main_err[name] = 0.0        # masks compared equal
     results["max_abs_err"] = main_err
     results["max_abs_err_all_cases"] = errs
 
@@ -353,6 +410,166 @@ def phase_serve(dev, gpu, results):
     torch.cuda.empty_cache()
 
 
+def phase_serve_routed(dev, gpu, results):
+    """Pruned routing and the approx tier at full width, on clusters."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import CONFIG
+    from repro_torch.data import sharded_clusters
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import routing as rt
+    from repro_torch.runtime import KnnServer
+    from repro_torch.store import route_shards
+
+    cfg = CONFIG
+    points, centers = sharded_clusters(K, M, DIM, scale=8.0, seed=43,
+                                       device=dev)
+    rng = np.random.default_rng(43)
+    groups = [32, 5, 2, 1]                  # buckets 32, 8, 2, 1
+    qs_g, ls_g = [], []
+    for size in groups:                     # a burst: one center + N(0, 1)
+        c = centers[int(rng.integers(0, K))]
+        qs_g.append((c + rng.normal(size=(size, DIM))).astype(np.float32))
+        ls_g.append(rng.integers(1, L + 1, size))
+    ls_g[0][0], ls_g[0][1] = 1, L
+    n_req = sum(groups)
+    queries = np.concatenate(qs_g)
+    ls_all = np.concatenate(ls_g)
+    # brute force over all points, for every request
+    truth = []
+    for q, l in zip(queries, ls_all):
+        d = ref.l2_distance_ref(torch.as_tensor(q, device=dev)[None],
+                                points)[0]
+        truth.append(set(torch.topk(d, int(l), largest=False).indices
+                         .cpu().numpy().tolist()))
+
+    pruned = cfg.replace(route="pruned", route_compute="device")
+    runs = [  # name, config, exact twin, kernels the path must launch
+        ("exact_selection", cfg, None, ["distance_topk", "local_topk"]),
+        ("exact_gather", cfg.replace(sampler="gather"), None,
+         ["l2_distance", "local_topk"]),
+        ("a_device_selection", pruned, "exact_selection",
+         ["route_mask", "distance_topk", "local_topk"]),
+        ("b_host_selection", pruned.replace(route_compute="host"),
+         "exact_selection", ["distance_topk", "local_topk"]),
+        ("c_device_gather", pruned.replace(sampler="gather"),
+         "exact_gather", ["route_mask", "l2_distance", "local_topk"]),
+        ("d_device_approx", pruned.replace(search="approx"), None,
+         ["route_mask", "index_mask", "distance_topk", "local_topk"]),
+    ]
+    answers, out = {}, {}
+    launches = {name: 0 for name in KERNELS}
+    for name, rcfg, twin, needs in runs:
+        t0 = time.perf_counter()
+        srv = KnnServer(points, cfg=rcfg, shards=K, device=dev, seed=0)
+        build_s = time.perf_counter() - t0
+        srv.warmup()
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        res, walls = [], []
+        for qg, lg in zip(qs_g, ls_g):
+            t0 = time.perf_counter()
+            res += srv.query_batch(qg, lg.tolist())
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        for kname in needs:
+            if counts[kname] < 1:
+                raise PhaseError(f"{name}: {kname} was never launched")
+        if name.startswith(("a_", "b_", "c_", "d_")):
+            for kname, n in counts.items():
+                launches[kname] += n
+        answers[name] = res
+        steady = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            srv.query_batch(qs_g[0], ls_g[0].tolist())
+            steady.append(time.perf_counter() - t0)
+        steady.sort()
+
+        if twin is not None:
+            for r, w, q, l in zip(res, answers[twin], queries, ls_all):
+                if (r.dists.tobytes() != w.dists.tobytes()
+                        or not np.array_equal(r.ids, w.ids)):
+                    raise PhaseError(f"{name}: an answer differs from the "
+                                     f"exact route's")
+                brute_check(points, torch.as_tensor(q, device=dev), int(l),
+                            r)
+        if rcfg.route == "pruned":
+            if any(r.shards_touched >= K for r in res):
+                raise PhaseError(f"{name}: a batch touched all {K} shards")
+        if name == "a_device_selection":
+            # the device router's rows equal the host router's, per batch
+            packed = rt.on_device(rt.pack_summaries(srv._summaries), dev)
+            for qg, lg in zip(qs_g, ls_g):
+                b = srv._bucket_for(len(qg))
+                qp = np.zeros((b, DIM), np.float32)
+                lp = np.zeros(b, np.int32)
+                qp[:len(qg)], lp[:len(qg)] = qg, lg
+                dev_rows = kops.route_mask(torch.as_tensor(qp, device=dev),
+                                           torch.as_tensor(lp, device=dev),
+                                           packed, slack=rcfg.route_slack)
+                host_rows = route_shards(srv._summaries, qp, lp,
+                                         slack=rcfg.route_slack)
+                if not np.array_equal(dev_rows.cpu().numpy(), host_rows):
+                    raise PhaseError("device routing rows differ from the "
+                                     "host router's")
+        snap = srv.obs_snapshot()
+        if snap["audit"]["contract"]["violations"]:
+            raise PhaseError(f"{name}: contract audit violations")
+        entry = dict(
+            build_s=build_s, requests=n_req, launches=counts,
+            launches_per_request={k: n / n_req for k, n in counts.items()},
+            batches=[dict(bucket=r.bucket, shards_touched=r.shards_touched,
+                          rounds=r.rounds, messages=r.messages,
+                          host_syncs=r.host_syncs, wall_ms=w * 1e3)
+                     for r, w in zip([res[i] for i in (0, 32, 37, 39)],
+                                     walls)],
+            batch32_wall_ms_p50=steady[len(steady) // 2] * 1e3,
+            batch32_wall_ms=[x * 1e3 for x in steady],
+            prune_rate=srv.placement_stats()["prune_rate"])
+        if name == "d_device_approx":
+            cf = snap["metrics"]["serve.candidate_fraction"]
+            recalls = [len(t & set(r.ids.tolist())) / r.l
+                       for t, r in zip(truth, res)]
+            entry.update(candidate_fraction=cf, recall_min=min(recalls),
+                         recall_mean=float(np.mean(recalls)))
+            if min(recalls) < 0.95:
+                raise PhaseError(f"approx recall@l min {min(recalls)} "
+                                 f"< 0.95")
+            if cf["max"] > 1 / 3:
+                raise PhaseError(f"approx candidate fraction {cf['max']} "
+                                 f"> 1/3 on a batch")
+            if any(r.recall_mode != "approx" for r in res):
+                raise PhaseError("approx answers not tagged approx")
+            # phase 4 times the routing kernels on this batch's inputs
+            q32 = torch.as_tensor(qs_g[0], device=dev)
+            l32 = torch.as_tensor(ls_g[0].astype(np.int32), device=dev)
+            rops = rt.on_device(rt.pack_summaries(srv._summaries), dev)
+            ROUTED_INPUTS.update(
+                q=q32, ls=l32, route_ops=rops, slack=rcfg.route_slack,
+                index_ops=rt.on_device(rt.pack_index(srv._index), dev),
+                rows=rt.route_mask_cuda(q32, l32, rops),
+                oversample=rcfg.index_oversample)
+        out[name] = entry
+        log(f"  [{gpu}] {name}: built in {build_s:.2f} s; {n_req} requests"
+            f"{' equal to the exact route and brute force' if twin else ''}"
+            f"; touched {[bt['shards_touched'] for bt in entry['batches']]}"
+            f" a batch, prune rate {entry['prune_rate']:.4f}; launches "
+            f"{counts}; batch of 32 wall p50 "
+            f"{entry['batch32_wall_ms_p50']:.3f} ms")
+        if name == "d_device_approx":
+            log(f"  [{gpu}] {name}: recall@l min {entry['recall_min']:.4f}"
+                f" mean {entry['recall_mean']:.4f}; candidate fraction "
+                f"mean {cf['mean']:.4f} max {cf['max']:.4f}")
+        del srv
+    results["launches_routed"] = launches
+    results["serve_routed"] = out
+    del points
+    torch.cuda.empty_cache()
+
+
 def phase_profile(dev, gpu, results):
     """Where one full bucket's time goes: torch.profiler over one
     query_batch of 32 requests per sampler, after warm-up, beside the
@@ -435,6 +652,27 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel_name, iters=50):
+    """Mean device time of one launch of the kernel whose name contains
+    ``kernel_name``, from torch.profiler over ``iters`` calls of ``fn``:
+    the kernel alone, without the host time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = count = 0
+    for e in prof.key_averages():
+        if kernel_name in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+            count += e.count
+    return total / count / 1e3 if count else None
+
+
 def bound(nbytes, flops):
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
@@ -473,16 +711,47 @@ def phase_timing(dev, results):
             lambda: torch.topk(dmat, L, largest=False),
             4 * B * n + 8 * K * B * L, B * n),
     }
+    # the routing kernels, on the routed phase's bucket of 32
+    from repro_torch.kernels import routing as rt
+    ri = ROUTED_INPUTS
+    rq, rl, rops, iops, rows = (ri["q"], ri["ls"], ri["route_ops"],
+                                ri["index_ops"], ri["rows"])
+    k, m, r = rops[0].shape[1], rops[7].shape[0], rops[3].shape[0]
+    kb = iops[0].shape[1]
+    op_bytes = lambda ops: sum(4 * x.numel() for x in ops)
+    runs["route_mask"] = (
+        lambda: rt.route_mask_cuda(rq, rl, rops, slack=ri["slack"]),
+        lambda: rt.route_mask_plain(rq, rl, rops, slack=ri["slack"]),
+        None, 4 * B * (DIM + 1 + k) + op_bytes(rops),
+        # sub/mul/add per coordinate for k + m*k distances, the r + 1
+        # dots, the bound updates, and the (k^2 + (m k)^2) counts
+        B * (3 * DIM * k * (1 + m) + 2 * DIM * (r + 1)
+             + k * (5 * m + 3 * r + 6) + 3 * m * k
+             + 2 * (k * k + (m * k) ** 2)))
+    runs["index_mask"] = (
+        lambda: rt.index_mask_cuda(rq, rl, rows, iops,
+                                   oversample=ri["oversample"]),
+        lambda: rt.index_mask_plain(rq, rl, rows, iops,
+                                    oversample=ri["oversample"]),
+        None, 4 * B * (DIM + 1 + k + kb) + op_bytes(iops),
+        B * (kb * (3 * DIM + 8) + 2 * kb * kb))
     for name, (kern, plain, lib, nbytes, ops) in runs.items():
-        ms = time_ms(kern, 20)
+        ms = time_ms(kern, 20 if lib else 200)
         plain_ms = time_ms(plain, 5)
-        lib_ms = time_ms(lib, 5)
+        lib_ms = time_ms(lib, 5) if lib else None
         b_ms, by = bound(nbytes, ops)
         timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=b_ms, bound_by=by, bytes=nbytes,
                             operations=ops)
+        if lib is None:
+            # launch-bound: the event loop above times the wrapper's host
+            # work between launches; the profiler gives the kernel alone
+            timing[name]["device_ms"] = device_ms(kern, f"{name}_kernel")
         log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
-            f"{lib_ms:.4f}, bound {b_ms:.4f} by {by})")
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
+            f"{b_ms:.6f} by {by}"
+            + (f", device {timing[name]['device_ms']} ms by the profiler)"
+               if lib is None else ")"))
     results["timing"] = timing
 
 
@@ -512,7 +781,8 @@ def main(argv=None) -> int:
         f"count {torch.cuda.device_count()}")
     results = {"gpu": gpu, "device": torch.cuda.get_device_name(0)}
     phases = [("build", None), ("kernels", phase_kernels),
-              ("serve", phase_serve), ("timing", phase_timing)]
+              ("serve", phase_serve), ("serve_routed", phase_serve_routed),
+              ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
     for name, fn in phases:
@@ -528,7 +798,7 @@ def main(argv=None) -> int:
                                                "smem", "Compiling", "==")):
                         log("  " + line.strip())
                 results["library"] = str(path.relative_to(ROOT))
-            elif name in ("serve", "profile"):
+            elif name in ("serve", "serve_routed", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -545,17 +815,21 @@ def main(argv=None) -> int:
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]
+        by_run = {smp: c[name] for smp, c in
+                  results["launches_by_sampler"].items()}
+        by_run.update({run: e["launches"][name] for run, e in
+                       results["serve_routed"].items()
+                       if run[:2] in ("a_", "b_", "c_", "d_")})
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], status="ported",
-            launches=results["launches"][name],
-            launches_by_sampler={smp: c[name] for smp, c in
-                                 results["launches_by_sampler"].items()},
+            launches=results["launches"][name]
+            + results["launches_routed"][name],
+            launches_by_run=by_run,
             max_abs_err=results["max_abs_err"][name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
-    log(json.dumps({"kernels": kernels, "not_ported": NOT_PORTED,
-                    "gpu": gpu}))
+    log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

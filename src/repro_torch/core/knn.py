@@ -15,6 +15,13 @@ The kernels are reached through ``kernels.ops``, which dispatches by the
 tensors' device: the hand-written kernels for CUDA tensors, their plain
 versions for CPU tensors.  ``knn_simple`` is the paper's baseline
 "simple method": gather every shard's local top-l and reduce.
+
+Three optional masks fold into one ``(k, m)`` valid mask ahead of the
+distance step, and a masked point competes as the paper's +inf fake
+point: ``point_valid`` (live slots), ``shard_active`` (``(k,)``, the
+pruned-routing flag per shard) and ``point_candidates`` (the approx
+index's kept slots).  The mask reaches ``kops.distance_topk(valid=)`` on
+the fused path and ``kops.l2_distance(valid=)`` elsewhere.
 """
 
 from __future__ import annotations
@@ -82,13 +89,43 @@ def local_top_l(d, ids, l: int):
     return v, _gather_ids(ids, idx)
 
 
-def local_distance_top_l(queries, points, point_ids, l: int):
+def local_distance_top_l(queries, points, point_ids, l: int, valid=None):
     """Steps 8 and 2 fused: ``(B, d) x (k, m, d) -> (k, B, l)`` distances
-    and global ids, without the ``(k, B, m)`` matrix (distance_topk)."""
+    and global ids, without the ``(k, B, m)`` matrix (distance_topk).
+    ``valid`` (``(k, m)`` bool) puts masked points at +inf."""
     if points.shape[-2] <= l:
-        return local_top_l(kops.l2_distance(queries, points), point_ids, l)
-    v, idx = kops.distance_topk(queries, points, l)
+        return local_top_l(kops.l2_distance(queries, points, valid=valid),
+                           point_ids, l)
+    v, idx = kops.distance_topk(queries, points, l, valid=valid)
     return v, _gather_ids(point_ids, idx)
+
+
+def _apply_shard_routing(point_valid, shard_active, k: int, m: int):
+    """Fold the ``route="pruned"`` flags (``(k,)`` bool) into the ``(k, m)``
+    point mask: a routed-away shard's points all enter at +inf.  The flags
+    must come from a sound bound on the same point set."""
+    if shard_active is None:
+        return point_valid
+    flag = shard_active.to(torch.bool).reshape(k, 1).expand(k, m)
+    return flag if point_valid is None else point_valid & flag
+
+
+def _fold_candidates(point_valid, point_candidates):
+    """Fold the ``search="approx"`` candidate mask (``(k, m)`` bool) into
+    the point mask.  Unlike the two masks above it is not exact: the
+    caller opts in to a measured recall."""
+    if point_candidates is None:
+        return point_valid
+    pc = point_candidates.to(torch.bool)
+    return pc if point_valid is None else point_valid & pc
+
+
+def _point_mask(points, point_valid, shard_active, point_candidates):
+    k, m = points.shape[0], points.shape[1]
+    if point_valid is not None:
+        point_valid = point_valid.to(torch.bool)
+    valid = _apply_shard_routing(point_valid, shard_active, k, m)
+    return _fold_candidates(valid, point_candidates)
 
 
 def gather_selected(d, gid, mask, l: int):
@@ -120,10 +157,14 @@ def gather_selected(d, gid, mask, l: int):
 
 
 def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
-                  use_sampling, num_pivots, gather_results) -> KnnResult:
+                  use_sampling, num_pivots, gather_results, point_valid=None,
+                  shard_active=None, point_candidates=None) -> KnnResult:
     """Shared Algorithm 2 body: ``l_buf`` is the static per-shard buffer
-    width, ``l_run`` the selection rank (an int or a ``(B,)`` tensor)."""
-    d, gid = local_distance_top_l(queries, points, point_ids, l_buf)
+    width, ``l_run`` the selection rank (an int or a ``(B,)`` tensor);
+    the masks as in the module docstring."""
+    valid = _point_mask(points, point_valid, shard_active, point_candidates)
+    d, gid = local_distance_top_l(queries, points, point_ids, l_buf,
+                                  valid=valid)
     if use_sampling:
         prune = sampling.sample_prune(d, gen, l_run)
     else:
@@ -146,38 +187,51 @@ def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
 
 def knn_query(points, point_ids, queries, l: int, gen: torch.Generator, *,
               use_sampling: bool = True, num_pivots: int = 1,
-              gather_results: bool = True) -> KnnResult:
+              gather_results: bool = True, point_valid=None,
+              shard_active=None, point_candidates=None) -> KnnResult:
     """Full Algorithm 2: ``points`` ``(k, m, dim)``, ``point_ids``
-    ``(k, m)`` int32 globally unique, ``queries`` ``(B, dim)``."""
+    ``(k, m)`` int32 globally unique, ``queries`` ``(B, dim)``.
+    ``point_valid`` / ``point_candidates`` are ``(k, m)`` bool and
+    ``shard_active`` ``(k,)`` bool (module docstring)."""
     return _knn_pipeline(points, point_ids, queries, l, l, gen,
                          use_sampling=use_sampling, num_pivots=num_pivots,
-                         gather_results=gather_results)
+                         gather_results=gather_results,
+                         point_valid=point_valid, shard_active=shard_active,
+                         point_candidates=point_candidates)
 
 
 def knn_query_batched(points, point_ids, queries, l_max: int, l,
                       gen: torch.Generator, *, use_sampling: bool = True,
-                      num_pivots: int = 1,
-                      gather_results: bool = True) -> KnnResult:
+                      num_pivots: int = 1, gather_results: bool = True,
+                      point_valid=None, shard_active=None,
+                      point_candidates=None) -> KnnResult:
     """Algorithm 2 with a per-request neighbor count, the serving form.
 
     Buffers are sized by ``l_max``; ``l`` is a ``(B,)`` int tensor with
     ``0 <= l[b] <= l_max``.  All rows run in lockstep through the same
     Algorithm 1 loop.  Rows with ``l[b] == 0`` (bucket padding) select
-    nothing and come back all +inf / 2**31-1.
+    nothing and come back all +inf / 2**31-1.  Masks as in
+    :func:`knn_query`.
     """
     B = queries.shape[0]
     l = torch.as_tensor(l, dtype=torch.int32, device=queries.device)
     l = torch.clamp(l.expand(B), max=l_max)
     return _knn_pipeline(points, point_ids, queries, l_max, l, gen,
                          use_sampling=use_sampling, num_pivots=num_pivots,
-                         gather_results=gather_results)
+                         gather_results=gather_results,
+                         point_valid=point_valid, shard_active=shard_active,
+                         point_candidates=point_candidates)
 
 
-def knn_simple(points, point_ids, queries, l: int):
+def knn_simple(points, point_ids, queries, l: int, *, point_valid=None,
+               shard_active=None, point_candidates=None):
     """The paper's baseline "simple method" (Section 3): local top-l, then
     gather all k*l candidates and reduce.  Returns replicated ascending
-    ``(B, l)`` distances and ids; +inf slots carry 2**31-1."""
-    d, gid = local_top_l(kops.l2_distance(queries, points), point_ids, l)
+    ``(B, l)`` distances and ids; +inf slots carry 2**31-1.  Masks as in
+    :func:`knn_query`."""
+    valid = _point_mask(points, point_valid, shard_active, point_candidates)
+    d, gid = local_top_l(kops.l2_distance(queries, points, valid=valid),
+                         point_ids, l)
     k, B, _ = d.shape
     flat_d = all_gather(d).transpose(0, 1).reshape(B, k * l)
     flat_i = all_gather(gid).transpose(0, 1).reshape(B, k * l)

@@ -27,12 +27,17 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> (argtypes, restype) of every C entry point
 SIGNATURES = {
     "knn_l2_distance": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "knn_local_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "knn_distance_topk": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P], _I),
+    # q, ls, 11 summary operands, out; B, dim, k, m, r; slack1, errc
+    "knn_route_mask": ([_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
+    # q, ls, rows, bcentsT, bradii, blive, out; B, dim, k, kb; oversample
+    "knn_index_mask": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
 }
 
 _lock = threading.Lock()

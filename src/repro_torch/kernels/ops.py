@@ -1,11 +1,14 @@
-"""Entry points for the distance and top-l kernels, dispatched by device.
+"""Entry points for the distance, top-l and routing kernels, dispatched
+by device.
 
 Port of ``repro.kernels.ops``.  The rule is the tensor's device and
 nothing else: a CPU tensor takes the kernel's plain PyTorch version; a
 CUDA tensor launches the hand-written kernel or raises (a wrong dtype,
 a non-contiguous operand, ``l > 256``).  There is no mode switch that
-sends CUDA tensors to the plain version and no fallback on error.  Each
-wrapper's ``COUNT`` counts its kernel's launches where it launches it;
+sends CUDA tensors to the plain version, no fallback on error, and no
+counterpart of the reference's shape gate that sent unaligned routing
+shapes to jnp: at k = 8 the card runs the routing kernels.  Each
+wrapper's counter counts its kernel's launches where it launches it;
 the plain versions count nothing.
 """
 
@@ -16,9 +19,11 @@ import torch
 from repro_torch.kernels import distance_topk as _dtk
 from repro_torch.kernels import l2_distance as _l2
 from repro_torch.kernels import local_topk as _ltk
+from repro_torch.kernels import routing as _rt
 from repro_torch.kernels._cuda import MAX_L
 
-COUNTERS = {c.name: c for c in (_l2.COUNT, _dtk.COUNT, _ltk.COUNT)}
+COUNTERS = {c.name: c for c in (_l2.COUNT, _dtk.COUNT, _ltk.COUNT,
+                                _rt.ROUTE_COUNT, _rt.INDEX_COUNT)}
 
 
 def _path(entry: str, t: torch.Tensor) -> str:
@@ -56,6 +61,43 @@ def local_topk(values, l: int):
     if _path("local_topk", values) == "cuda":
         return _ltk.local_topk_cuda(values, l)
     return _ltk.local_topk_plain(values, l)
+
+
+def _rows_i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int32).reshape(
+        -1).contiguous()
+
+
+def route_mask(queries, ls, packed, *, slack: float = 1e-4):
+    """``(B, k)`` bool active mask, the ``route_shards`` decision on the
+    device (kernels/routing.py).  ``ls``: ``(B,)`` ranks, 0 for padding
+    rows; ``packed``: ``routing.pack_summaries`` operands (numpy, or
+    tensors already on the queries' device)."""
+    dev = queries.device
+    q = queries.to(torch.float32).contiguous()
+    la = _rows_i32(ls, dev)
+    ops = _rt.on_device(packed, dev)
+    if _path("route_mask", q) == "cuda":
+        out = _rt.route_mask_cuda(q, la, ops, slack=slack)
+    else:
+        out = _rt.route_mask_plain(q, la, ops, slack=slack)
+    return out != 0
+
+
+def index_mask(queries, ls, rows, packed, *, oversample: float = 2.0):
+    """``(B, k*b)`` bool bucket keep, the ``search="approx"`` candidate
+    decision on the device.  ``rows``: the ``(B, k)`` routing keep (bool
+    or int); ``packed``: ``routing.pack_index`` operands."""
+    dev = queries.device
+    q = queries.to(torch.float32).contiguous()
+    la = _rows_i32(ls, dev)
+    r = torch.as_tensor(rows, device=dev).to(torch.int32).contiguous()
+    ops = _rt.on_device(packed, dev)
+    if _path("index_mask", q) == "cuda":
+        out = _rt.index_mask_cuda(q, la, r, ops, oversample=oversample)
+    else:
+        out = _rt.index_mask_plain(q, la, r, ops, oversample=oversample)
+    return out != 0
 
 
 def launch_counts() -> dict:

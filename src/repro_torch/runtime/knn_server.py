@@ -1,15 +1,27 @@
 """Micro-batched distributed l-NN query service over a static point set.
 
-Port of ``repro.runtime.knn_server`` for the static backing with exact
-routing and exact search.  Requests, each with its own l, are coalesced
-into device batches of one of the configured bucket sizes (padding rows
-carry l=0 and select nothing), answered by Algorithm 2
-(``sampler="selection"``) or the paper's simple method
-(``sampler="gather"``) over k shards held on one device, and resolved
-per request in ascending order with the k-machine round/message bill.
+Port of ``repro.runtime.knn_server`` for the static backing.  Requests,
+each with its own l, are coalesced into device batches of one of the
+configured bucket sizes (padding rows carry l=0 and select nothing),
+answered by Algorithm 2 (``sampler="selection"``) or the paper's simple
+method (``sampler="gather"``) over k shards held on one device, and
+resolved per request in ascending order with the k-machine
+round/message bill.
 
     submit(q, l) -> [queue] -> micro-batcher (linger max_wait_ms, pad to
-        bucket) -> core.knn on the device -> QueryResult per request
+        bucket) -> [routing / bucket prologue] -> core.knn on the device
+        -> QueryResult per request
+
+``route="pruned"`` masks the shards whose summaries (``store/summaries``,
+built once from the construction points) prove they hold no winner;
+answers stay byte-identical to ``route="exact"`` and only the touched
+shards pay in the k-machine bill (``QueryResult.shards_touched``).  The
+decision runs on the host in f64 (``route_compute="host"``) or as the
+``route_mask`` kernel (``"device"``), whose per-row mask equals the host
+one.  ``search="approx"`` adds the bucket index (``store/index``): the
+kept buckets' slots are the only candidates, under a measured recall
+(``recall_mode="approx"``); under device routing its keep is the
+``index_mask`` kernel, gated by the ``route_mask`` rows.
 
 The entry point runs on the card: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Tests pass ``device="cpu"``, which takes
@@ -17,9 +29,9 @@ the kernels' plain versions.  A batch's random stream is a
 ``torch.Generator`` seeded from ``(seed, batch_id)``, so two fresh
 servers give byte-identical answers and iteration counts.
 
-Knobs of later slices of the port (the mutable store, pruned routing,
-the approx index, prediction, tracing, shadow audits, SLOs and the HTTP
-endpoint) raise ``NotImplementedError`` naming their ROADMAP item.
+Knobs of later slices of the port (the mutable store, prediction,
+tracing, shadow audits, SLOs and the HTTP endpoint) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -37,9 +49,12 @@ from repro_torch import convert
 from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
 from repro_torch.core import knn as knn_mod
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import routing as routing_mod
 from repro_torch.kernels._cuda import MAX_L
 from repro_torch.obs import ContractAuditor, MetricsRegistry
 from repro_torch.parallel.collectives import accounting
+from repro_torch.store import index as index_mod
+from repro_torch.store import summaries as summaries_mod
 
 _ID_SENTINEL = 2**31 - 1
 _SEED_MIX = 0x9E3779B97F4A7C15
@@ -54,7 +69,12 @@ class QueryResult(NamedTuple):
     where absent.  ``rounds``/``messages`` are the carrying batch's
     k-machine bill (``parallel.collectives.accounting``).
     ``host_syncs`` counts the carrying batch's device-to-host reads: the
-    Algorithm 1 loop's done checks plus the answer readbacks.
+    Algorithm 1 loop's done checks, the answer readbacks and, under
+    device routing, the one readback of the touched shards and kept
+    buckets.  ``generation`` is 0 for a static point set.
+    ``shards_touched``: k under ``route="exact"``, else the batch's union
+    of routed shards.  ``recall_mode``: ``"approx"`` when the answer went
+    through the bucket index, else ``"exact"``.
     """
 
     dists: np.ndarray
@@ -69,6 +89,21 @@ class QueryResult(NamedTuple):
     queued_s: float        # enqueue -> dispatch
     latency_s: float       # enqueue -> result
     host_syncs: int = 0
+    generation: int = 0
+    shards_touched: int = -1
+    recall_mode: str = "exact"
+
+
+class _Batch(NamedTuple):
+    """One device batch, read back to the host."""
+
+    dists: np.ndarray        # (B, l_max)
+    ids: np.ndarray          # (B, l_max)
+    iterations: int
+    survivors: np.ndarray    # (B,)
+    host_syncs: int
+    touched: int
+    candidate_fraction: Optional[float]
 
 
 @dataclasses.dataclass
@@ -80,21 +115,31 @@ class ServerStats:
     batches: int = 0
     padded_rows: int = 0
     bucket_counts: dict = dataclasses.field(default_factory=dict)
+    # route="pruned" batches: summed touched-shard counts and the batches
+    # they came from, the inputs of placement_stats()' prune rate
+    touched_shards: int = 0
+    routed_batches: int = 0
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
-    def observe(self, bucket: int, n_real: int):
+    def observe(self, bucket: int, n_real: int,
+                touched: Optional[int] = None):
         with self._lock:
             self.queries += n_real
             self.batches += 1
             self.padded_rows += bucket - n_real
             self.bucket_counts[bucket] = self.bucket_counts.get(bucket, 0) + 1
+            if touched is not None:
+                self.touched_shards += touched
+                self.routed_batches += 1
 
     def snapshot(self) -> dict:
         with self._lock:
             return {"queries": self.queries, "batches": self.batches,
                     "padded_rows": self.padded_rows,
-                    "bucket_counts": dict(self.bucket_counts)}
+                    "bucket_counts": dict(self.bucket_counts),
+                    "touched_shards": self.touched_shards,
+                    "routed_batches": self.routed_batches}
 
 
 @dataclasses.dataclass
@@ -133,16 +178,15 @@ def _check_config(cfg: KnnServiceConfig) -> None:
     if cfg.predict_mode not in ("exact", "ensemble"):
         raise ValueError(f"predict_mode must be 'exact' or 'ensemble', "
                          f"got {cfg.predict_mode!r}")
+    if cfg.search == "approx" and cfg.index_buckets < 1:
+        raise ValueError(f"search='approx' needs index_buckets >= 1, "
+                         f"got {cfg.index_buckets}")
     if cfg.sampler not in ("selection", "gather"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
     if cfg.distance_impl != "auto":
         raise ValueError(
             f"distance_impl={cfg.distance_impl!r}: the port picks the "
             f"kernel or its plain version by the device; only 'auto'")
-    if cfg.route == "pruned":
-        _later_slice("route='pruned'", 5, "pruned routing")
-    if cfg.search == "approx":
-        _later_slice("search='approx'", 6, "approx index")
     if cfg.predict != "none":
         _later_slice(f"predict={cfg.predict!r}", 7, "prediction")
     for knob in ("obs_trace", "obs_audit_every", "obs_http_port",
@@ -172,6 +216,10 @@ class KnnServer:
     float32 tensor (viewed in place on its device when it is there).
     ``values``: optional ``(n,)`` int payload, looked up on the host.
     ``shards``: k, the counterpart of the reference's mesh axis size.
+
+    ``cfg.route="pruned"`` builds the routing summaries and
+    ``cfg.search="approx"`` the bucket index from the construction
+    points, on their device; both are generation 0 forever.
 
     Synchronous use: ``submit(...)`` then ``flush()``, or ``query_batch``.
     Server use: ``with server.serving(): ...`` runs the micro-batcher
@@ -207,8 +255,9 @@ class KnnServer:
             if values is not None:
                 values = np.asarray(values, np.int32)
         else:
+            pts = np.ascontiguousarray(points, np.float32)
             self._points, self._ids, values = convert.shards_from_numpy(
-                points, self.k, values, device=self.device)
+                pts, self.k, values, device=self.device)
             n = self._ids.numel()
         self._points = self._points.contiguous()
         self._values = values
@@ -220,6 +269,33 @@ class KnnServer:
                                   k=self.k, device=self.device)
             for b in cfg.bucket_sizes]
 
+        # routing summaries and bucket index, built once from the points
+        self._summaries = self._index = None
+        self._route_ops = self._index_ops = None
+        if cfg.route == "pruned":
+            self._summaries = summaries_mod.build_summaries(
+                pts, self.k, num_projections=cfg.route_num_projections,
+                seed=cfg.route_proj_seed, num_pivots=cfg.summary_pivots)
+            if cfg.route_compute == "device":
+                self._route_ops = routing_mod.on_device(
+                    routing_mod.pack_summaries(self._summaries),
+                    self.device)
+        if cfg.search == "approx":
+            idx = index_mod.IndexMaintainer(self.k, self.m_local, self.dim,
+                                            cfg.index_buckets)
+            idx.rebuild(pts)
+            self._index = idx.freeze(0)
+            if self._route_ops is not None:
+                self._index_ops = routing_mod.on_device(
+                    routing_mod.pack_index(self._index), self.device)
+            # slot -> flat bucket column, uploaded once: the batch-union
+            # bucket keep becomes the (k, m) candidate mask on the device
+            colidx, has = index_mod.slot_decode(self._index, self.m_local)
+            self._colidx = torch.from_numpy(colidx).to(self.device).reshape(
+                self.k, self.m_local)
+            self._has = torch.from_numpy(has).to(self.device).reshape(
+                self.k, self.m_local)
+
         self._batch_counter = 0
         self._cv = threading.Condition()
         self._pending: list[_Pending] = []
@@ -229,8 +305,9 @@ class KnnServer:
         self.metrics = MetricsRegistry()
         reg = self.metrics
         self._m = {name: reg.histogram(f"serve.{name}") for name in (
-            "queued_s", "kernel_s", "resolve_s", "dispatch_s", "latency_s",
-            "rounds", "messages", "host_syncs")}
+            "queued_s", "kernel_s", "resolve_s", "dispatch_s",
+            "latency_s", "rounds", "messages", "host_syncs",
+            "touched_shards", "candidate_fraction")}
         self._errors = reg.counter("serve.dispatch_errors")
         self._contract = ContractAuditor(reg, k=self.k)
 
@@ -242,32 +319,85 @@ class KnnServer:
         gen.manual_seed((self.seed * _SEED_MIX + batch_id) % (2**63))
         return gen
 
-    def _run(self, q: np.ndarray, l_arr: np.ndarray, gen):
-        """One batch on the device: host ``(d, i, iterations, survivors,
-        host_syncs)`` with ``d``/``i`` of shape ``(B, l_max)``."""
+    def _prologue(self, q: np.ndarray, l_arr: np.ndarray, qt, lt):
+        """The batch's masks ahead of Algorithm 2: ``(shard_active (k,)
+        bool or None, point_candidates (k, m) bool or None, touched,
+        candidate fraction or None, host_syncs)``.
+
+        Device routing runs ``route_mask`` and, under ``search="approx"``,
+        ``index_mask`` on its rows, then reads the batch unions back in
+        one transfer; host routing runs the f64 ``route_shards`` and
+        ``bucket_keep``.  Both take the union over the batch's rows
+        (padding rows, l = 0, route nowhere)."""
+        cfg = self.cfg
+        active = keep_t = keep_any = act = None
+        syncs = 0
+        if self._route_ops is not None:
+            rows = kops.route_mask(qt, lt, self._route_ops,
+                                   slack=cfg.route_slack)
+            active = rows.any(0)
+            if self._index is not None:
+                keep_t = kops.index_mask(
+                    qt, lt, rows, self._index_ops,
+                    oversample=cfg.index_oversample).any(0)
+                host = torch.cat([active, keep_t]).cpu().numpy()
+                act = host[:self.k]
+                keep_any = host[self.k:].reshape(self.k, -1)
+            else:
+                act = active.cpu().numpy()
+            syncs = 1
+        else:
+            rows = None
+            if cfg.route == "pruned":
+                rows = summaries_mod.route_shards(
+                    self._summaries, q, l_arr, slack=cfg.route_slack)
+                act = rows.any(0)
+                active = torch.from_numpy(act).to(self.device)
+            if self._index is not None:
+                keep_any = index_mod.bucket_keep(
+                    self._index, q, l_arr, shard_keep=rows,
+                    oversample=cfg.index_oversample).any(0)
+                keep_t = torch.from_numpy(keep_any.reshape(-1)).to(
+                    self.device)
+        touched = self.k if act is None else int(act.sum())
+        cand = frac = None
+        if keep_t is not None:
+            cand = keep_t[self._colidx] & self._has
+            frac = index_mod.candidate_fraction(self._index, keep_any)
+        return active, cand, touched, frac, syncs
+
+    def _run(self, q: np.ndarray, l_arr: np.ndarray, gen) -> _Batch:
+        """One batch on the device, read back to the host; ``d``/``i`` of
+        shape ``(B, l_max)``."""
         cfg = self.cfg
         qt = torch.from_numpy(q).to(self.device)
         lt = torch.from_numpy(l_arr).to(self.device)
+        active, cand, touched, frac, syncs = self._prologue(q, l_arr, qt, lt)
+        masks = dict(shard_active=active, point_candidates=cand)
         if cfg.sampler == "selection":
             res = knn_mod.knn_query_batched(
                 self._points, self._ids, qt, cfg.l_max, lt, gen,
-                use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots)
+                use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots,
+                **masks)
             d, i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
             surv = res.prune.survivors.cpu().numpy()
-            return (d, i, res.selection.iterations, surv,
-                    res.selection.host_syncs + 3)
-        sd, si = knn_mod.knn_simple(self._points, self._ids, qt, cfg.l_max)
+            return _Batch(d, i, res.selection.iterations, surv,
+                          res.selection.host_syncs + 3 + syncs, touched, frac)
+        sd, si = knn_mod.knn_simple(self._points, self._ids, qt, cfg.l_max,
+                                    **masks)
         # per-request l: ranks >= l[b] become sentinels
         keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
                 < lt[:, None])
         d = torch.where(keep, sd, float("inf")).cpu().numpy()
         i = torch.where(keep, si, _ID_SENTINEL).cpu().numpy()
-        return d, i, 0, np.zeros(len(q), np.int32), 2
+        return _Batch(d, i, 0, np.zeros(len(q), np.int32), 2 + syncs,
+                      touched, frac)
 
     def warmup(self):
         """Run every bucket shape once, at rank ``cfg.l`` so the Algorithm
-        1 loop runs too: on the card this builds the kernels and loads
-        every CUDA module the path uses before the first request."""
+        1 loop and the routing prologue run too: on the card this builds
+        the kernels and loads every CUDA module the path uses before the
+        first request."""
         for b in self.cfg.bucket_sizes:
             self._run(np.zeros((b, self.dim), np.float32),
                       np.full(b, min(self.cfg.l, self.cfg.l_max), np.int32),
@@ -340,8 +470,7 @@ class KnnServer:
             self._batch_counter += 1
         t_dispatch = time.perf_counter()
         try:
-            d, i, iters, surv, syncs = self._run(q, l_arr,
-                                                 self._generator(batch_id))
+            out = self._run(q, l_arr, self._generator(batch_id))
         except Exception as exc:
             # a failed dispatch must never strand its futures (the chunk
             # already left the queue) or kill the micro-batcher thread
@@ -351,10 +480,13 @@ class KnnServer:
             return
         t_done = time.perf_counter()
 
+        d, i, iters, surv, syncs = out[:5]
         rounds, messages = accounting(
-            sampler=cfg.sampler, iterations=iters, touched=self.k,
+            sampler=cfg.sampler, iterations=iters, touched=out.touched,
             l_max=cfg.l_max, use_sampling=cfg.use_sampling)
-        self.stats.observe(bucket, n)
+        self.stats.observe(
+            bucket, n,
+            touched=out.touched if cfg.route == "pruned" else None)
         # the gather bill charges the static buffer width l_max per peer,
         # so its envelope is checked against that width
         audit_l = (cfg.l_max if cfg.sampler == "gather"
@@ -377,7 +509,10 @@ class KnnServer:
                 iterations=iters, rounds=rounds, messages=messages,
                 survivors=int(surv[row]), bucket=bucket,
                 queued_s=t_dispatch - rec.t_enqueue,
-                latency_s=t_done - rec.t_enqueue, host_syncs=syncs))
+                latency_s=t_done - rec.t_enqueue, host_syncs=syncs,
+                shards_touched=out.touched,
+                recall_mode="approx" if self._index is not None
+                else "exact"))
             self._m["queued_s"].observe(t_dispatch - rec.t_enqueue)
             self._m["latency_s"].observe(time.perf_counter() - rec.t_enqueue)
         t_res1 = time.perf_counter()
@@ -388,14 +523,32 @@ class KnnServer:
         m["rounds"].observe(rounds)
         m["messages"].observe(messages)
         m["host_syncs"].observe(syncs)
+        m["touched_shards"].observe(out.touched)
+        if out.candidate_fraction is not None:
+            m["candidate_fraction"].observe(out.candidate_fraction)
+
+    def placement_stats(self) -> dict:
+        """Routing effectiveness so far: ``prune_rate`` is the fraction of
+        shard visits the routing test avoided over the ``route="pruned"``
+        batches, ``1 - touched / (batches * k)`` (0.0 before the first);
+        ``live_per_shard`` is uniform for a static point set."""
+        snap = self.stats.snapshot()
+        routed = snap["routed_batches"]
+        rate = (1.0 - snap["touched_shards"] / (routed * self.k)
+                if routed else 0.0)
+        return {"placement": "static",
+                "live_per_shard": [self.m_local] * self.k,
+                "routed_batches": routed, "prune_rate": rate}
 
     def obs_snapshot(self) -> dict:
         """Serving counters, this server's metrics, the process-wide
-        kernel launch counts, and the contract audit."""
+        kernel launch counts, the contract audit and the routing
+        effectiveness."""
         return {"server": self.stats.snapshot(),
                 "metrics": self.metrics.snapshot(),
                 "launches": kops.launch_counts(),
-                "audit": {"contract": self._contract.snapshot()}}
+                "audit": {"contract": self._contract.snapshot()},
+                "placement": self.placement_stats()}
 
     # ---- background micro-batcher ----------------------------------------
 

@@ -17,7 +17,9 @@ from repro_torch.kernels import distance_topk as dtk
 from repro_torch.kernels import l2_distance as l2
 from repro_torch.kernels import local_topk as ltk
 from repro_torch.kernels import ops
+from repro_torch.kernels import routing as rt
 from repro_torch.runtime import KnnServer
+from repro_torch.store import IndexMaintainer, build_summaries
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +136,82 @@ def test_server_on_the_card_matches_the_cpu(card):
             np.testing.assert_allclose(a.dists, b.dists, **F32)
     with pytest.raises(ValueError, match="l_max"):
         KnnServer(pts, cfg=cfg.replace(l_max=257), device=card)
+
+
+def _routing_instance(B, pivots, seed=0, k=8, per=256, dim=64):
+    """Clustered points with shard 2 emptied, queries near the centers,
+    l mixing 0 with 1..300; numpy, from a seed."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=8.0, size=(k, dim))
+    pts = (centers[:, None, :] + rng.normal(size=(k, per, dim))).reshape(
+        -1, dim).astype(np.float32)
+    valid = np.ones(k * per, bool)
+    valid[2 * per:3 * per] = False
+    q = (centers[rng.integers(0, k, B)]
+         + rng.normal(size=(B, dim))).astype(np.float32)
+    ls = rng.integers(0, 300, B).astype(np.int32)
+    ls[0] = 0
+    summ = build_summaries(pts, k, valid=valid, num_pivots=pivots)
+    return pts, valid, q, ls, summ
+
+
+@pytest.mark.parametrize("pivots", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 5, 32])
+def test_route_mask_kernel_bit_equal(card, pivots, B):
+    pts, valid, q, ls, summ = _routing_instance(B, pivots, seed=B)
+    packed = rt.on_device(rt.pack_summaries(summ), card)
+    qt = torch.from_numpy(q).to(card)
+    lt = torch.from_numpy(ls).to(card)
+    before = rt.ROUTE_COUNT.n
+    out = rt.route_mask_cuda(qt, lt, packed)
+    torch.cuda.synchronize()
+    assert rt.ROUTE_COUNT.n == before + 1
+    assert torch.equal(out, rt.route_mask_plain(qt, lt, packed))
+    cpu = rt.route_mask_plain(torch.from_numpy(q), torch.from_numpy(ls),
+                              rt.on_device(rt.pack_summaries(summ), "cpu"))
+    assert torch.equal(out.cpu(), cpu)
+    assert not bool(out[0].any()) and not bool(out[:, 2].any())
+
+
+@pytest.mark.parametrize("B", [1, 5, 32])
+def test_index_mask_kernel_bit_equal(card, B):
+    pts, valid, q, ls, summ = _routing_instance(B, 1, seed=10 + B)
+    idx = IndexMaintainer(8, 256, 64, 8)
+    idx.rebuild(pts, valid)
+    packed = rt.on_device(rt.pack_index(idx.freeze(0)), card)
+    qt = torch.from_numpy(q).to(card)
+    lt = torch.from_numpy(ls).to(card)
+    rows = rt.route_mask_cuda(
+        qt, lt, rt.on_device(rt.pack_summaries(summ), card))
+    rows[:, 5] = 0                                 # the gate drops shard 5
+    before = rt.INDEX_COUNT.n
+    out = rt.index_mask_cuda(qt, lt, rows, packed)
+    torch.cuda.synchronize()
+    assert rt.INDEX_COUNT.n == before + 1
+    assert torch.equal(out, rt.index_mask_plain(qt, lt, rows, packed))
+    assert not bool(out[0].any()) and not bool(out[:, 40:48].any())
+
+
+def test_routed_server_on_the_card_matches_the_cpu(card):
+    rng = np.random.default_rng(2)
+    centers = rng.normal(scale=8.0, size=(8, 32))
+    pts = (centers[:, None, :] + rng.normal(size=(8, 1024, 32))).reshape(
+        -1, 32).astype(np.float32)
+    qs = (centers[[0, 3, 5, 5, 1, 7]]
+          + rng.normal(size=(6, 32))).astype(np.float32)
+    ls = [1, 64, 7, 30, 2, 64]
+    base = CONFIG.replace(dim=32, l_max=64, bucket_sizes=(4, 8),
+                          route="pruned", route_compute="device")
+    before = ops.launch_counts()
+    for cfg in (base, base.replace(search="approx"),
+                base.replace(sampler="gather")):
+        gpu = KnnServer(pts, cfg=cfg, device=card).query_batch(qs, ls)
+        cpu = KnnServer(pts, cfg=cfg, device="cpu").query_batch(qs, ls)
+        for a, b in zip(gpu, cpu):
+            np.testing.assert_allclose(a.dists, b.dists, **F32)
+            assert a.shards_touched == b.shards_touched < 8
+    after = ops.launch_counts()
+    # one batch (bucket 8) per server: route_mask in each, index_mask in
+    # the approx one
+    assert after["route_mask"] - before["route_mask"] == 3
+    assert after["index_mask"] - before["index_mask"] == 1
