@@ -7,9 +7,11 @@
 
 Phases:
   1. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc,
-     sm_90a) and print ptxas' register / shared-memory / spill lines;
+     sm_90a), print ptxas' register / shared-memory / spill lines and
+     fail if l2_distance or distance_topk spills;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the main path's shapes and at the edge cases;
+     the main path's shapes and at the edge cases (l2_distance and
+     distance_topk also under the routed phase's 1-of-8-shards mask);
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
@@ -24,7 +26,8 @@ Phases:
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
-     same work;
+     same work; l2_distance and distance_topk also alone (profiler) and
+     with 1 of 8 shards valid, whose bound counts the live shard;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -72,6 +75,9 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/index_mask.cu",
         replaces="src/repro/kernels/routing.py:339"),
 }
+# phase 4's extra numbers for the two distance kernels, on the kernels line
+MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
+               "masked_bound_ms", "masked_bound_by")
 # the routed phase's B = 32 routing inputs, kept for phase 4's timing
 ROUTED_INPUTS = {}
 
@@ -92,7 +98,36 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def spill_bytes(build_log: str) -> dict:
+    """Spill stores + loads per kernel entry, from ptxas -v's lines (the
+    build log is empty when the library was already built)."""
+    import re
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties "
+                        r"for) '?([\w$]+)", line)
+        if hit:
+            fn = hit.group(1)
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit and fn:
+            out[fn] = out.get(fn, 0) + int(hit.group(1)) + int(hit.group(2))
+    return out
+
+
 # ---- phase 2: each kernel against its plain version -----------------------
+
+ROUTED_SHARD = 3       # the one live shard of the routed phase's mask
+
+
+def routed_mask(k, m, dev):
+    """The (k, m) mask of a batch routed to one shard, as the pruned
+    route folds it (core/knn.py): shard ROUTED_SHARD valid, the rest off."""
+    import torch
+    valid = torch.zeros((k, m), dtype=torch.bool, device=dev)
+    valid[ROUTED_SHARD] = True
+    return valid
+
 
 def topk_agree(v, i, rv, ri, full, tol):
     """Kernel (v, i) vs plain (rv, ri) top-l lists, row by row.
@@ -150,24 +185,41 @@ def phase_kernels(dev, results):
 
     errs = {name: 0.0 for name in KERNELS}
     main_err = {}
-    # l2_distance: main shape, ragged edges, bf16
-    for (b, k, m, d, dt) in [(B, K, M, DIM, torch.float32),
-                             (13, 1, 777, 300, torch.float32),
-                             (4, 3, 96, 64, torch.float32),
-                             (B, K, M, DIM, torch.bfloat16),
-                             (13, 2, 777, 300, torch.bfloat16)]:
+    # l2_distance: main shape, ragged edges, bf16, the routed phase's mask
+    # (1 of 8 shards valid) and a random one
+    for (b, k, m, d, dt, mode) in [(B, K, M, DIM, torch.float32, None),
+                                   (13, 1, 777, 300, torch.float32, None),
+                                   (4, 3, 96, 64, torch.float32, None),
+                                   (B, K, M, DIM, torch.bfloat16, None),
+                                   (13, 2, 777, 300, torch.bfloat16, None),
+                                   (B, K, M, DIM, torch.float32, "routed"),
+                                   (B, K, M, DIM, torch.bfloat16, "routed"),
+                                   (5, 3, 777, 64, torch.float32, "random")]:
         q, p = randn(b, d, dtype=dt), randn(k, m, d, dtype=dt)
-        out = l2.l2_distance_cuda(q, p)
+        valid = None
+        if mode == "routed":
+            valid = routed_mask(k, m, dev)
+        elif mode == "random":
+            valid = torch.rand((k, m), generator=g, device=dev) > 0.4
+        out = l2.l2_distance_cuda(q, p, valid=valid)
         torch.cuda.synchronize()
         want = l2.l2_distance_plain(q, p)
+        if valid is not None:
+            want = torch.where(valid.unsqueeze(1), want,
+                               torch.full_like(want, float("inf")))
+            if not torch.equal(torch.isinf(out), torch.isinf(want)):
+                raise PhaseError(f"l2_distance {(b, k, m, d, dt, mode)}: "
+                                 f"+inf entries differ")
         tol = F32_TOL if dt == torch.float32 else BF16_TOL
         if not torch.allclose(out, want, **tol):
-            raise PhaseError(f"l2_distance {(b, k, m, d, dt)}: max abs "
-                             f"{(out - want).abs().max()}")
-        err = float((out - want).abs().max())
+            raise PhaseError(f"l2_distance {(b, k, m, d, dt, mode)}: max "
+                             f"abs {(out - want).abs().max()}")
+        fin = torch.isfinite(want)
+        err = float(torch.where(fin, (out - want).abs(), 0).max())
         errs["l2_distance"] = max(errs["l2_distance"], err)
         main_err.setdefault("l2_distance", err)
-        log(f"  l2_distance B={b} k={k} m={m} d={d} {dt}: max abs {err:.3g}")
+        log(f"  l2_distance B={b} k={k} m={m} d={d} {dt} {mode or ''}: "
+            f"max abs {err:.3g}")
         del out, want
 
     # distance_topk: main shape, l at 1/255/256, ragged, l > m, ties,
@@ -180,7 +232,9 @@ def phase_kernels(dev, results):
              (5, K, 4096, 32, 16, torch.float32, "random"),
              (4, 2, 256, 64, 8, torch.float32, "none"),
              (B, K, 65536, DIM, L, torch.bfloat16, None),
-             (B, K, M, DIM, L, torch.float32, "ties")]
+             (B, K, M, DIM, L, torch.float32, "ties"),
+             (B, K, M, DIM, L, torch.float32, "routed"),
+             (B, K, M, DIM, L, torch.bfloat16, "routed")]
     for (b, k, m, d, l, dt, mode) in cases:
         q = randn(b, d, dtype=dt)
         if mode == "ties":
@@ -193,6 +247,8 @@ def phase_kernels(dev, results):
             valid = torch.rand((k, m), generator=g, device=dev) > 0.4
         elif mode == "none":
             valid = torch.zeros((k, m), dtype=torch.bool, device=dev)
+        elif mode == "routed":
+            valid = routed_mask(k, m, dev)
         v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
         torch.cuda.synchronize()
         rv, ri = dtk.distance_topk_plain(q, p, l, valid=valid)
@@ -207,6 +263,12 @@ def phase_kernels(dev, results):
                 raise PhaseError("tie order: a larger id came first")
         if mode == "none" and not bool((i == INT32_MAX).all()):
             raise PhaseError("all-invalid shard surfaced an id")
+        if mode == "routed" and not (
+                bool(torch.isinf(v[torch.arange(k, device=dev)
+                                   != ROUTED_SHARD]).all())
+                and bool(torch.isfinite(v[ROUTED_SHARD]).all())):
+            raise PhaseError("routed mask: a dead shard surfaced a point "
+                             "or the live shard lacks one")
         if valid is not None and mode == "random":
             dead = ~valid
             fin = torch.isfinite(v)
@@ -735,6 +797,22 @@ def phase_timing(dev, results):
                                     oversample=ri["oversample"]),
         None, 4 * B * (DIM + 1 + k + kb) + op_bytes(iops),
         B * (kb * (3 * DIM + 8) + 2 * kb * kb))
+    # the routed phase's mask: 1 of 8 shards valid; the bound counts the
+    # live shard's points, the uint8 flags and the outputs
+    vmask = routed_mask(K, M, dev)
+    live_flops = 2 * B * M * DIM + 3 * B * M
+    inf = torch.full((K, B, M), float("inf"), device=dev)
+    masked = {
+        "l2_distance": (
+            lambda: l2.l2_distance_cuda(q, p, valid=vmask),
+            lambda: torch.where(vmask.unsqueeze(1), l2.l2_distance_plain(q, p),
+                                inf),
+            4 * (B * DIM + M * DIM) + K * M + 4 * B * n, live_flops),
+        "distance_topk": (
+            lambda: dtk.distance_topk_cuda(q, p, L, valid=vmask),
+            lambda: dtk.distance_topk_plain(q, p, L, valid=vmask),
+            4 * (B * DIM + M * DIM) + K * M + 8 * K * B * L, live_flops),
+    }
     for name, (kern, plain, lib, nbytes, ops) in runs.items():
         ms = time_ms(kern, 20 if lib else 200)
         plain_ms = time_ms(plain, 5)
@@ -752,6 +830,20 @@ def phase_timing(dev, results):
             f"{b_ms:.6f} by {by}"
             + (f", device {timing[name]['device_ms']} ms by the profiler)"
                if lib is None else ")"))
+        if name in masked:
+            # the kernel alone (the wrapper adds distance_topk's merge)
+            timing[name]["kernel_ms"] = device_ms(kern, f"{name}_kernel")
+            mk, mp, mb, mo = masked[name]
+            m_ms, mp_ms = time_ms(mk, 20), time_ms(mp, 5)
+            mb_ms, mby = bound(mb, mo)
+            timing[name].update(
+                masked_ms=m_ms, masked_plain_ms=mp_ms, masked_bound_ms=mb_ms,
+                masked_bound_by=mby,
+                masked_kernel_ms=device_ms(mk, f"{name}_kernel"))
+            log(f"  {name} kernel alone {timing[name]['kernel_ms']:.4f} ms; "
+                f"masked (1 of {K} shards valid): {m_ms:.4f} ms, kernel "
+                f"alone {timing[name]['masked_kernel_ms']:.4f} ms (plain "
+                f"{mp_ms:.4f}, bound {mb_ms:.6f} by {mby})")
     results["timing"] = timing
 
 
@@ -798,6 +890,11 @@ def main(argv=None) -> int:
                                                "smem", "Compiling", "==")):
                         log("  " + line.strip())
                 results["library"] = str(path.relative_to(ROOT))
+                results["spills"] = spills = spill_bytes(_build.build_log)
+                bad = {f: b for f, b in spills.items() if b and any(
+                    k in f for k in ("l2_distance", "distance_topk"))}
+                if bad:
+                    raise PhaseError(f"distance kernels spill: {bad}")
             elif name in ("serve", "serve_routed", "profile"):
                 fn(dev, gpu, results)
             else:
@@ -828,7 +925,8 @@ def main(argv=None) -> int:
             launches_by_run=by_run,
             max_abs_err=results["max_abs_err"][name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=t["library_ms"]))
+            bound_by=t["bound_by"], library_ms=t["library_ms"],
+            **{key: t[key] for key in MASKED_KEYS if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,10 +30,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> (argtypes, restype) of every C entry point
 SIGNATURES = {
-    "knn_l2_distance": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # q, p, valid, out; B, k, m, d, dtype, blocks; stream
+    "knn_l2_distance": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "knn_local_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "knn_distance_topk": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P], _I),
+    # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, dtype; stream
+    "knn_distance_topk": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # q, ls, 11 summary operands, out; B, dim, k, m, r; slack1, errc
     "knn_route_mask": ([_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
     # q, ls, rows, bcentsT, bradii, blive, out; B, dim, k, kb; oversample

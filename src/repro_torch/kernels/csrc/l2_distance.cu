@@ -5,113 +5,161 @@
 // Computes out[s, b, j] = max(|q_b|^2 - 2 q_b.p_sj + |p_sj|^2, 0) for the
 // (B, d) queries against the (k, m, d) points, which are contiguous, so
 // the point axis is one (k*m, d) matrix and each element is written to its
-// shard's (B, m) slab.  Both norms are summed in the same d-loop as the
-// product, as the TPU kernel does, so each operand is read once.
+// shard's (B, m) slab.  With a (k, m) valid mask, masked points come out
+// as +inf (the reference's unfused masked path, done in the kernel).
 //
-// What bounds it on an H100: at the service shapes (B <= 32, d = 64) the
-// arithmetic intensity is about B/2 FLOP per byte of points plus a
-// 4*B*k*m-byte output, far below the f32 SIMT ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/byte for the product alone) once the output is
-// counted: it is bound by the bytes it must move, mostly the output.
-// Design: 32 x 128 output tiles, 256 threads with a 4 x 4 register tile
-// each, d staged through shared memory in steps of 32 with coalesced
-// 128-byte row loads and padded transposed tiles (no bank conflicts);
-// ragged B, k*m and d edges are masked in the kernel, so no padded copies
-// are made.  f32 FMAs only: TF32 is excluded by the port's numerics.
-#include "common.cuh"
+// What bounds it on an H100: at the service shapes (B <= 32, d = 64) it
+// reads 4*k*m*d bytes of points and writes a 4*B*k*m-byte output, at
+// about B/2 FLOP per byte of points: far below the f32 SIMT ridge
+// (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte) once the output is counted,
+// so it is bound by the bytes it must move, mostly the output.
+//
+// Design: the shared distance main loop of distance_tile.cuh (queries
+// resident in shared memory, a 4-slab cp.async ring of point tiles, 4 x 4
+// register tiles, |p|^2 once per point, dead tiles skipped by a block
+// vote) under a persistent grid: a multiple of the SM count of blocks per
+// query tile, block x walking point tiles x, x + gridDim.x, ...  A dead
+// tile writes +inf without reading its points.  The epilogue finds a
+// thread's shard and offset once per tile (one 32-bit division where
+// k*m < 2^31) and stores 16-byte vectors with streaming stores wherever
+// its 4 points share a shard and m % 4 == 0.  f32 FMAs only.
+#include "distance_tile.cuh"
 
 namespace {
 
-constexpr int TB = 32;    // queries per tile
-constexpr int TN = 128;   // points per tile
-constexpr int BK = 32;    // feature dims per shared-memory step
-constexpr int NT = 256;   // threads per block
+using namespace knn::tile;
+
+struct L2Walk {
+  const unsigned char* valid;
+  float* out;
+  int B, m, b0, ntiles;
+  long long N;
+  Lane ln;
+
+  __device__ int first() const {
+    return (int)blockIdx.x < ntiles ? (int)blockIdx.x : -1;
+  }
+  __device__ int next(int g) const {
+    const long long n = (long long)g + gridDim.x;
+    return n < ntiles ? (int)n : -1;
+  }
+  __device__ int step(int g, int i) const {
+    const long long n = (long long)g + (long long)i * gridDim.x;
+    return n < ntiles ? (int)n : -1;
+  }
+  __device__ long long start(int g) const { return (long long)g * TN; }
+  __device__ long long end(int) const { return N; }
+
+  __device__ void store(int g, const float (&v)[4][4]) const {
+    const long long n0 = start(g) + ln.p0;
+    if (n0 >= N) return;
+    long long s, j;
+    if (N < (1LL << 31)) {
+      const unsigned n = (unsigned)n0, mu = (unsigned)m;
+      const unsigned su = n / mu;
+      s = su;
+      j = n - su * mu;
+    } else {
+      s = n0 / m;
+      j = n0 - s * m;
+    }
+    const bool vec = (m & 3) == 0 && j + 3 < m;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = b0 + ln.r0 + 4 * i;
+      if (b >= B) continue;
+      if (vec) {
+        __stcs(reinterpret_cast<float4*>(out + (s * B + b) * m + j),
+               make_float4(v[i][0], v[i][1], v[i][2], v[i][3]));
+        continue;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (n0 + t >= N) break;
+        long long jx = j + t, sx = s;
+        while (jx >= m) {
+          jx -= m;
+          ++sx;
+        }
+        out[(sx * B + b) * m + jx] = v[i][t];
+      }
+    }
+  }
+
+  __device__ void dead(int g) const {
+    float v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v[i][t] = CUDART_INF_F;
+    store(g, v);
+  }
+
+  __device__ void epilogue(int g, const float (&acc)[4][4],
+                           const float* qn, const float* pn) const {
+    const long long n0 = start(g) + ln.p0;
+    bool ok[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      ok[t] = n0 + t < N && (valid == nullptr || valid[n0 + t] != 0);
+    float v[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = qn[ln.r0 + 4 * i];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        v[i][t] = ok[t] ? dist_of(a, acc[i][t], pn[ln.p0 + t])
+                        : CUDART_INF_F;
+    }
+    store(g, v);
+  }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
 l2_distance_kernel(const T* __restrict__ q, const T* __restrict__ p,
+                   const unsigned char* __restrict__ valid,
                    float* __restrict__ out, int B, int k, int m, int d) {
-  __shared__ float qs[BK][TB + 1];
-  __shared__ float ps[BK][TN + 1];
-  const long long N = (long long)k * m;
-  const int tid = threadIdx.x;
-  const int tx = tid % 32;   // point columns tx + 32 * j
-  const int ty = tid / 32;   // query rows ty * 4 + i
-  const long long n0 = (long long)blockIdx.x * TN;
+  extern __shared__ __align__(128) char smem[];
+  const Shared sm = carve<T>(smem, d);
   const int b0 = blockIdx.y * TB;
+  load_queries<T>(sm, q, B, d, b0);
+  const long long N = (long long)k * m;
+  L2Walk w{valid, out, B, m, b0, (int)((N + TN - 1) / TN), N,
+           lane_of(threadIdx.x)};
+  stream<T>(sm, p, d, valid, w);
+}
 
-  float acc[4][4], qn[4], pn[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    qn[i] = 0.f;
-    pn[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    for (int e = tid; e < TB * BK; e += NT) {
-      const int r = e / BK, c = e % BK;
-      const int b = b0 + r, kk = k0 + c;
-      qs[c][r] = (b < B && kk < d) ? knn::to_f32(q[(long long)b * d + kk])
-                                   : 0.f;
-    }
-    for (int e = tid; e < TN * BK; e += NT) {
-      const int r = e / BK, c = e % BK;
-      const long long n = n0 + r;
-      const int kk = k0 + c;
-      ps[c][r] = (n < N && kk < d) ? knn::to_f32(p[n * d + kk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[c][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = ps[c][tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qn[i] = fmaf(a[i], a[i], qn[i]);
-        pn[i] = fmaf(w[i], w[i], pn[i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = b0 + ty * 4 + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long n = n0 + tx + 32 * j;
-      if (n >= N) continue;
-      const long long s = n / m, jj = n % m;
-      out[(s * B + b) * m + jj] = fmaxf(qn[i] - 2.f * acc[i][j] + pn[j], 0.f);
-    }
-  }
+template <typename T>
+int launch(const T* q, const T* p, const unsigned char* valid, float* out,
+           int B, int k, int m, int d, int blocks, cudaStream_t stream) {
+  const size_t bytes = loop_bytes<T>(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      l2_distance_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const long long ntiles = ((long long)k * m + TN - 1) / TN;
+  const long long bx = blocks < ntiles ? blocks : ntiles;
+  dim3 grid((unsigned)bx, (unsigned)((B + TB - 1) / TB));
+  l2_distance_kernel<T><<<grid, NT, bytes, stream>>>(q, p, valid, out, B, k,
+                                                     m, d);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B, d), p: (k, m, d), both f32 or both bf16; out: (k, B, m) f32.
-extern "C" int knn_l2_distance(const void* q, const void* p, float* out,
-                               int B, int k, int m, int d, int dtype,
+// q: (B, d), p: (k, m, d), both f32 or both bf16; valid: (k, m) uint8 or
+// null; out: (k, B, m) f32.  blocks: persistent blocks per query tile.
+extern "C" int knn_l2_distance(const void* q, const void* p,
+                               const unsigned char* valid, float* out, int B,
+                               int k, int m, int d, int dtype, int blocks,
                                void* stream) {
-  const long long N = (long long)k * m;
-  dim3 grid((unsigned)((N + TN - 1) / TN), (unsigned)((B + TB - 1) / TB));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == knn::kBF16) {
-    l2_distance_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(p), out, B, k, m, d);
-  } else {
-    l2_distance_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(p), out, B,
-        k, m, d);
+    return launch(static_cast<const __nv_bfloat16*>(q),
+                  static_cast<const __nv_bfloat16*>(p), valid, out, B, k, m,
+                  d, blocks, s);
   }
-  return (int)cudaGetLastError();
+  return launch(static_cast<const float*>(q), static_cast<const float*>(p),
+                valid, out, B, k, m, d, blocks, s);
 }

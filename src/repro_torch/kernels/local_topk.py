@@ -64,11 +64,12 @@ def launch(values: torch.Tensor, ids, l: int, chunk: int):
 
 
 def merge_partials(pv: torch.Tensor, pi: torch.Tensor, l: int):
-    """``(rows, chunks, l)`` partial lists with ids -> ``(rows, l)``."""
-    rows, nchunks, _ = pv.shape
+    """``(rows, chunks, w)`` partial lists with ids (``w >= l``; one
+    chunk: ``w == l``, already the answer) -> ``(rows, l)``."""
+    rows, nchunks, w = pv.shape
     if nchunks == 1:
         return pv[:, 0], pi[:, 0]
-    width = nchunks * l
+    width = nchunks * w
     v, i = launch(pv.reshape(rows, width), pi.reshape(rows, width), l, width)
     return v[:, 0], i[:, 0]
 

@@ -37,11 +37,11 @@ def _path(entry: str, t: torch.Tensor) -> str:
 def l2_distance(queries, points, *, valid=None):
     """``(B, d) x (m, d) -> (B, m)`` or ``(k, m, d) -> (k, B, m)`` squared
     L2.  ``valid`` (``(m,)`` or ``(k, m)`` bool) puts masked columns at
-    +inf after the kernel, as the reference's unfused path does."""
+    +inf: inside the kernel on the card, after the plain version (as the
+    reference's unfused path does) on the CPU."""
     if _path("l2_distance", queries) == "cuda":
-        out = _l2.l2_distance_cuda(queries, points)
-    else:
-        out = _l2.l2_distance_plain(queries, points)
+        return _l2.l2_distance_cuda(queries, points, valid=valid)
+    out = _l2.l2_distance_plain(queries, points)
     if valid is not None:
         out = torch.where(valid.bool().unsqueeze(-2), out,
                           torch.full_like(out, float("inf")))
@@ -114,15 +114,31 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     """Which path each kernel takes for one service bucket shape, without
     launching anything: ``cuda`` on the card, ``plain`` on the CPU.
 
-    ``dtk_chunk`` is the points per distance_topk block on the card (None
-    on the CPU).  ``l > 256`` has no kernel on the card; the server
-    refuses such a config at construction.
+    On the card, ``dtk_chunk`` is the points per distance_topk chunk and
+    ``dtk_blocks`` its persistent blocks (each walks its chunk in all k
+    shards), and ``l2_blocks`` the persistent l2_distance blocks per
+    query tile; all None on the CPU.  ``l > 256``, or a width whose query
+    tile does not fit in shared memory, has no kernel on the card
+    (``unsupported``): the server refuses ``l_max > 256`` at construction
+    and the wrappers raise on both.
     """
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
-    reason = None if l <= MAX_L or path == "plain" else (
-        f"l={l} > MAX_L={MAX_L}: no kernel")
-    chunk = (_dtk.chunking(bucket_b, k, m_local, dev)
-             if path == "cuda" and reason is None else None)
-    return {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
-            "k": k, "path": path, "dtk_chunk": chunk, "unsupported": reason}
+    env = {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
+           "k": k, "path": path, "dtk_chunk": None, "dtk_blocks": None,
+           "l2_blocks": None, "unsupported": None}
+    if path == "plain":
+        return env
+    smem = _dtk.smem(dim, l, 4)
+    if l > MAX_L:
+        env["unsupported"] = f"l={l} > MAX_L={MAX_L}: no kernel"
+    elif smem > _l2.SMEM_MAX:
+        env["unsupported"] = (f"dim={dim}: {smem} bytes of shared memory a "
+                              f"block > {_l2.SMEM_MAX}: no kernel")
+    else:
+        chunk = _dtk.chunking(bucket_b, k, m_local, dev)
+        sms = _ltk.sm_count(dev.index or 0)
+        env.update(dtk_chunk=chunk, dtk_blocks=-(-m_local // chunk)
+                   * -(-bucket_b // _dtk.QUERY_TILE),
+                   l2_blocks=_l2.BLOCKS_PER_SM * sms)
+    return env

@@ -93,6 +93,96 @@ def test_distance_topk_kernel_masked(card):
     assert bool(torch.isinf(v).all()) and bool((i == INT32_MAX).all())
 
 
+def _mask(card, k, m, mode, seed=0):
+    """A (k, m) valid mask: random, whole shards off, all off, or only
+    shard 3 on (the routed phase's 1 of k)."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    if mode == "random":
+        return torch.rand((k, m), generator=g, device=card) > 0.4
+    v = torch.ones((k, m), dtype=torch.bool, device=card)
+    if mode == "shards":
+        v[::2] = False
+    elif mode == "none":
+        v[:] = False
+    elif mode == "one":
+        v[:] = False
+        v[3 % k] = True
+    return v
+
+
+@pytest.mark.parametrize("mode", ["random", "shards", "none"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2_distance_kernel_masked(card, mode, dtype):
+    k, m, d = 4, 777, 64
+    q = _randn(card, 13, d).to(dtype)
+    p = _randn(card, k, m, d, seed=6).to(dtype)
+    valid = _mask(card, k, m, mode)
+    before = l2.COUNT.n
+    out = l2.l2_distance_cuda(q, p, valid=valid)
+    torch.cuda.synchronize()
+    assert l2.COUNT.n == before + 1
+    want = torch.where(valid.unsqueeze(1), l2.l2_distance_plain(q, p),
+                       torch.full((k, 13, m), float("inf"), device=card))
+    assert torch.equal(torch.isinf(out), torch.isinf(want))
+    torch.testing.assert_close(out, want, **F32)
+    # through the dispatcher: the same kernel, no torch.where after it
+    assert torch.equal(ops.l2_distance(q, p, valid=valid), out)
+
+
+def _topk_close(v, i, rv, ri, full):
+    """Kernel vs plain top-l: values within F32, +inf slots carry the
+    sentinel, every id's true distance matches its value, and the id sets
+    agree on rows whose l-th and (l+1)-th distances are apart."""
+    torch.testing.assert_close(v, rv, **F32)
+    fin = torch.isfinite(rv)
+    assert torch.equal(fin, torch.isfinite(v))
+    assert bool((i[~fin] == INT32_MAX).all())
+    true = full.gather(-1, torch.where(fin, i, 0).long())
+    torch.testing.assert_close(torch.where(fin, true, 0.0),
+                               torch.where(fin, v, 0.0), **F32)
+    l = v.shape[-1]
+    srt = full.sort(-1).values
+    if srt.shape[-1] > l:
+        gap = (srt[..., l] - srt[..., l - 1]) > 1e-3 + 1e-4 * srt[..., l]
+        rows = gap & fin.all(-1)
+        assert torch.equal(i.sort(-1).values[rows], ri.sort(-1).values[rows])
+
+
+def test_distance_topk_kernel_one_shard_valid(card):
+    k, m, d, l = 8, 4096, 64, 128
+    q, p = _randn(card, 32, d), _randn(card, k, m, d, seed=7)
+    valid = _mask(card, k, m, "one")
+    v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
+    rv, ri = dtk.distance_topk_plain(q, p, l, valid=valid)
+    full = torch.where(valid.unsqueeze(1), l2.l2_distance_plain(q, p),
+                       torch.full((k, 32, m), float("inf"), device=card))
+    _topk_close(v, i, rv, ri, full)
+    assert bool(torch.isinf(v[torch.arange(k, device=card) != 3]).all())
+    assert torch.equal(torch.isfinite(v[3]), torch.ones_like(v[3], dtype=bool))
+
+
+@pytest.mark.parametrize("m", [777, 96])
+@pytest.mark.parametrize("B", [1, 5, 32, 33])
+@pytest.mark.parametrize("masked", [False, True])
+def test_distance_kernels_ragged(card, m, B, masked):
+    """m that is no multiple of the tile or the ring, B around the query
+    tile, with and without a mask: both kernels against the plain."""
+    k, d, l = 3, 64, 16
+    q, p = _randn(card, B, d, seed=B), _randn(card, k, m, d, seed=m)
+    valid = _mask(card, k, m, "random", seed=B) if masked else None
+    full = l2.l2_distance_plain(q, p)
+    if masked:
+        full = torch.where(valid.unsqueeze(1), full,
+                           torch.full_like(full, float("inf")))
+    out = l2.l2_distance_cuda(q, p, valid=valid)
+    assert torch.equal(torch.isinf(out), torch.isinf(full))
+    torch.testing.assert_close(out, full, **F32)
+    v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
+    rv, ri = dtk.distance_topk_plain(q, p, l, valid=valid)
+    _topk_close(v, i, rv, ri, full)
+
+
 @pytest.mark.parametrize("shape,l,launches", [
     ((256, 65536), 128, 2),     # split rows: chunk launch + merge launch
     ((32, 1024), 128, 1), ((5, 1000), 256, 1), ((3, 100), 128, 1)])
