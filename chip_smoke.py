@@ -8,10 +8,14 @@
 Phases:
   1. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc,
      sm_90a), print ptxas' register / shared-memory / spill lines and
-     fail if l2_distance or distance_topk spills;
+     local_topk's resident blocks per SM, and fail if l2_distance,
+     distance_topk or local_topk spills;
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes and at the edge cases (l2_distance and
-     distance_topk also under the routed phase's 1-of-8-shards mask);
+     distance_topk also under the routed phase's 1-of-8-shards mask;
+     local_topk bit for bit, also on ragged, negative and signed-zero
+     rows, on real distances and on the merge of a real distance_topk
+     launch's partials, unmasked and under the mask);
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
@@ -28,6 +32,9 @@ Phases:
      serving shapes, beside the least time the card could take for the
      same work; l2_distance and distance_topk also alone (profiler) and
      with 1 of 8 shards valid, whose bound counts the live shard;
+     local_topk's long-row time split into its first pass and its merge,
+     and its merge of distance_topk's partials as a row of its own, both
+     also under the 1-of-8 mask (bounds count what the run's data needs);
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -78,6 +85,17 @@ KERNELS = {
 # phase 4's extra numbers for the two distance kernels, on the kernels line
 MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
                "masked_bound_ms", "masked_bound_by")
+# phase 4's extra numbers for local_topk: the long row's two passes and the
+# merge of distance_topk's partials (the selection path's shape)
+LTK_KEYS = ("first_pass_ms", "merge_pass_ms", "long_row_plan", "merge_ms",
+            "merge_kernel_ms", "merge_plain_ms", "merge_library_ms",
+            "merge_bound_ms", "merge_bound_by", "merge_calls", "merge_plan",
+            "merge_masked_ms", "merge_masked_kernel_ms",
+            "merge_masked_plain_ms", "merge_masked_bound_ms",
+            "merge_masked_bound_by", "merge_masked_calls")
+# distance_topk's unmerged partials at the main shape, unmasked (None) and
+# under the routed mask ("routed"), kept for phase 4
+MERGE_INPUTS = {}
 # the routed phase's B = 32 routing inputs, kept for phase 4's timing
 ROUTED_INPUTS = {}
 
@@ -168,6 +186,37 @@ def topk_agree(v, i, rv, ri, full, tol):
         if len(set(i2[r].tolist())) != l:
             raise PhaseError(f"row {r}: repeated id")
     return float(torch.where(fin, (v - rv).abs(), 0).max())
+
+
+def ltk_plan(rows, m, l, with_ids):
+    """The local_topk launch's plan on this card: blocks per SM (the
+    occupancy API), grid, items and waves."""
+    from repro_torch.kernels import local_topk as ltk
+    bps = ltk.blocks_per_sm(l, 0, with_ids)
+    slots = bps * ltk.sm_count(0)
+    per, nparts, grid = ltk.plan(rows, m, slots)
+    items = -(-rows * m // per)
+    return dict(rows=rows, m=m, blocks_per_sm=bps, grid=grid, items=items,
+                per=per, nparts=nparts, waves=items / slots)
+
+
+def capture_merge(fn):
+    """Runs fn() and returns the partials distance_topk handed to
+    local_topk's merge during it."""
+    from repro_torch.kernels import local_topk as ltk
+    seen, merge = [], ltk.merge_partials
+
+    def keep(pv, pi, l):
+        seen.append((pv.clone(), pi.clone()))
+        return merge(pv, pi, l)
+    ltk.merge_partials = keep
+    try:
+        out = fn()
+    finally:
+        ltk.merge_partials = merge
+    if len(seen) != 1:
+        raise PhaseError(f"distance_topk merged {len(seen)} times")
+    return out, seen[0]
 
 
 def phase_kernels(dev, results):
@@ -282,7 +331,10 @@ def phase_kernels(dev, results):
             f"{mode or ''}: max abs {err:.3g}")
         del full
 
-    # local_topk: the gather path's two shapes, l seam, ties, bf16
+    # local_topk: the gather path's two shapes, l seam, ties, bf16, rows
+    # no multiple of 4 (8 in bf16) long and short, negative values with
+    # -0.0 / +0.0 ties (held against the plain version on the CPU, whose
+    # stable sort compares values)
     for (rows, m, l, dt, mode) in [(K * B, M, L, torch.float32, None),
                                    (B, K * L, L, torch.float32, None),
                                    (5, 1000, 1, torch.float32, None),
@@ -290,14 +342,28 @@ def phase_kernels(dev, results):
                                    (5, 1000, 256, torch.float32, None),
                                    (3, 100, 128, torch.float32, None),
                                    (4, 512, 32, torch.float32, "ties"),
-                                   (8, 4096, 64, torch.bfloat16, None)]:
+                                   (8, 4096, 64, torch.bfloat16, None),
+                                   (7, 100003, 128, torch.float32, None),
+                                   (3, 40001, 128, torch.bfloat16, None),
+                                   (8, 4099, 64, torch.bfloat16, None),
+                                   (6, 50003, 256, torch.float32, "zeros"),
+                                   (K * B, 1001, 64, torch.float32,
+                                    "zeros")]:
         x = randn(rows, m)
         if mode == "ties":
             x = torch.round(x * 10) / 10
+        if mode == "zeros":
+            x = torch.round(x * 2) / 8
+            neg = torch.rand((rows, m), generator=g, device=dev) < 0.5
+            x = torch.where((x == 0) & neg, torch.full_like(x, -0.0), x)
         x = x.to(dt)
         v, i = ltk.local_topk_cuda(x, l)
         torch.cuda.synchronize()
-        rv, ri = ltk.local_topk_plain(x, l)
+        if mode == "zeros":
+            rv, ri = ltk.local_topk_plain(x.cpu(), l)
+            v, i = v.cpu(), i.cpu()
+        else:
+            rv, ri = ltk.local_topk_plain(x, l)
         if not (torch.equal(v, rv) and torch.equal(i, ri)):
             raise PhaseError(f"local_topk {(rows, m, l, dt, mode)}: "
                              f"differs from the plain version")
@@ -306,6 +372,38 @@ def phase_kernels(dev, results):
         main_err.setdefault("local_topk", err)
         log(f"  local_topk rows={rows} m={m} l={l} {dt} {mode or ''}: "
             f"ids equal, max abs {err:.3g}")
+    # local_topk's merge of a real distance_topk launch's partials at the
+    # main shape, unmasked and under the routed mask: bit for bit
+    q, p = randn(B, DIM), randn(K, M, DIM)
+    for mode in (None, "routed"):
+        valid = routed_mask(K, M, dev) if mode else None
+        # the gather sampler's long rows of real distances (+inf rows
+        # where the mask is off)
+        x = l2.l2_distance_cuda(q, p, valid=valid).reshape(K * B, M)
+        v, i = ltk.local_topk_cuda(x, L)
+        rv, ri = ltk.local_topk_plain(x, L)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise PhaseError(f"local_topk on distances {mode}: differs from "
+                             f"the plain version")
+        log(f"  local_topk rows={K * B} m={M} l={L} distances {mode or ''}: "
+            f"values and ids equal")
+        del x
+        (v, i), (pv, pi) = capture_merge(
+            lambda: dtk.distance_topk_cuda(q, p, L, valid=valid))
+        torch.cuda.synchronize()
+        mv, mi = ltk.merge_partials(pv, pi, L)
+        rv, ri = ltk.merge_partials_plain(pv, pi, L)
+        if not (torch.equal(mv, rv) and torch.equal(mi, ri)
+                and torch.equal(v.reshape(-1, L), rv)
+                and torch.equal(i.reshape(-1, L), ri)):
+            raise PhaseError(f"local_topk merge {tuple(pv.shape)} {mode}: "
+                             f"differs from the plain version")
+        fin = torch.isfinite(pv)
+        log(f"  local_topk merge of distance_topk partials "
+            f"{tuple(pv.shape)} {mode or ''}: {int(fin.sum())} finite of "
+            f"{pv.numel()}, values and ids equal")
+        MERGE_INPUTS[mode] = (pv, pi)
+    del q, p
     # route_mask / index_mask: 1, 2 and 4 pivots, l mixing 0 with
     # 1..128, one empty shard, ragged B; masks must be equal
     import numpy as np
@@ -714,10 +812,11 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel_name, iters=50):
-    """Mean device time of one launch of the kernel whose name contains
-    ``kernel_name``, from torch.profiler over ``iters`` calls of ``fn``:
-    the kernel alone, without the host time between launches."""
+def device_ms(fn, kernel_name, iters=50, per_call=False):
+    """Mean device time of one launch (``per_call``: of all launches in
+    one call of ``fn``) of the kernel whose name contains ``kernel_name``,
+    from torch.profiler over ``iters`` calls of ``fn``: the kernel alone,
+    without the host time between launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -732,12 +831,26 @@ def device_ms(fn, kernel_name, iters=50):
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
             count += e.count
-    return total / count / 1e3 if count else None
+    if not count:
+        return None
+    return total / (iters if per_call else count) / 1e3
 
 
 def bound(nbytes, flops):
     t_b, t_f = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def merge_bytes(pv, l):
+    """Bytes the merge of ``(rows, chunks, w)`` partials must move on this
+    data: every value, the id of every pair at or below its row's l-th
+    value (the pairs that can be in the answer, ties included) and the
+    ``(rows, l)`` output of values and ids."""
+    import torch
+    rows = pv.shape[0]
+    flat = pv.reshape(rows, -1)
+    lth = torch.topk(flat, l, dim=1, largest=False).values[:, -1:]
+    return 4 * flat.numel() + 4 * int((flat <= lth).sum()) + 8 * rows * l
 
 
 def phase_timing(dev, results):
@@ -844,6 +957,68 @@ def phase_timing(dev, results):
                 f"masked (1 of {K} shards valid): {m_ms:.4f} ms, kernel "
                 f"alone {timing[name]['masked_kernel_ms']:.4f} ms (plain "
                 f"{mp_ms:.4f}, bound {mb_ms:.6f} by {mby})")
+    # local_topk: the long row's two passes, the long row under the routed
+    # mask (the gather's +inf rows), and the merge of distance_topk's
+    # partials (the selection path's shape), unmasked and masked, as a row
+    # of its own; every bound counts what this data needs
+    t = timing["local_topk"]
+    rows_x = dmat.reshape(K * B, M)
+    pv1, pi1 = ltk.launch(rows_x, None, L)
+    dmask = l2.l2_distance_cuda(q, p, valid=vmask)
+    t.update(first_pass_ms=time_ms(lambda: ltk.launch(rows_x, None, L), 20),
+             merge_pass_ms=time_ms(lambda: ltk.merge_partials(pv1, pi1, L),
+                                   20),
+             long_row_plan=[ltk_plan(K * B, M, L, False),
+                            ltk_plan(K * B, pv1.shape[1] * L, L, True)],
+             kernel_ms=device_ms(lambda: ltk.local_topk_cuda(dmat, L),
+                                 "local_topk_kernel", per_call=True),
+             masked_ms=time_ms(lambda: ltk.local_topk_cuda(dmask, L), 20),
+             masked_kernel_ms=device_ms(lambda: ltk.local_topk_cuda(dmask, L),
+                                        "local_topk_kernel", per_call=True),
+             masked_plain_ms=time_ms(lambda: ltk.local_topk_plain(dmask, L),
+                                     5),
+             masked_bound_ms=t["bound_ms"], masked_bound_by=t["bound_by"])
+    log(f"  local_topk long row: first pass {t['first_pass_ms']:.4f} ms, "
+        f"its merge {t['merge_pass_ms']:.4f} ms, kernels alone "
+        f"{t['kernel_ms']:.4f} ms; masked (1 of {K} shards valid): "
+        f"{t['masked_ms']:.4f} ms, kernels alone {t['masked_kernel_ms']:.4f} "
+        f"ms (plain {t['masked_plain_ms']:.4f}, bound "
+        f"{t['masked_bound_ms']:.6f}); plans {t['long_row_plan']}")
+    del dmask
+    slots = ltk.blocks_per_sm(L, 0, True) * ltk.sm_count(0)
+    for mode, key in ((None, "merge"), ("routed", "merge_masked")):
+        mpv, mpi = MERGE_INPUTS[mode]
+        rows = mpv.shape[0]
+        flat_v, flat_i = mpv.reshape(rows, -1), mpi.reshape(rows, -1)
+
+        def library_merge():
+            v, j = torch.topk(flat_v, L, largest=False)
+            return v, flat_i.gather(1, j)
+        mb_ms, mby = bound(merge_bytes(mpv, L), mpv.numel())
+        merge = lambda: ltk.merge_partials(mpv, mpi, L)   # noqa: E731
+        t.update({
+            f"{key}_ms": time_ms(merge, 20),
+            f"{key}_kernel_ms": device_ms(merge, "local_topk_kernel",
+                                          per_call=True),
+            f"{key}_plain_ms": time_ms(
+                lambda: ltk.merge_partials_plain(mpv, mpi, L), 5),
+            f"{key}_bound_ms": mb_ms, f"{key}_bound_by": mby,
+            # every distance_topk launch merges once (merge_calls: all of
+            # them); the routed runs' merges are under the 1-of-8 mask
+            f"{key}_calls": results["launches_routed"]["distance_topk"]
+            + (results["launches"]["distance_topk"] if mode is None else 0)})
+        if mode is None:
+            widths = [flat_v.shape[1]] + [n * L for _, n, _ in ltk.merge_plans(
+                rows, flat_v.shape[1], L, slots)[:-1]]
+            t.update(merge_library_ms=time_ms(library_merge, 5),
+                     merge_plan=[ltk_plan(rows, w, L, True) for w in widths])
+        log(f"  local_topk merge of distance_topk partials "
+            f"{tuple(mpv.shape)} {mode or ''}: {t[key + '_ms']:.4f} ms "
+            f"(kernel alone {t[key + '_kernel_ms']:.4f}, plain "
+            f"{t[key + '_plain_ms']:.4f}, bound {mb_ms:.6f} by {mby}); "
+            f"{t[key + '_calls']} calls on the main path")
+    log(f"  local_topk merge: library {t['merge_library_ms']:.4f} ms; plans "
+        f"{t['merge_plan']}")
     results["timing"] = timing
 
 
@@ -892,9 +1067,16 @@ def main(argv=None) -> int:
                 results["library"] = str(path.relative_to(ROOT))
                 results["spills"] = spills = spill_bytes(_build.build_log)
                 bad = {f: b for f, b in spills.items() if b and any(
-                    k in f for k in ("l2_distance", "distance_topk"))}
+                    k in f for k in ("l2_distance", "distance_topk",
+                                     "local_topk"))}
                 if bad:
-                    raise PhaseError(f"distance kernels spill: {bad}")
+                    raise PhaseError(f"kernels spill: {bad}")
+                from repro_torch.kernels import local_topk as ltk
+                results["local_topk_blocks_per_sm"] = bps = {
+                    name: ltk.blocks_per_sm(L, code, ids) for name, code, ids
+                    in (("f32", 0, False), ("bf16", 1, False),
+                        ("f32_ids", 0, True))}
+                log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "profile"):
                 fn(dev, gpu, results)
             else:
@@ -926,7 +1108,7 @@ def main(argv=None) -> int:
             max_abs_err=results["max_abs_err"][name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            **{key: t[key] for key in MASKED_KEYS if key in t}))
+            **{key: t[key] for key in MASKED_KEYS + LTK_KEYS if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

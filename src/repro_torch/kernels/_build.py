@@ -28,11 +28,16 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
+_PI = ctypes.POINTER(ctypes.c_int)
 # name -> (argtypes, restype) of every C entry point
 SIGNATURES = {
     # q, p, valid, out; B, k, m, d, dtype, blocks; stream
     "knn_l2_distance": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    "knn_local_topk": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # x, ids, out_v, out_i; rows, m, l; per; nparts, grid, dtype; stream
+    "knn_local_topk": ([_P] * 4 + [_I] * 3 + [_LL] + [_I] * 3 + [_P], _I),
+    # l, dtype, with_ids; out
+    "knn_local_topk_blocks_per_sm": ([_I] * 3 + [_PI], _I),
     # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, dtype; stream
     "knn_distance_topk": ([_P] * 6 + [_I] * 7 + [_P], _I),
     # q, ls, 11 summary operands, out; B, dim, k, m, r; slack1, errc

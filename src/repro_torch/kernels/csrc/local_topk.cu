@@ -4,131 +4,456 @@
 // with the _merge_tile merge of src/repro/kernels/distance_topk.py).
 //
 // On the TPU the point axis was a sequential grid dimension carrying a
-// running (bb, l) buffer in VMEM.  Here a row is split into chunks, one
-// block per (row, chunk); each block keeps its running top-l in shared
-// memory and writes it as a partial, and the wrapper merges the partials
-// with a second launch of the same kernel over the (row, chunks * l)
-// partials with their ids carried.  The same kernel with ids carried is
-// the second pass of distance_topk.
+// running (bb, l) buffer in VMEM.  Here the rows' values, taken as one
+// flattened run of rows * m, are cut into items of `per` values; a block
+// takes items in turn (a persistent grid the wrapper sizes to the card's
+// resident blocks) and writes one partial of l slots for every row segment
+// of its item, at (row, item - the row's first item).  With per == m an
+// item is a row and its partial is the answer; otherwise the wrapper runs
+// the same kernel again over the (row, parts * l) partials with their ids
+// carried.  The same pass merges distance_topk's unmerged row slots.
 //
-// What bounds it on an H100: it reads each value once (4 bytes) and does
-// O(1) work per value after warm-up, so it is bound by bytes.  Design:
-// 256 threads read 1024 consecutive values per round (coalesced); a value
-// becomes a candidate only if its key is below the running l-th key, and
-// candidates are appended to a 2048-slot shared buffer through a shared
-// atomic counter.  When the buffer could overflow, the running region and
-// the candidates are bitonic-sorted together (lexicographic (value, id):
-// ties to the smaller id, as the reference) and the l-th key becomes the
-// new filter.  On random data the candidate rate falls as l / n, so the
-// sorts are few and the skip of the TPU kernel's guarded merge becomes a
-// per-value compare.
+// What bounds it on an H100: it reads each value once (carried ids only
+// where their value passes the filter) and does O(1) work per value after
+// warm-up, so it is bound by bytes.  Design:
+//  - loads are 16-byte cp.async copies (4 f32 or 8 bf16 a thread) into a
+//    warp-private ring in shared memory, STAGES - 1 rounds of 8 values a
+//    thread ahead; a lane reads back only what it copied, so the ring
+//    needs no barrier.  A row's unaligned head and ragged tail go to warp
+//    0 as scalars;
+//  - a round costs one compare per value against the threshold's value
+//    and one warp vote; only a round where some value is at or below it
+//    appends candidates (one ballot per value slot, at the warp-private
+//    count plus the set lanes below), reading each such value's carried
+//    id from device memory.  While that value is +inf (a row of +inf, as
+//    a masked shard's), a value equal to it must also have its whole key
+//    below the threshold, so such a row does not pass whole;
+//  - each warp keeps a private sorted run of run_width(l) keys and its
+//    candidate buffer in shared memory, and the block one 64-bit threshold
+//    key lowered with atomicMin.  A warp merges alone (__syncwarp only)
+//    once it holds ABSORB_AT candidates or could overflow: it drops those
+//    no longer below the threshold, sorts the rest (bitonic), folds them
+//    into its run (the elementwise min of the run and the reversed
+//    candidates is bitonic and holds the run's new keys) and sorts that
+//    with one bitonic merge pass;
+//  - the threshold is the least of any warp's l-th key and the largest
+//    q-th key, q = ceil(l / NW), that the warps publish: each bounds the
+//    block's l-th key from above (l keys lie at or below it), and the
+//    second falls about NW times faster.  The main loop has no block
+//    barrier;
+//  - at a segment's end the warps' runs are folded pairwise (log2 of the
+//    warp count barriers) and the block writes l slots.
+// Keys order exactly as knn::key_lt: the float's bits under the
+// order-preserving map (all bits flipped when the sign is set, else the
+// sign bit) above the id, with -0.0 folded to +0.0 first, so equal values
+// tie to the smaller id.  A key decodes to +0.0 for either zero.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;            // threads per block
-constexpr int ITEMS = 4;           // values per thread per round
-constexpr int ROUND = NT * ITEMS;  // values per round
-constexpr int S = 2048;            // shared (value, id) slots
+typedef unsigned long long u64;
 
-__device__ void merge(float* bv, int* bi, int* cnt, float* thr_v, int* thr_i,
-                      int L2, int l) {
-  const int tid = threadIdx.x;
-  const int n = *cnt + L2;
-  int n_sort = L2;
-  while (n_sort < n) n_sort <<= 1;
-  knn::bitonic_sort(bv, bi, n_sort, tid, NT, knn::BlockSync());
-  // slots past the running region held the larger keys: back to sentinels
-  for (int t = L2 + tid; t < n_sort; t += NT) {
-    bv[t] = CUDART_INF_F;
-    bi[t] = knn::kIntMax;
+constexpr int NW = 8;                 // warps per block
+constexpr int NT = NW * 32;           // threads per block
+constexpr int E = 8;                  // values per thread per round
+constexpr int CAND = 256;             // candidate slots per warp
+constexpr int STAGES = 4;             // rounds a warp's copy ring holds
+constexpr int ABSORB_AT = 64;         // candidates that trigger a merge
+constexpr u64 INF_KEY = 0xFF8000007FFFFFFFull;   // (+inf, INT32_MAX)
+constexpr unsigned FULL = 0xffffffffu;
+static_assert(CAND >= 32 * E, "a round's candidates must fit an empty buffer");
+
+__device__ __forceinline__ u64 make_key(float v, int id) {
+  unsigned b = __float_as_uint(v);
+  if ((b << 1) == 0) b = 0;                      // -0.0 -> +0.0
+  b = (b & 0x80000000u) ? ~b : (b ^ 0x80000000u);
+  return ((u64)b << 32) | (unsigned)id;
+}
+__device__ __forceinline__ float key_value(u64 k) {
+  const unsigned u = (unsigned)(k >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u ^ 0x80000000u) : ~u);
+}
+__device__ __forceinline__ int key_id(u64 k) { return (int)(unsigned)k; }
+
+// Sorts a[0, n) ascending (n a power of two); the warp cooperates.
+__device__ void warp_sort(u64* a, int n, int lane) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = lane; t < (n >> 1); t += 32) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        const int p = i + j;
+        const u64 x = a[i], y = a[p];
+        if ((x > y) == ((i & k) == 0)) {
+          a[i] = y;
+          a[p] = x;
+        }
+      }
+      __syncwarp();
+    }
   }
-  __syncthreads();
-  if (tid == 0) {
-    *cnt = 0;
-    *thr_v = bv[l - 1];
-    *thr_i = bi[l - 1];
-  }
-  __syncthreads();
 }
 
+// run[0, R) sorted <- the R smallest of run and the sorted c[0, n).
+__device__ void fold(u64* run, const u64* c, int n, int R, int lane) {
+  for (int i = lane; i < R; i += 32) {
+    const int j = R - 1 - i;
+    const u64 x = j < n ? c[j] : INF_KEY;
+    if (x < run[i]) run[i] = x;
+  }
+  __syncwarp();
+  for (int j = R >> 1; j > 0; j >>= 1) {        // one bitonic merge pass
+    for (int t = lane; t < (R >> 1); t += 32) {
+      const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+      const int p = i + j;
+      const u64 x = run[i], y = run[p];
+      if (x > y) {
+        run[i] = y;
+        run[p] = x;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+struct Warp {
+  u64* run;
+  u64* cand;
+  u64* thr;     // the block's threshold key
+  u64* pub;     // each warp's run[q - 1], q = ceil(l / NW)
+  int cnt;      // keys in cand
+  int R, l, q, warp, lane;
+};
+
+// Drops the candidates no longer below the block's threshold, sorts the
+// rest, folds them into the warp's run and lowers the threshold to the
+// least of the run's l-th key and the largest q-th key any warp's run
+// publishes (every run holds q keys at or below it: NW * q >= l).
+__device__ __forceinline__ void absorb(Warp& w) {
+  const u64 t = *(volatile u64*)w.thr;
+  u64 k[CAND / 32];
+#pragma unroll
+  for (int i = 0; i < CAND / 32; ++i) {
+    const int idx = i * 32 + w.lane;
+    k[i] = idx < w.cnt ? w.cand[idx] : INF_KEY;
+  }
+  __syncwarp();
+  int n = 0;
+  const unsigned lt = (1u << w.lane) - 1;
+#pragma unroll
+  for (int i = 0; i < CAND / 32; ++i) {
+    const bool keep = k[i] < t;
+    const unsigned bal = __ballot_sync(FULL, keep);
+    if (keep) w.cand[n + __popc(bal & lt)] = k[i];
+    n += __popc(bal);
+  }
+  w.cnt = 0;
+  if (n == 0) return;
+  int n2 = 32;
+  while (n2 < n) n2 <<= 1;
+  for (int i = n + w.lane; i < n2; i += 32) w.cand[i] = INF_KEY;
+  __syncwarp();
+  warp_sort(w.cand, n2, w.lane);
+  fold(w.run, w.cand, n2, w.R, w.lane);
+  if (w.lane == 0) {
+    w.pub[w.warp] = w.run[w.q - 1];
+    u64 most = 0;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const u64 x = ((volatile u64*)w.pub)[i];
+      most = x > most ? x : most;
+    }
+    const u64 own = w.run[w.l - 1];
+    atomicMin(w.thr, own < most ? own : most);
+  }
+  __syncwarp();
+}
+
+// Offers each lane's N values (bit e of ok: value e is at or below the
+// threshold's value) with their columns to the warp's candidates (merging
+// first if they could overflow, and after, from ABSORB_AT on): one ballot
+// per value slot, keys at the warp's count plus the set lanes below;
+// carried ids are read here, for these values alone.  Warp-collective.
+template <int N>
+__device__ __forceinline__ void offer(const float (&v)[N], const int (&col)[N],
+                                      unsigned ok, const int* ids, Warp& w) {
+  if (w.cnt + __reduce_add_sync(FULL, __popc(ok)) > CAND) absorb(w);
+  const unsigned lt = (1u << w.lane) - 1;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const bool mine = (ok >> e) & 1;
+    const unsigned bal = __ballot_sync(FULL, mine);
+    if (bal == 0) continue;
+    if (mine)
+      w.cand[w.cnt + __popc(bal & lt)] =
+          make_key(v[e], ids ? __ldg(ids + col[e]) : col[e]);
+    w.cnt += __popc(bal);
+  }
+  if (w.cnt >= ABSORB_AT) absorb(w);
+}
+
+__device__ __forceinline__ unsigned word(const uint4& q, int k) {
+  return k == 0 ? q.x : k == 1 ? q.y : k == 2 ? q.z : q.w;
+}
+// element e of a 16-byte vector of T, as f32
 template <typename T>
+__device__ __forceinline__ float element(const uint4& q, int e);
+template <>
+__device__ __forceinline__ float element<float>(const uint4& q, int e) {
+  return __uint_as_float(word(q, e));
+}
+template <>
+__device__ __forceinline__ float element<__nv_bfloat16>(const uint4& q,
+                                                        int e) {
+  const unsigned w = word(q, e >> 1);
+  return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One row segment [c0, c1) of row r: every warp offers its rounds, then
+// the warps' runs are folded and the block writes partial slot j.
+template <typename T, bool IDS>
+__device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
+                        float* __restrict__ out_v, int* __restrict__ out_i,
+                        long long r, long long c0, long long c1, long long j,
+                        int m, long long per, int nparts, u64* sm,
+                        uint4* ring, Warp& w) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int U = E / VEC;                     // vectors per thread
+  const int warp = threadIdx.x >> 5;
+  const int R = w.R, l = w.l, lane = w.lane;
+
+  __syncthreads();                  // the previous segment's slots are out
+  for (int i = lane; i < R; i += 32) w.run[i] = INF_KEY;
+  if (lane == 0) w.pub[warp] = INF_KEY;
+  if (threadIdx.x == 0) *w.thr = INF_KEY;
+  w.cnt = 0;
+  __syncthreads();
+
+  const T* xr = x + r * m;
+  const int* ir = IDS ? ids + r * m : nullptr;
+  // columns fit an int (m does); the aligned body is [a, b)
+  int head = (int)(((16 - ((uintptr_t)(xr + c0) & 15)) & 15) / sizeof(T));
+  if (head > c1 - c0) head = (int)(c1 - c0);
+  const int a = (int)c0 + head;
+  const int nv = ((int)c1 - a) / VEC;
+  const int b = a + nv * VEC;
+
+  if (warp == 0) {                  // unaligned head and ragged tail
+    const int ns = head + (int)c1 - b;
+    const int col = lane < head ? (int)c0 + lane : b + lane - head;
+    const bool ok = lane < ns;
+    const float v[1] = {ok ? knn::to_f32(xr[col]) : 0.f};
+    const int c[1] = {col};
+    offer<1>(v, c, ok ? 1u : 0u, ir, w);
+  }
+
+  // the body: STAGES - 1 rounds of copies in flight; a lane reads back
+  // only what it copied, so the ring needs no barrier
+  const uint4* xv = reinterpret_cast<const uint4*>(xr + a);
+  const int rounds = (nv + 32 * U - 1) / (32 * U);
+  auto copy_round = [&](int rd, int st) {
+    if (rd < rounds) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int vi = rd * 32 * U + u * 32 + lane;
+        if (vi < nv) cp_async16(ring + (st * U + u) * 32 + lane, xv + vi);
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) copy_round(warp + st * NW, st);
+  const volatile unsigned* thr_hi =
+      reinterpret_cast<const volatile unsigned*>(w.thr) + 1;
+  int st = 0;
+  for (int rd = warp; rd < rounds; rd += NW) {
+    cp_wait<STAGES - 2>();
+    uint4 cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = ring[(st * U + u) * 32 + lane];
+    copy_round(rd + (STAGES - 1) * NW, st == 0 ? STAGES - 1 : st - 1);
+    st = st == STAGES - 1 ? 0 : st + 1;
+    const unsigned hi = *thr_hi;
+    const float tv =
+        __uint_as_float((hi & 0x80000000u) ? (hi ^ 0x80000000u) : ~hi);
+    const int v0 = rd * 32 * U + lane;
+    unsigned ok = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (v0 + u * 32 < nv && element<T>(cur[u], e) <= tv)
+          ok |= 1u << (u * VEC + e);
+    if (!__any_sync(FULL, ok)) continue;
+    float v[E];
+    int col[E];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        v[u * VEC + e] = element<T>(cur[u], e);
+        col[u * VEC + e] = a + (v0 + u * 32) * VEC + e;
+      }
+    if (__any_sync(FULL, tv == CUDART_INF_F)) {
+      // a row of +inf (a masked shard's): a value equal to the
+      // threshold's passes only if its whole key is below the threshold
+      // (any key at or above the threshold may be dropped)
+      const u64 tk = *(const volatile u64*)w.thr;
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        if (((ok >> i) & 1) && v[i] == tv &&
+            make_key(v[i], IDS ? __ldg(ir + col[i]) : col[i]) >= tk)
+          ok &= ~(1u << i);
+      if (!__any_sync(FULL, ok)) continue;
+    }
+    offer<E>(v, col, ok, ir, w);
+  }
+  cp_wait<0>();
+  if (w.cnt) absorb(w);
+  __syncthreads();
+  const int stride = R + CAND;
+  for (int s = 1; s < NW; s <<= 1) {
+    if ((warp & (2 * s - 1)) == 0) fold(w.run, w.run + s * stride, R, R, lane);
+    __syncthreads();
+  }
+
+  const long long o = (r * nparts + j) * l;
+  for (int t = threadIdx.x; t < l; t += NT) {
+    out_v[o + t] = key_value(sm[t]);
+    out_i[o + t] = key_id(sm[t]);
+  }
+  if (c0 == 0) {     // the row's first segment fills the slots none fills
+    const long long items =
+        (r * m + m - 1) / per - (r * m) / per + 1;
+    const long long f = (r * nparts + items) * l;
+    for (long long t = threadIdx.x; t < (nparts - items) * l; t += NT) {
+      out_v[f + t] = CUDART_INF_F;
+      out_i[f + t] = knn::kIntMax;
+    }
+  }
+}
+
+template <typename T, bool IDS>
 __global__ void __launch_bounds__(NT)
 local_topk_kernel(const T* __restrict__ x, const int* __restrict__ ids,
                   float* __restrict__ out_v, int* __restrict__ out_i, int m,
-                  int l, int L2, int chunk, int nchunks) {
-  __shared__ float bv[S];
-  __shared__ int bi[S];
-  __shared__ int cnt;
-  __shared__ float thr_v;
-  __shared__ int thr_i;
-  const int tid = threadIdx.x;
-  const long long row = blockIdx.x / nchunks;
-  const int c = blockIdx.x % nchunks;
-  const long long c0 = (long long)c * chunk;
-  const long long c1 = min(c0 + chunk, (long long)m);
-
-  for (int t = tid; t < S; t += NT) {
-    bv[t] = CUDART_INF_F;
-    bi[t] = knn::kIntMax;
-  }
-  if (tid == 0) {
-    cnt = 0;
-    thr_v = CUDART_INF_F;
-    thr_i = knn::kIntMax;
-  }
-  __syncthreads();
-
-  const T* xr = x + row * m;
-  const int* ir = ids ? ids + row * m : nullptr;
-  for (long long base = c0; base < c1; base += ROUND) {
-    if (cnt > S - L2 - ROUND) merge(bv, bi, &cnt, &thr_v, &thr_i, L2, l);
-    const float tv = thr_v;
-    const int ti = thr_i;
-#pragma unroll
-    for (int t = 0; t < ITEMS; ++t) {
-      const long long col = base + t * NT + tid;
-      if (col < c1) {
-        const float v = knn::to_f32(xr[col]);
-        const int id = ir ? ir[col] : (int)col;
-        if (knn::key_lt(v, id, tv, ti)) {
-          const int pos = atomicAdd(&cnt, 1);
-          bv[L2 + pos] = v;
-          bi[L2 + pos] = id;
-        }
-      }
+                  int l, int R, long long per, int nparts, long long total) {
+  static_assert(!IDS || sizeof(T) == 4, "ids ride with f32 values only");
+  constexpr int U = E / (16 / sizeof(T));
+  extern __shared__ uint4 smem[];
+  const int warp = threadIdx.x >> 5;
+  uint4* ring = smem + warp * STAGES * U * 32;
+  u64* sm = reinterpret_cast<u64*>(smem + NW * STAGES * U * 32);
+  Warp w;
+  w.run = sm + warp * (R + CAND);
+  w.cand = w.run + R;
+  w.thr = sm + NW * (R + CAND);
+  w.pub = w.thr + 1;
+  w.cnt = 0;
+  w.R = R;
+  w.l = l;
+  w.q = (l + NW - 1) / NW;
+  w.warp = warp;
+  w.lane = threadIdx.x & 31;
+  const long long items = (total + per - 1) / per;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long ie = min(item * per + per, total);
+    for (long long s = item * per; s < ie;) {
+      const long long r = s / m;
+      const long long c0 = s - r * m;
+      const long long c1 = min((long long)m, c0 + (ie - s));
+      segment<T, IDS>(x, ids, out_v, out_i, r, c0, c1, item - (r * m) / per,
+                      m, per, nparts, sm, ring, w);
+      s += c1 - c0;
     }
-    __syncthreads();
   }
-  merge(bv, bi, &cnt, &thr_v, &thr_i, L2, l);
+}
 
-  const long long o = (row * nchunks + c) * l;
-  for (int t = tid; t < l; t += NT) {
-    out_v[o + t] = bv[t];
-    out_i[o + t] = bi[t];
-  }
+// dynamic shared memory: the warps' copy rings, then their runs and
+// candidates, the threshold key and the warps' published keys
+size_t smem_bytes(int R, int elem_bytes) {
+  return (size_t)NW * STAGES * 32 * E * elem_bytes +
+         sizeof(u64) * ((size_t)NW * (R + CAND + 1) + 1);
+}
+
+template <typename T, bool IDS>
+cudaError_t prepare(size_t smem) {
+  return cudaFuncSetAttribute(local_topk_kernel<T, IDS>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
 
-// x: (rows, m) f32 or bf16; ids: (rows, m) int32 or null (ids = column);
-// out: (rows, ceil(m / chunk), l) partials, ascending within each chunk.
-// Slots a chunk cannot fill are (+inf, INT32_MAX).
+// x: (rows, m) f32 or bf16; ids: (rows, m) int32 or null (ids = column;
+// carried ids need f32 values).  The rows, flattened, are cut into items of `per` values that
+// `grid` blocks take in turn; out: (rows, nparts, l), one ascending
+// partial per (row, item the row meets), slot j = item - (row * m) / per.
+// nparts must be at least the most items a row meets; slots no item fills
+// are (+inf, INT32_MAX).
 extern "C" int knn_local_topk(const void* x, const int* ids, float* out_v,
-                              int* out_i, int rows, int m, int l, int chunk,
-                              int dtype, void* stream) {
-  const int nchunks = (m + chunk - 1) / chunk;
-  const int L2 = knn::run_width(l);
-  dim3 grid((unsigned)((long long)rows * nchunks));
+                              int* out_i, int rows, int m, int l,
+                              long long per, int nparts, int grid, int dtype,
+                              void* stream) {
+  const int R = knn::run_width(l);
+  const size_t smem = smem_bytes(R, dtype == knn::kBF16 ? 2 : 4);
+  const long long total = (long long)rows * m;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == knn::kBF16) {
-    local_topk_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), ids, out_v, out_i, m, l, L2,
-        chunk, nchunks);
+  cudaError_t e;
+  if (ids != nullptr) {
+    if (dtype != knn::kF32) return (int)cudaErrorInvalidValue;
+    if ((e = prepare<float, true>(smem)) != cudaSuccess) return (int)e;
+    local_topk_kernel<float, true><<<grid, NT, smem, s>>>(
+        static_cast<const float*>(x), ids, out_v, out_i, m, l, R, per, nparts,
+        total);
+  } else if (dtype == knn::kBF16) {
+    if ((e = prepare<__nv_bfloat16, false>(smem)) != cudaSuccess) return (int)e;
+    local_topk_kernel<__nv_bfloat16, false><<<grid, NT, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), nullptr, out_v, out_i, m, l, R,
+        per, nparts, total);
   } else {
-    local_topk_kernel<float><<<grid, NT, 0, s>>>(
-        static_cast<const float*>(x), ids, out_v, out_i, m, l, L2, chunk,
-        nchunks);
+    if ((e = prepare<float, false>(smem)) != cudaSuccess) return (int)e;
+    local_topk_kernel<float, false><<<grid, NT, smem, s>>>(
+        static_cast<const float*>(x), nullptr, out_v, out_i, m, l, R, per,
+        nparts, total);
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the variant knn_local_topk launches for l,
+// dtype and ids, from the occupancy API (registers and shared memory).
+extern "C" int knn_local_topk_blocks_per_sm(int l, int dtype, int with_ids,
+                                            int* out) {
+  const size_t smem = smem_bytes(knn::run_width(l),
+                                 dtype == knn::kBF16 ? 2 : 4);
+  cudaError_t e;
+  if (with_ids) {
+    if ((e = prepare<float, true>(smem)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, local_topk_kernel<float, true>, NT, smem);
+  } else if (dtype == knn::kBF16) {
+    if ((e = prepare<__nv_bfloat16, false>(smem)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, local_topk_kernel<__nv_bfloat16, false>, NT, smem);
+  } else {
+    if ((e = prepare<float, false>(smem)) != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, local_topk_kernel<float, false>, NT, smem);
+  }
+  return (int)e;
 }

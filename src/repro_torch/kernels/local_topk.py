@@ -2,14 +2,19 @@
 plain PyTorch version.
 
 Port of ``repro.kernels.local_topk`` (Pallas).  The kernel is
-``csrc/local_topk.cu``.  A long row is split into chunks, one block per
-(row, chunk), so that enough blocks fill the card; a second launch of the
-same kernel merges the chunks' partial top-l lists with their indices
-carried.  Ties go to the smaller index, as ``lax.top_k`` does.
+``csrc/local_topk.cu``.  The rows, flattened, are cut into items of equal
+size that a persistent grid of exactly the card's resident blocks takes
+in turn (:func:`plan`), so a long row is split over several blocks and
+the launch is one whole wave; a block writes one partial top-l list per
+row segment of its item.  Further launches of the same kernel merge the
+partials with their indices carried (:func:`merge_partials`), as they
+merge distance_topk's partials.  Ties go to the smaller index, as
+``lax.top_k`` does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -18,13 +23,58 @@ from repro_torch.kernels import _build, _cuda, ref
 
 COUNT = _cuda.LaunchCounter("local_topk")
 
-BLOCKS_PER_SM = 8      # 16 KB of shared memory and 256 threads a block
-MIN_CHUNK = 4096       # columns below which a row is not split
+SPLIT_MIN = 16384      # a row shorter than this is one block's item
+MIN_SHARE = 4096       # values a block takes at least when rows are split
 
 
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(l: int, dtype_code: int, with_ids: bool) -> int:
+    """Resident blocks per SM of the kernel variant, from the occupancy
+    API (its registers and its shared memory at this l)."""
+    out = ctypes.c_int(0)
+    _cuda.ok("local_topk", _build.library().knn_local_topk_blocks_per_sm(
+        l, dtype_code, int(with_ids), ctypes.byref(out)))
+    if out.value < 1:
+        raise RuntimeError(f"local_topk: no block fits an SM at l={l}")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def plan(rows: int, m: int, slots: int):
+    """``(per, nparts, grid)`` of one launch over ``(rows, m)`` values on
+    a card with ``slots`` resident blocks.
+
+    Rows of fewer than ``SPLIT_MIN`` values, or at least ``slots`` rows,
+    are items of their own (``per == m``, one partial a row, the answer).
+    Otherwise the ``rows * m`` values are cut into ``grid <= slots`` items
+    of ``per`` values (a multiple of 8, at least ``MIN_SHARE``), one a
+    block: a single wave, every block the same work.  ``nparts`` is the
+    most items a row meets.
+    """
+    if not rows or rows >= slots or m < SPLIT_MIN:
+        return m, 1, min(rows, slots)
+    total = rows * m
+    grid = min(slots, -(-total // MIN_SHARE))
+    per = -(-(-(-total // grid)) // 8) * 8
+    grid = -(-total // per)
+    nparts = max((r * m + m - 1) // per - (r * m) // per + 1
+                 for r in range(rows))
+    return per, nparts, grid
+
+
+def merge_plans(rows: int, width: int, l: int, slots: int):
+    """The :func:`plan` of each launch :func:`merge_partials` makes on
+    ``(rows, width)`` pairs, in order, until one leaves one partial a
+    row."""
+    plans = [plan(rows, width, slots)]
+    while plans[-1][1] > 1:
+        plans.append(plan(rows, plans[-1][1] * l, slots))
+    return plans
 
 
 def local_topk_plain(values: torch.Tensor, l: int):
@@ -42,36 +92,65 @@ def local_topk_plain(values: torch.Tensor, l: int):
     return ref.local_topk_ref(values, l)
 
 
-def launch(values: torch.Tensor, ids, l: int, chunk: int):
+def merge_partials_plain(pv: torch.Tensor, pi: torch.Tensor, l: int):
+    """``(rows, chunks, w)`` (value, id) partials -> ``(rows, l)``: the l
+    smallest pairs of each row in lexicographic (value, id) order, by a
+    stable sort; ``(+inf, 2**31-1)`` slots stay sentinels."""
+    rows = pv.shape[0]
+    v = pv.reshape(rows, -1).float()
+    i = pi.reshape(rows, -1).to(torch.int32)
+    if v.shape[1] < l:
+        pad = (rows, l - v.shape[1])
+        v = torch.cat([v, torch.full(pad, float("inf"), device=v.device)], 1)
+        i = torch.cat([i, torch.full(pad, ref.INT32_MAX, dtype=torch.int32,
+                                     device=i.device)], 1)
+    by_id = torch.argsort(i, dim=1, stable=True)
+    v, i = v.gather(1, by_id), i.gather(1, by_id)
+    sv, by_v = torch.sort(v, dim=1, stable=True)
+    return sv[:, :l], i.gather(1, by_v)[:, :l]
+
+
+def card_slots(values: torch.Tensor, l: int, with_ids: bool) -> int:
+    """Resident blocks on the card of ``values`` of the kernel variant
+    for its dtype, ``l`` and ``with_ids``."""
+    return (blocks_per_sm(l, _cuda.dtype_code(values), with_ids)
+            * sm_count(values.device.index or 0))
+
+
+def launch(values: torch.Tensor, ids, l: int, launch_plan=None):
     """One kernel launch over ``(rows, m)`` values (and int32 ids, or None
-    for column indices): ``(rows, ceil(m / chunk), l)`` partial lists."""
+    for column indices): ``(rows, nparts, l)`` partial lists, by
+    ``launch_plan`` or else :func:`plan` (``nparts == 1``: the answer)."""
     rows, m = values.shape
-    nchunks = -(-m // chunk)
-    out_v = torch.empty((rows, nchunks, l), dtype=torch.float32,
-                        device=values.device)
-    out_i = torch.empty((rows, nchunks, l), dtype=torch.int32,
-                        device=values.device)
-    if rows and m:
-        _cuda.ok("local_topk", _build.library().knn_local_topk(
-            values.data_ptr(), None if ids is None else ids.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), rows, m, l, chunk,
-            _cuda.dtype_code(values), _cuda.stream_of(values)))
-        COUNT.add()
-    else:
-        out_v.fill_(float("inf"))
-        out_i.fill_(ref.INT32_MAX)
+    code = _cuda.dtype_code(values)
+    dev = values.device
+    if not (rows and m):
+        return (torch.full((rows, 1, l), float("inf"), device=dev),
+                torch.full((rows, 1, l), ref.INT32_MAX, dtype=torch.int32,
+                           device=dev))
+    per, nparts, grid = launch_plan or plan(
+        rows, m, card_slots(values, l, ids is not None))
+    out_v = torch.empty((rows, nparts, l), dtype=torch.float32, device=dev)
+    out_i = torch.empty((rows, nparts, l), dtype=torch.int32, device=dev)
+    _cuda.ok("local_topk", _build.library().knn_local_topk(
+        values.data_ptr(), None if ids is None else ids.data_ptr(),
+        out_v.data_ptr(), out_i.data_ptr(), rows, m, l, per, nparts, grid,
+        code, _cuda.stream_of(values)))
+    COUNT.add()
     return out_v, out_i
 
 
 def merge_partials(pv: torch.Tensor, pi: torch.Tensor, l: int):
-    """``(rows, chunks, w)`` partial lists with ids (``w >= l``; one
-    chunk: ``w == l``, already the answer) -> ``(rows, l)``."""
-    rows, nchunks, w = pv.shape
-    if nchunks == 1:
-        return pv[:, 0], pi[:, 0]
-    width = nchunks * w
-    v, i = launch(pv.reshape(rows, width), pi.reshape(rows, width), l, width)
-    return v[:, 0], i[:, 0]
+    """``(rows, chunks, w)`` partial lists with ids (one chunk of
+    ``w == l``: already the answer) -> ``(rows, l)``.  On the card, one
+    launch for each of :func:`merge_plans`."""
+    if pv.device.type == "cpu":
+        return merge_partials_plain(pv, pi, l)
+    rows, n, w = pv.shape
+    if n > 1 or w != l:
+        for p in merge_plans(rows, n * w, l, card_slots(pv, l, True)):
+            pv, pi = launch(pv.reshape(rows, -1), pi.reshape(rows, -1), l, p)
+    return pv[:, 0], pi[:, 0]
 
 
 def local_topk_cuda(values: torch.Tensor, l: int):
@@ -80,11 +159,6 @@ def local_topk_cuda(values: torch.Tensor, l: int):
     _cuda.check_l("local_topk", l)
     _cuda.dtype_code(values)
     lead, m = values.shape[:-1], values.shape[-1]
-    x = values.reshape(-1, m)
-    rows = x.shape[0]
-    target = BLOCKS_PER_SM * sm_count(values.device.index or 0)
-    nchunks = max(1, min(-(-target // max(rows, 1)), m // MIN_CHUNK))
-    chunk = max(-(-m // nchunks), 1)
-    pv, pi = launch(x, None, l, chunk)
+    pv, pi = launch(values.reshape(-1, m), None, l)
     v, i = merge_partials(pv, pi, l)
     return v.reshape(lead + (l,)), i.reshape(lead + (l,))

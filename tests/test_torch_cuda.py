@@ -66,8 +66,12 @@ def test_distance_topk_kernel(card, shape, l):
     before = (dtk.COUNT.n, ltk.COUNT.n)
     v, i = dtk.distance_topk_cuda(q, p, l)
     torch.cuda.synchronize()
-    # one launch, plus local_topk's merge when the points were chunked
-    merges = int(m > dtk.chunking(B, k, m, card))
+    # one launch, plus local_topk's merge launches when the points were
+    # chunked: one, and one more where the merge split its rows again
+    nchunks = -(-m // dtk.chunking(B, k, m, card))
+    slots = ltk.blocks_per_sm(l, 0, True) * ltk.sm_count(0)
+    merges = (0 if nchunks == 1 else
+              len(ltk.merge_plans(k * B, nchunks * dtk.slots(l), l, slots)))
     assert (dtk.COUNT.n, ltk.COUNT.n) == (before[0] + 1, before[1] + merges)
     rv, ri = dtk.distance_topk_plain(q, p, l)
     torch.testing.assert_close(v, rv, **F32)
@@ -184,7 +188,8 @@ def test_distance_kernels_ragged(card, m, B, masked):
 
 
 @pytest.mark.parametrize("shape,l,launches", [
-    ((256, 65536), 128, 2),     # split rows: chunk launch + merge launch
+    ((256, 65536), 128, 2),     # split rows: the first pass + its merge
+    ((7, 100003), 64, 2),       # ragged rows, none 16-byte aligned
     ((32, 1024), 128, 1), ((5, 1000), 256, 1), ((3, 100), 128, 1)])
 def test_local_topk_kernel(card, shape, l, launches):
     x = _randn(card, *shape, seed=4)
@@ -196,11 +201,113 @@ def test_local_topk_kernel(card, shape, l, launches):
     assert torch.equal(v, rv) and torch.equal(i, ri)
 
 
+@pytest.mark.parametrize("shape", [(8, 4099), (3, 40001)])
+def test_local_topk_kernel_bf16_ragged(card, shape):
+    x = _randn(card, *shape, seed=8).to(torch.bfloat16)
+    v, i = ltk.local_topk_cuda(x, 64)
+    rv, ri = ltk.local_topk_plain(x, 64)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
 def test_local_topk_kernel_ties(card):
     x = torch.round(_randn(card, 4, 512, seed=5) * 10) / 10
     v, i = ltk.local_topk_cuda(x, 32)
     rv, ri = ltk.local_topk_plain(x, 32)
     assert torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("m", [1001, 50003])
+def test_local_topk_kernel_signed_zeros(card, m):
+    """Negative values and -0.0 / +0.0 ties: the two zeros are equal, so
+    they go in index order; held against the plain version on the CPU,
+    whose stable sort compares values (a radix sort would not)."""
+    x = torch.round(_randn(card, 6, m, seed=9) * 2) / 8
+    signs = torch.rand((6, m), generator=torch.Generator(device=card)
+                       .manual_seed(9), device=card) < 0.5
+    x = torch.where((x == 0) & signs, torch.full_like(x, -0.0), x)
+    assert bool(torch.signbit(x[x == 0]).any())
+    v, i = ltk.local_topk_cuda(x, 256)
+    rv, ri = ltk.local_topk_plain(x.cpu(), 256)
+    assert torch.equal(v.cpu(), rv) and torch.equal(i.cpu(), ri)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(16, 50003), (9, 1000)])
+def test_local_topk_kernel_inf_rows(card, dtype, shape):
+    """Rows of +inf (a masked shard's distances), rows with fewer finite
+    values than l, and +inf between finite values: +inf slots keep their
+    columns in order, as the plain version's stable sort gives them."""
+    rows, m = shape
+    x = _randn(card, rows, m, seed=12)
+    x[: rows // 2] = float("inf")
+    x[rows // 2, 40:] = float("inf")
+    x[rows // 2 + 1, ::3] = float("inf")
+    x = x.to(dtype)
+    v, i = ltk.local_topk_cuda(x, 128)
+    rv, ri = ltk.local_topk_plain(x, 128)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def _sentinel_partials(card, rows, chunks, w, seed):
+    """distance_topk-like partials: unique ids, many (+inf, INT32_MAX)."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    v = torch.round(torch.randn((rows, chunks, w), generator=g,
+                                device=card) * 10) / 10
+    i = torch.argsort(torch.rand((rows, chunks * w), generator=g,
+                                 device=card), dim=1).to(torch.int32)
+    i = i.reshape(rows, chunks, w)
+    dead = torch.rand((rows, chunks, w), generator=g, device=card) < 0.6
+    return (torch.where(dead, float("inf"), v),
+            torch.where(dead, INT32_MAX, i).to(torch.int32))
+
+
+@pytest.mark.parametrize("rows,chunks,w,l", [(64, 40, 256, 128),
+                                             (16, 128, 256, 128),
+                                             (5, 7, 64, 256), (3, 2, 32, 1)])
+def test_merge_partials_kernel(card, rows, chunks, w, l):
+    pv, pi = _sentinel_partials(card, rows, chunks, w, seed=rows)
+    slots = ltk.blocks_per_sm(l, 0, True) * ltk.sm_count(0)
+    before = ltk.COUNT.n
+    v, i = ltk.merge_partials(pv, pi, l)
+    torch.cuda.synchronize()
+    assert ltk.COUNT.n == before + len(ltk.merge_plans(rows, chunks * w, l,
+                                                           slots))
+    rv, ri = ltk.merge_partials_plain(pv, pi, l)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def test_merge_partials_kernel_sentinel_rows(card):
+    """Rows of (+inf, INT32_MAX) only (a routed-away shard's partials) and
+    rows of +inf under real ids, beside ordinary rows."""
+    pv, pi = _sentinel_partials(card, 12, 64, 256, seed=3)
+    pv[:4], pi[:4] = float("inf"), INT32_MAX
+    pv[4:6] = float("inf")
+    v, i = ltk.merge_partials(pv, pi, 128)
+    rv, ri = ltk.merge_partials_plain(pv, pi, 128)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_merge_of_distance_topk_partials(card, monkeypatch, masked):
+    """The merge pass on a real distance_topk launch's partials (under
+    the routed 1-of-8 mask too) equals the plain merge, bit for bit."""
+    k, m, d, l = 8, 32768, 64, 128
+    q, p = _randn(card, 32, d), _randn(card, k, m, d, seed=11)
+    valid = _mask(card, k, m, "one") if masked else None
+    seen = []
+    merge = ltk.merge_partials
+
+    def keep(pv, pi, l):
+        seen.append((pv.clone(), pi.clone()))
+        return merge(pv, pi, l)
+
+    monkeypatch.setattr(ltk, "merge_partials", keep)
+    v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
+    (pv, pi), = seen
+    rv, ri = ltk.merge_partials_plain(pv, pi, l)
+    assert torch.equal(v.reshape(-1, l), rv)
+    assert torch.equal(i.reshape(-1, l), ri)
 
 
 def test_wrappers_raise_instead_of_falling_back(card):
