@@ -15,7 +15,11 @@ Phases:
      distance_topk also under the routed phase's 1-of-8-shards mask;
      local_topk bit for bit, also on ragged, negative and signed-zero
      rows, on real distances and on the merge of a real distance_topk
-     launch's partials, unmasked and under the mask);
+     launch's partials, unmasked and under the mask; local_topk's passes
+     at l = 257 and 1000 on the long row and the merge shape, with
+     all-equal, signed-zero and +inf rows, and its floored pass against
+     local_topk_floor_plain; the distance step at l > 256; the routing
+     kernel in its three modes, bit for bit);
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
@@ -26,7 +30,12 @@ Phases:
      search="approx": answers byte-identical to the exact route's and
      equal to brute force, the device router's rows equal to the host
      router's, fewer than 8 shards touched a batch, approx recall@l and
-     candidate fraction checked, each path's kernels launched;
+     candidate fraction checked, each path's kernels launched, one
+     route_index_mask launch a routed batch;
+  3c. serve_large_l: the phase-3 data at l_max = 1024 (l drawn from
+     1..1024, with 257, 1000 and 1024), both samplers, exact route: every
+     answer equal to brute force, local_topk's passes launched and no
+     distance_topk launch;
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -35,6 +44,10 @@ Phases:
      local_topk's long-row time split into its first pass and its merge,
      and its merge of distance_topk's partials as a row of its own, both
      also under the 1-of-8 mask (bounds count what the run's data needs);
+     the long row at l = 1024 in passes beside one pass at l = 256; the
+     routing kernel's three modes at B = 32 beside a launch floor (one
+     PyTorch op on a 1-element tensor) and the device-routed prologue's
+     wall;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -75,13 +88,20 @@ KERNELS = {
     "local_topk": dict(
         source="src/repro_torch/kernels/csrc/local_topk.cu",
         replaces="src/repro/kernels/local_topk.py:54"),
+    # one kernel serves both routing TPU kernels; each entry counts its
+    # launches in the runs whose path computes that mask
     "route_mask": dict(
-        source="src/repro_torch/kernels/csrc/route_mask.cu",
-        replaces="src/repro/kernels/routing.py:226"),
+        source="src/repro_torch/kernels/csrc/route_index_mask.cu",
+        replaces="src/repro/kernels/routing.py:226",
+        counter="route_index_mask",
+        runs=("a_device_selection", "c_device_gather", "d_device_approx")),
     "index_mask": dict(
-        source="src/repro_torch/kernels/csrc/index_mask.cu",
-        replaces="src/repro/kernels/routing.py:339"),
+        source="src/repro_torch/kernels/csrc/route_index_mask.cu",
+        replaces="src/repro/kernels/routing.py:339",
+        counter="route_index_mask", runs=("d_device_approx",)),
 }
+# every launch counter of the port (kernels/ops.py COUNTERS)
+COUNTERS = ("l2_distance", "distance_topk", "local_topk", "route_index_mask")
 # phase 4's extra numbers for the two distance kernels, on the kernels line
 MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
                "masked_bound_ms", "masked_bound_by")
@@ -96,8 +116,18 @@ LTK_KEYS = ("first_pass_ms", "merge_pass_ms", "long_row_plan", "merge_ms",
 # distance_topk's unmerged partials at the main shape, unmasked (None) and
 # under the routed mask ("routed"), kept for phase 4
 MERGE_INPUTS = {}
-# the routed phase's B = 32 routing inputs, kept for phase 4's timing
+# phase 4's extra numbers for the routing kernel: its route + index mode,
+# the launch floor and the device-routed prologue
+ROUTE_KEYS = ("device_ms", "both_ms", "both_device_ms", "both_plain_ms",
+              "both_bound_ms", "launch_floor_ms", "launch_floor_device_ms",
+              "prologue_ms", "routing_readback_ms")
+# phase 4's extra numbers for local_topk at l above one pass
+LARGE_L_KEYS = ("large_l", "large_l_ms", "large_l_kernel_ms",
+                "large_l_plain_ms", "large_l_one_pass_ms", "large_l_bound_ms")
+# the routed phase's B = 32 routing inputs and approx server, kept for
+# phase 4's timing
 ROUTED_INPUTS = {}
+L_LARGE = 1024         # serve_large_l's l_max
 
 
 class PhaseError(RuntimeError):
@@ -188,6 +218,27 @@ def topk_agree(v, i, rv, ri, full, tol):
     return float(torch.where(fin, (v - rv).abs(), 0).max())
 
 
+def pass_rows(g, dev, rows, m, mode):
+    """(rows, m) f32 rows for local_topk's passes: N(0, 1), or tied (one
+    decimal), all equal, signed zeros, or +inf rows (half the rows whole,
+    one from column 40, one every third value)."""
+    import torch
+    x = torch.randn((rows, m), generator=g, device=dev)
+    if mode == "ties":
+        x = torch.round(x * 10) / 10
+    elif mode == "equal":
+        x = torch.full_like(x, 1.5)
+    elif mode == "zeros":
+        x = torch.round(x * 2) / 8
+        neg = torch.rand((rows, m), generator=g, device=dev) < 0.5
+        x = torch.where((x == 0) & neg, torch.full_like(x, -0.0), x)
+    elif mode == "inf":
+        x[: rows // 2] = float("inf")
+        x[rows // 2, 40:] = float("inf")
+        x[rows // 2 + 1, ::3] = float("inf")
+    return x
+
+
 def ltk_plan(rows, m, l, with_ids):
     """The local_topk launch's plan on this card: blocks per SM (the
     occupancy API), grid, items and waves."""
@@ -224,6 +275,7 @@ def phase_kernels(dev, results):
     from repro_torch.kernels import distance_topk as dtk
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import local_topk as ltk
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
 
     g = torch.Generator(device=dev)
@@ -403,9 +455,72 @@ def phase_kernels(dev, results):
             f"{tuple(pv.shape)} {mode or ''}: {int(fin.sum())} finite of "
             f"{pv.numel()}, values and ids equal")
         MERGE_INPUTS[mode] = (pv, pi)
+    # the distance step above one pass (l2_distance, then local_topk's
+    # passes), unmasked and under the routed mask
+    for mode in (None, "routed"):
+        valid = routed_mask(K, M, dev) if mode else None
+        before = ltk.COUNT.n
+        v, i = kops.distance_topk(q, p, L_LARGE, valid=valid)
+        torch.cuda.synchronize()
+        rv, ri = dtk.distance_topk_plain(q, p, L_LARGE, valid=valid)
+        full = (ref.l2_distance_ref(q, p) if valid is None
+                else ref.masked_l2_distance_ref(q, p, valid))
+        err = topk_agree(v, i, rv, ri, full, F32_TOL)
+        log(f"  ops.distance_topk B={B} k={K} m={M} l={L_LARGE} "
+            f"{mode or ''}: l2_distance + {ltk.COUNT.n - before} local_topk "
+            f"launches, max abs {err:.3g}")
+        del v, i, rv, ri, full
     del q, p
-    # route_mask / index_mask: 1, 2 and 4 pivots, l mixing 0 with
-    # 1..128, one empty shard, ragged B; masks must be equal
+    # local_topk above one pass: the long row and the merge shape, random,
+    # tied, all-equal and +inf rows bit for bit against the plain version
+    # (signed zeros against the CPU's, whose stable sort compares values)
+    for (rows, m, l, mode) in [(K * B, M, 257, None),
+                               (K * B, M, 1000, None),
+                               (K * B, M, 1000, "equal"),
+                               (K * B, 65536, 1000, None),
+                               (K * B, 65536, 257, "inf"),
+                               (K * B, 65536, 1000, "ties"),
+                               (6, 50003, 1000, "zeros"),
+                               (K * B, 1001, 1000, "zeros")]:
+        x = pass_rows(g, dev, rows, m, mode)
+        before = ltk.COUNT.n
+        v, i = ltk.local_topk_cuda(x, l)
+        torch.cuda.synchronize()
+        launches = ltk.COUNT.n - before
+        if mode == "zeros":
+            x, v, i = x.cpu(), v.cpu(), i.cpu()
+        rv, ri = ltk.local_topk_plain(x, l)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise PhaseError(f"local_topk passes {(rows, m, l, mode)}: "
+                             f"differ from the plain version")
+        log(f"  local_topk rows={rows} m={m} l={l} {mode or ''}: "
+            f"{launches} launches ({-(-min(l, m) // 256)} passes), values "
+            f"and ids equal")
+        del x, v, i, rv, ri
+    # one floored pass against local_topk_floor_plain: floors from a first
+    # pass, on values of the rows (ids on both sides of equal values) and
+    # below every value
+    x = pass_rows(g, dev, K * B, M, "ties")
+    fv1, fi1 = (t[:, -1].contiguous() for t in ltk.local_topk_cuda(x, 256))
+    pick = torch.randint(0, M, (K * B,), generator=g, device=dev)
+    fv2 = x.gather(1, pick[:, None])[:, 0].contiguous()
+    fi2 = torch.randint(0, M, (K * B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    fv2[0], fi2[0] = -float("inf"), -1
+    for name, floor in (("a first pass", (fv1, fi1)),
+                        ("values of the rows", (fv2, fi2))):
+        pv, pi = ltk.launch(x, None, 256, floor=floor)
+        v, i = ltk.merge_partials(pv, pi, 256)
+        rv, ri = ltk.local_topk_floor_plain(x, 256, floor)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise PhaseError(f"local_topk floored pass ({name}): differs "
+                             f"from local_topk_floor_plain")
+        log(f"  local_topk floored pass rows={K * B} m={M} l=256, floors "
+            f"from {name}: values and ids equal")
+    del x, pv, pi
+    # the routing kernel in its three modes (route, route + index, index
+    # on given rows): 1, 2 and 4 pivots, l mixing 0 with 1..128, one empty
+    # shard, ragged B and B above 32 warps; rows and unions must be equal
     import numpy as np
     from repro_torch.data import sharded_clusters
     from repro_torch.kernels import routing as rt
@@ -417,39 +532,54 @@ def phase_kernels(dev, results):
     rng = np.random.default_rng(5)
     idx = IndexMaintainer(K, per, DIM, 8)
     idx.rebuild(pts, valid)
-    ipacked = rt.on_device(rt.pack_index(idx.freeze(0)), dev)
+    iops = rt.pack_index(idx.freeze(0))
+    only_index = rt.PackedRouting(index=iops, device=dev, k=K)
     for pivots in (1, 2, 4):
-        packed = rt.on_device(rt.pack_summaries(
-            build_summaries(pts, K, valid=valid, num_pivots=pivots)), dev)
-        for b in (B, 5, 1):
+        sops = rt.pack_summaries(build_summaries(pts, K, valid=valid,
+                                                 num_pivots=pivots))
+        route = rt.PackedRouting(sops, device=dev)
+        both = rt.PackedRouting(sops, iops, device=dev)
+        for b in (B, 5, 1, 70):
             q = torch.as_tensor(centers[rng.integers(0, K, b)]
                                 + rng.normal(size=(b, DIM)),
                                 dtype=torch.float32, device=dev)
             ls = torch.as_tensor(rng.integers(0, L + 1, b),
                                  dtype=torch.int32, device=dev)
             ls[0] = 0
-            rows = rt.route_mask_cuda(q, ls, packed)
+            rows, _, u = rt.route_index_cuda(q, ls, route)
             torch.cuda.synchronize()
-            want = rt.route_mask_plain(q, ls, packed)
-            if not torch.equal(rows, want):
-                raise PhaseError(f"route_mask pivots={pivots} B={b}: "
-                                 f"differs from the plain version")
+            if not (torch.equal(rows, rt.route_mask_plain(
+                    q, ls, route.route_ops()))
+                    and torch.equal(u, rows.any(0))):
+                raise PhaseError(f"route_index_mask route pivots={pivots} "
+                                 f"B={b}: differs from the plain version")
             if bool(rows[0].any()) or bool(rows[:, 2].any()):
-                raise PhaseError("route_mask kept an l=0 row or an empty "
-                                 "shard")
+                raise PhaseError("route_index_mask kept an l=0 row or an "
+                                 "empty shard")
+            got = rt.route_index_cuda(q, ls, both)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(
+                    got, rt.route_index_plain(q, ls, both))):
+                raise PhaseError(f"route_index_mask route+index "
+                                 f"pivots={pivots} B={b}: differs from the "
+                                 f"plain versions")
             gate = rows.clone()
             gate[:, 5] = 0                       # the gate drops shard 5
-            keep = rt.index_mask_cuda(q, ls, gate, ipacked)
+            _, keep, u = rt.route_index_cuda(q, ls, only_index, gate)
             torch.cuda.synchronize()
-            if not torch.equal(keep, rt.index_mask_plain(q, ls, gate,
-                                                         ipacked)):
-                raise PhaseError(f"index_mask B={b}: differs from the "
-                                 f"plain version")
+            if not (torch.equal(keep, rt.index_mask_plain(
+                    q, ls, gate, only_index.index_ops()))
+                    and torch.equal(u, torch.cat([gate.any(0),
+                                                  keep.any(0)]))):
+                raise PhaseError(f"route_index_mask index B={b}: differs "
+                                 f"from the plain version")
             if bool(keep[:, 40:48].any()):
-                raise PhaseError("index_mask kept a gated-out bucket")
-            log(f"  route_mask pivots={pivots} B={b}: {int(rows.sum())} of "
-                f"{rows.numel()} kept, equal to plain; index_mask: "
-                f"{int(keep.sum())} of {keep.numel()} kept, equal to plain")
+                raise PhaseError("route_index_mask kept a gated-out bucket")
+            log(f"  route_index_mask pivots={pivots} B={b}: route "
+                f"{int(rows.sum())} of {rows.numel()} kept, route+index "
+                f"{int(got[1].sum())} of {got[1].numel()}, index "
+                f"{int(keep.sum())} of {keep.numel()}; rows and unions "
+                f"equal to plain")
     for name in ("route_mask", "index_mask"):
         errs[name] = main_err[name] = 0.0        # masks compared equal
     results["max_abs_err"] = main_err
@@ -508,7 +638,7 @@ def phase_serve(dev, gpu, results):
     ls[0], ls[1] = 1, cfg.l_max
     # every kernel each sampler's path launches (local_topk is also
     # distance_topk's merge pass); the kernels line sums both runs
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in COUNTERS}
     by_sampler, serve = {}, {}
     for sampler, needs in (("selection", ["distance_topk", "local_topk"]),
                            ("gather", ["l2_distance", "local_topk"])):
@@ -610,16 +740,16 @@ def phase_serve_routed(dev, gpu, results):
         ("exact_gather", cfg.replace(sampler="gather"), None,
          ["l2_distance", "local_topk"]),
         ("a_device_selection", pruned, "exact_selection",
-         ["route_mask", "distance_topk", "local_topk"]),
+         ["route_index_mask", "distance_topk", "local_topk"]),
         ("b_host_selection", pruned.replace(route_compute="host"),
          "exact_selection", ["distance_topk", "local_topk"]),
         ("c_device_gather", pruned.replace(sampler="gather"),
-         "exact_gather", ["route_mask", "l2_distance", "local_topk"]),
+         "exact_gather", ["route_index_mask", "l2_distance", "local_topk"]),
         ("d_device_approx", pruned.replace(search="approx"), None,
-         ["route_mask", "index_mask", "distance_topk", "local_topk"]),
+         ["route_index_mask", "distance_topk", "local_topk"]),
     ]
     answers, out = {}, {}
-    launches = {name: 0 for name in KERNELS}
+    launches = {name: 0 for name in COUNTERS}
     for name, rcfg, twin, needs in runs:
         t0 = time.perf_counter()
         srv = KnnServer(points, cfg=rcfg, shards=K, device=dev, seed=0)
@@ -637,6 +767,13 @@ def phase_serve_routed(dev, gpu, results):
         for kname in needs:
             if counts[kname] < 1:
                 raise PhaseError(f"{name}: {kname} was never launched")
+        # one routing launch a batch where the device routes, none else
+        want = len(groups) if rcfg.route_compute == "device" and (
+            rcfg.route == "pruned") else 0
+        if counts["route_index_mask"] != want:
+            raise PhaseError(f"{name}: {counts['route_index_mask']} routing "
+                             f"launches for {len(groups)} batches, want "
+                             f"{want}")
         if name.startswith(("a_", "b_", "c_", "d_")):
             for kname, n in counts.items():
                 launches[kname] += n
@@ -703,15 +840,20 @@ def phase_serve_routed(dev, gpu, results):
                                  f"> 1/3 on a batch")
             if any(r.recall_mode != "approx" for r in res):
                 raise PhaseError("approx answers not tagged approx")
-            # phase 4 times the routing kernels on this batch's inputs
+            # phase 4 times the routing kernel and this server's prologue
+            # on this batch's inputs
             q32 = torch.as_tensor(qs_g[0], device=dev)
             l32 = torch.as_tensor(ls_g[0].astype(np.int32), device=dev)
-            rops = rt.on_device(rt.pack_summaries(srv._summaries), dev)
+            sops = rt.pack_summaries(srv._summaries)
+            iops = rt.pack_index(srv._index)
+            route = rt.PackedRouting(sops, device=dev, slack=rcfg.route_slack)
             ROUTED_INPUTS.update(
-                q=q32, ls=l32, route_ops=rops, slack=rcfg.route_slack,
-                index_ops=rt.on_device(rt.pack_index(srv._index), dev),
-                rows=rt.route_mask_cuda(q32, l32, rops),
-                oversample=rcfg.index_oversample)
+                q=q32, ls=l32, route=route, both=srv._routing,
+                index=rt.PackedRouting(index=iops, device=dev, k=K,
+                                       oversample=rcfg.index_oversample),
+                rows=rt.route_index_cuda(q32, l32, route)[0],
+                server=srv, q_np=qs_g[0],
+                ls_np=ls_g[0].astype(np.int32))
         out[name] = entry
         log(f"  [{gpu}] {name}: built in {build_s:.2f} s; {n_req} requests"
             f"{' equal to the exact route and brute force' if twin else ''}"
@@ -726,6 +868,79 @@ def phase_serve_routed(dev, gpu, results):
         del srv
     results["launches_routed"] = launches
     results["serve_routed"] = out
+    del points
+    torch.cuda.empty_cache()
+
+
+def phase_serve_large_l(dev, gpu, results):
+    """l above one top-l pass at full width: the phase-3 points at l_max =
+    L_LARGE, both samplers, exact route; every answer equal to brute
+    force, through l2_distance and local_topk's passes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import CONFIG
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime import KnnServer
+
+    cfg = CONFIG.replace(l_max=L_LARGE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    points = torch.randn((cfg.n_points, cfg.dim), generator=g, device=dev)
+    rng = np.random.default_rng(16)
+    groups = [32, 5, 2, 1]                  # buckets 32, 8, 2, 1
+    n_req = sum(groups)
+    queries = rng.normal(size=(n_req, cfg.dim)).astype(np.float32)
+    ls = rng.integers(1, L_LARGE + 1, n_req)
+    ls[:3] = (257, 1000, L_LARGE)
+    passes = -(-L_LARGE // 256)
+    out = {}
+    for sampler in ("selection", "gather"):
+        torch.cuda.reset_peak_memory_stats()
+        srv = KnnServer(points, cfg=cfg.replace(sampler=sampler), shards=K,
+                        device=dev, seed=0)
+        env = srv.envelopes[-1]
+        if env["dtk_path"] != "l2+local_topk" or env["ltk_passes"] != passes:
+            raise PhaseError(f"envelope {env}: not the multi-pass path")
+        srv.warmup()
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        answers, start = [], 0
+        for size in groups:
+            answers += srv.query_batch(queries[start:start + size],
+                                       ls[start:start + size].tolist())
+            start += size
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        if counts["distance_topk"] or counts["route_index_mask"]:
+            raise PhaseError(f"large l {sampler}: launches {counts}, want "
+                             f"no distance_topk or routing launch")
+        if (counts["l2_distance"] < len(groups)
+                or counts["local_topk"] < passes * len(groups)):
+            raise PhaseError(f"large l {sampler}: launches {counts}, want "
+                             f"l2_distance and {passes} local_topk passes a "
+                             f"batch")
+        for q, l, r in zip(queries, ls, answers):
+            brute_check(points, torch.as_tensor(q, device=dev), int(l), r)
+        snap = srv.obs_snapshot()
+        if snap["audit"]["contract"]["violations"]:
+            raise PhaseError(f"large l {sampler}: contract audit violations")
+        first = {r.bucket: r for r in reversed(answers)}
+        lat = sorted(r.latency_s for r in answers)
+        out[f"large_{sampler}"] = dict(
+            l_max=L_LARGE, requests=n_req, launches=counts, wall_s=wall,
+            p50_latency_ms=lat[len(lat) // 2] * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            batches=[dict(bucket=b, iterations=r.iterations, rounds=r.rounds,
+                          messages=r.messages, host_syncs=r.host_syncs)
+                     for b, r in sorted(first.items(), reverse=True)])
+        log(f"  [{gpu}] l_max={L_LARGE} sampler={sampler}: {n_req} requests "
+            f"(l = 257, 1000, {L_LARGE} among them), all equal brute force; "
+            f"launches {counts}; wall {wall * 1e3:.1f} ms; batches "
+            f"{out[f'large_{sampler}']['batches']}")
+        del srv
+    results["serve_large_l"] = out
     del points
     torch.cuda.empty_cache()
 
@@ -821,19 +1036,20 @@ def device_ms(fn, kernel_name, iters=50, per_call=False):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = count = 0
-    for e in prof.key_averages():
-        if kernel_name in e.key:
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            count += e.count
-    if not count:
-        return None
-    return total / (iters if per_call else count) / 1e3
+    for _ in range(3):      # a profile that caught no device event is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if kernel_name in e.key:
+                total += getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                count += e.count
+        if count:
+            return total / (iters if per_call else count) / 1e3
+    return None
 
 
 def bound(nbytes, flops):
@@ -858,6 +1074,7 @@ def phase_timing(dev, results):
     from repro_torch.kernels import distance_topk as dtk
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import local_topk as ltk
+    from repro_torch.kernels import ops as kops
 
     g = torch.Generator(device=dev)
     g.manual_seed(7)
@@ -886,30 +1103,37 @@ def phase_timing(dev, results):
             lambda: torch.topk(dmat, L, largest=False),
             4 * B * n + 8 * K * B * L, B * n),
     }
-    # the routing kernels, on the routed phase's bucket of 32
+    # the routing kernel, on the routed phase's bucket of 32: route mode
+    # (route_mask's function) and index mode on given rows (index_mask's)
     from repro_torch.kernels import routing as rt
     ri = ROUTED_INPUTS
-    rq, rl, rops, iops, rows = (ri["q"], ri["ls"], ri["route_ops"],
-                                ri["index_ops"], ri["rows"])
-    k, m, r = rops[0].shape[1], rops[7].shape[0], rops[3].shape[0]
-    kb = iops[0].shape[1]
-    op_bytes = lambda ops: sum(4 * x.numel() for x in ops)
+    rq, rl, rows = ri["q"], ri["ls"], ri["rows"]
+    p_route, p_index, p_both = ri["route"], ri["index"], ri["both"]
+    k, m, r, kb = p_route.k, p_route.m, p_route.r, p_both.kb
+    # sub/mul/add per coordinate for k + m*k distances, the r + 1 dots,
+    # the bound updates, and the (k^2 + (m k)^2) counts; per bucket
+    # column, its distance, bounds and kb counts
+    route_ops = B * (3 * DIM * k * (1 + m) + 2 * DIM * (r + 1)
+                     + k * (5 * m + 3 * r + 6) + 3 * m * k
+                     + 2 * (k * k + (m * k) ** 2))
+    index_ops = B * (kb * (3 * DIM + 8) + 2 * kb * kb)
+    # each input read once (queries, ls, the packed operands, given rows),
+    # each output written once (rows, bucket rows, one byte a union)
+    route_bytes = 4 * B * (DIM + 1 + k) + 4 * p_route.buf.numel() + k
+    index_bytes = (4 * B * (DIM + 1 + k + kb) + 4 * p_index.buf.numel()
+                   + k + kb)
+    both_bytes = (4 * B * (DIM + 1 + k + kb) + 4 * p_both.buf.numel()
+                  + k + kb)
     runs["route_mask"] = (
-        lambda: rt.route_mask_cuda(rq, rl, rops, slack=ri["slack"]),
-        lambda: rt.route_mask_plain(rq, rl, rops, slack=ri["slack"]),
-        None, 4 * B * (DIM + 1 + k) + op_bytes(rops),
-        # sub/mul/add per coordinate for k + m*k distances, the r + 1
-        # dots, the bound updates, and the (k^2 + (m k)^2) counts
-        B * (3 * DIM * k * (1 + m) + 2 * DIM * (r + 1)
-             + k * (5 * m + 3 * r + 6) + 3 * m * k
-             + 2 * (k * k + (m * k) ** 2)))
+        lambda: rt.route_index_cuda(rq, rl, p_route),
+        lambda: rt.route_mask_plain(rq, rl, p_route.route_ops(),
+                                    slack=p_route.slack),
+        None, route_bytes, route_ops)
     runs["index_mask"] = (
-        lambda: rt.index_mask_cuda(rq, rl, rows, iops,
-                                   oversample=ri["oversample"]),
-        lambda: rt.index_mask_plain(rq, rl, rows, iops,
-                                    oversample=ri["oversample"]),
-        None, 4 * B * (DIM + 1 + k + kb) + op_bytes(iops),
-        B * (kb * (3 * DIM + 8) + 2 * kb * kb))
+        lambda: rt.route_index_cuda(rq, rl, p_index, rows),
+        lambda: rt.index_mask_plain(rq, rl, rows, p_index.index_ops(),
+                                    oversample=p_index.oversample),
+        None, index_bytes, index_ops)
     # the routed phase's mask: 1 of 8 shards valid; the bound counts the
     # live shard's points, the uint8 flags and the outputs
     vmask = routed_mask(K, M, dev)
@@ -937,7 +1161,7 @@ def phase_timing(dev, results):
         if lib is None:
             # launch-bound: the event loop above times the wrapper's host
             # work between launches; the profiler gives the kernel alone
-            timing[name]["device_ms"] = device_ms(kern, f"{name}_kernel")
+            timing[name]["device_ms"] = device_ms(kern, "route_index_kernel")
         log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}, bound "
             f"{b_ms:.6f} by {by}"
@@ -1019,6 +1243,66 @@ def phase_timing(dev, results):
             f"{t[key + '_calls']} calls on the main path")
     log(f"  local_topk merge: library {t['merge_library_ms']:.4f} ms; plans "
         f"{t['merge_plan']}")
+    # the long row above one pass: L_LARGE slots in passes, beside one pass
+    # of 256; the bound reads the row once and writes the answer
+    lb_ms, _ = bound(4 * B * n + 8 * K * B * L_LARGE, B * n)
+    big = lambda: ltk.local_topk_cuda(dmat, L_LARGE)      # noqa: E731
+    t.update(large_l=L_LARGE, large_l_ms=time_ms(big, 10),
+             large_l_kernel_ms=device_ms(big, "local_topk_kernel", iters=10,
+                                         per_call=True),
+             large_l_plain_ms=time_ms(
+                 lambda: ltk.local_topk_plain(dmat, L_LARGE), 3),
+             large_l_one_pass_ms=time_ms(
+                 lambda: ltk.local_topk_cuda(dmat, 256), 10),
+             large_l_bound_ms=lb_ms)
+    log(f"  local_topk long row at l={L_LARGE}: {t['large_l_ms']:.4f} ms "
+        f"(kernels alone {t['large_l_kernel_ms']:.4f}; one pass at l=256 "
+        f"{t['large_l_one_pass_ms']:.4f}; plain {t['large_l_plain_ms']:.4f};"
+        f" bound {lb_ms:.6f})")
+    # the routing kernel's route + index mode (the approx server's launch),
+    # the launch floor of this card and stack (one PyTorch op on a
+    # 1-element tensor), and the device-routed prologue of the approx
+    # server at B = 32, the kernel and its readback (synchronised after,
+    # so the candidate-mask launches it queues are in it too)
+    rtm = timing["route_mask"]
+    both = lambda: rt.route_index_cuda(rq, rl, p_both)    # noqa: E731
+    one = torch.zeros(1, device=dev)
+    srv, q_np, l_np = ri["server"], ri["q_np"], ri["ls_np"]
+    qt, lt = torch.as_tensor(q_np, device=dev), torch.as_tensor(l_np,
+                                                                device=dev)
+
+    def prologue():
+        srv._prologue(q_np, l_np, qt, lt)
+        torch.cuda.synchronize()
+    def routing():       # the routing step alone: its launch and readback
+        kops.route_index(qt, lt, p_both, with_rows=False)[2].cpu()
+
+    def wall_ms(fn):
+        for _ in range(10):
+            fn()
+        walls = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            fn()
+            walls.append(time.perf_counter() - t0)
+        walls.sort()
+        return walls[100] * 1e3, [walls[50] * 1e3, walls[150] * 1e3]
+    rtm.update(both_ms=time_ms(both, 200),
+               both_device_ms=device_ms(both, "route_index_kernel"),
+               both_plain_ms=time_ms(
+                   lambda: rt.route_index_plain(rq, rl, p_both), 5),
+               both_bound_ms=bound(both_bytes, route_ops + index_ops)[0],
+               launch_floor_ms=time_ms(lambda: one.add_(1), 200),
+               launch_floor_device_ms=device_ms(lambda: one.add_(1),
+                                                "elementwise"),
+               prologue_ms=wall_ms(prologue),
+               routing_readback_ms=wall_ms(routing))
+    log(f"  route_index_mask route+index: {rtm['both_ms']:.4f} ms (device "
+        f"{rtm['both_device_ms']} ms, plain {rtm['both_plain_ms']:.4f}, bound"
+        f" {rtm['both_bound_ms']:.7f}); launch floor {rtm['launch_floor_ms']:.4f}"
+        f" ms (device {rtm['launch_floor_device_ms']} ms); device-routed "
+        f"prologue at B={B}: p50 and quartiles {rtm['prologue_ms']} ms; its "
+        f"launch and readback alone {rtm['routing_readback_ms']} ms")
     results["timing"] = timing
 
 
@@ -1049,6 +1333,7 @@ def main(argv=None) -> int:
     results = {"gpu": gpu, "device": torch.cuda.get_device_name(0)}
     phases = [("build", None), ("kernels", phase_kernels),
               ("serve", phase_serve), ("serve_routed", phase_serve_routed),
+              ("serve_large_l", phase_serve_large_l),
               ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
@@ -1077,7 +1362,8 @@ def main(argv=None) -> int:
                     in (("f32", 0, False), ("bf16", 1, False),
                         ("f32_ids", 0, True))}
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
-            elif name in ("serve", "serve_routed", "profile"):
+            elif name in ("serve", "serve_routed", "serve_large_l",
+                          "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -1091,24 +1377,29 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))
+    # each main path's counts, read right after its run (the routed
+    # phase's exact twins repeat phase 3 and are left out)
+    counts = dict(results["launches_by_sampler"])
+    counts.update({run: e["launches"] for run, e in
+                   results["serve_routed"].items()
+                   if run[:2] in ("a_", "b_", "c_", "d_")})
+    counts.update({run: e["launches"] for run, e in
+                   results["serve_large_l"].items()})
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]
-        by_run = {smp: c[name] for smp, c in
-                  results["launches_by_sampler"].items()}
-        by_run.update({run: e["launches"][name] for run, e in
-                       results["serve_routed"].items()
-                       if run[:2] in ("a_", "b_", "c_", "d_")})
+        counter = meta.get("counter", name)
+        by_run = {run: c[counter] for run, c in counts.items()
+                  if run in meta.get("runs", counts)}
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], status="ported",
-            launches=results["launches"][name]
-            + results["launches_routed"][name],
-            launches_by_run=by_run,
+            launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=results["max_abs_err"][name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
-            **{key: t[key] for key in MASKED_KEYS + LTK_KEYS if key in t}))
+            **{key: t[key] for key in MASKED_KEYS + LTK_KEYS + ROUTE_KEYS
+               + LARGE_L_KEYS if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

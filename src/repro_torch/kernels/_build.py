@@ -34,16 +34,16 @@ _PI = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # q, p, valid, out; B, k, m, d, dtype, blocks; stream
     "knn_l2_distance": ([_P] * 4 + [_I] * 6 + [_P], _I),
-    # x, ids, out_v, out_i; rows, m, l; per; nparts, grid, dtype; stream
-    "knn_local_topk": ([_P] * 4 + [_I] * 3 + [_LL] + [_I] * 3 + [_P], _I),
-    # l, dtype, with_ids; out
-    "knn_local_topk_blocks_per_sm": ([_I] * 3 + [_PI], _I),
+    # x, ids, floor_v, floor_i, out_v, out_i; rows, m, l; per; nparts,
+    # grid, dtype; stream
+    "knn_local_topk": ([_P] * 6 + [_I] * 3 + [_LL] + [_I] * 3 + [_P], _I),
+    # l, dtype, with_ids, with_floor; out
+    "knn_local_topk_blocks_per_sm": ([_I] * 4 + [_PI], _I),
     # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, dtype; stream
     "knn_distance_topk": ([_P] * 6 + [_I] * 7 + [_P], _I),
-    # q, ls, 11 summary operands, out; B, dim, k, m, r; slack1, errc
-    "knn_route_mask": ([_P] * 14 + [_I] * 5 + [_F, _F, _P], _I),
-    # q, ls, rows, bcentsT, bradii, blive, out; B, dim, k, kb; oversample
-    "knn_index_mask": ([_P] * 7 + [_I] * 4 + [_F, _P], _I),
+    # q, ls, ops, rows_in, rows_out, idx_out, unions; B, dim, k, m, r, kb,
+    # mode; slack1, errc, oversample; stream
+    "knn_route_index_mask": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_P], _I),
 }
 
 _lock = threading.Lock()

@@ -43,6 +43,14 @@
 //    barrier;
 //  - at a segment's end the warps' runs are folded pairwise (log2 of the
 //    warp count barriers) and the block writes l slots.
+// An optional exclusive floor per row (the key of (floor_v[r], floor_i[r]))
+// serves l above one pass's slots: a value whose whole key is at or below
+// its row's floor never becomes a candidate, so pass p, floored at the last
+// key of pass p - 1, writes the next l keys of the row (kernels/local_topk.py
+// passes).  The floor costs one more compare per value; a value equal to
+// the floor's has its whole key (carried id read) compared, as at a +inf
+// threshold.  It is a template parameter, so a launch without one runs the
+// one-pass code unchanged.
 // Keys order exactly as knn::key_lt: the float's bits under the
 // order-preserving map (all bits flipped when the sign is set, else the
 // sign bit) above the id, with -0.0 folded to +0.0 first, so equal values
@@ -226,8 +234,10 @@ __device__ __forceinline__ void cp_wait() {
 
 // One row segment [c0, c1) of row r: every warp offers its rounds, then
 // the warps' runs are folded and the block writes partial slot j.
-template <typename T, bool IDS>
+template <typename T, bool IDS, bool FLOOR>
 __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
+                        const float* __restrict__ floor_v,
+                        const int* __restrict__ floor_i,
                         float* __restrict__ out_v, int* __restrict__ out_i,
                         long long r, long long c0, long long c1, long long j,
                         int m, long long per, int nparts, u64* sm,
@@ -246,6 +256,9 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
 
   const T* xr = x + r * m;
   const int* ir = IDS ? ids + r * m : nullptr;
+  // the row's exclusive floor: value fv, whole key fk (FLOOR only)
+  const float fv = FLOOR ? floor_v[r] : -CUDART_INF_F;
+  const u64 fk = FLOOR ? make_key(fv, floor_i[r]) : 0;
   // columns fit an int (m does); the aligned body is [a, b)
   int head = (int)(((16 - ((uintptr_t)(xr + c0) & 15)) & 15) / sizeof(T));
   if (head > c1 - c0) head = (int)(c1 - c0);
@@ -256,8 +269,9 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
   if (warp == 0) {                  // unaligned head and ragged tail
     const int ns = head + (int)c1 - b;
     const int col = lane < head ? (int)c0 + lane : b + lane - head;
-    const bool ok = lane < ns;
+    bool ok = lane < ns;
     const float v[1] = {ok ? knn::to_f32(xr[col]) : 0.f};
+    if (FLOOR && ok) ok = make_key(v[0], IDS ? __ldg(ir + col) : col) > fk;
     const int c[1] = {col};
     offer<1>(v, c, ok ? 1u : 0u, ir, w);
   }
@@ -296,9 +310,11 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
 #pragma unroll
     for (int u = 0; u < U; ++u)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e)
-        if (v0 + u * 32 < nv && element<T>(cur[u], e) <= tv)
+      for (int e = 0; e < VEC; ++e) {
+        const float xe = element<T>(cur[u], e);
+        if (v0 + u * 32 < nv && xe <= tv && (!FLOOR || xe >= fv))
           ok |= 1u << (u * VEC + e);
+      }
     if (!__any_sync(FULL, ok)) continue;
     float v[E];
     int col[E];
@@ -309,6 +325,21 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
         v[u * VEC + e] = element<T>(cur[u], e);
         col[u * VEC + e] = a + (v0 + u * 32) * VEC + e;
       }
+    if (FLOOR) {
+      // a value equal to the floor's passes only if its whole key is
+      // above the floor
+      bool tie = false;
+#pragma unroll
+      for (int i = 0; i < E; ++i) tie |= ((ok >> i) & 1) && v[i] == fv;
+      if (__any_sync(FULL, tie)) {
+#pragma unroll
+        for (int i = 0; i < E; ++i)
+          if (((ok >> i) & 1) && v[i] == fv &&
+              make_key(v[i], IDS ? __ldg(ir + col[i]) : col[i]) <= fk)
+            ok &= ~(1u << i);
+        if (!__any_sync(FULL, ok)) continue;
+      }
+    }
     if (__any_sync(FULL, tv == CUDART_INF_F)) {
       // a row of +inf (a masked shard's): a value equal to the
       // threshold's passes only if its whole key is below the threshold
@@ -348,12 +379,15 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
   }
 }
 
-template <typename T, bool IDS>
+template <typename T, bool IDS, bool FLOOR>
 __global__ void __launch_bounds__(NT)
 local_topk_kernel(const T* __restrict__ x, const int* __restrict__ ids,
+                  const float* __restrict__ floor_v,
+                  const int* __restrict__ floor_i,
                   float* __restrict__ out_v, int* __restrict__ out_i, int m,
                   int l, int R, long long per, int nparts, long long total) {
   static_assert(!IDS || sizeof(T) == 4, "ids ride with f32 values only");
+  static_assert(!(IDS && FLOOR), "a floored pass reads column ids");
   constexpr int U = E / (16 / sizeof(T));
   extern __shared__ uint4 smem[];
   const int warp = threadIdx.x >> 5;
@@ -377,8 +411,9 @@ local_topk_kernel(const T* __restrict__ x, const int* __restrict__ ids,
       const long long r = s / m;
       const long long c0 = s - r * m;
       const long long c1 = min((long long)m, c0 + (ie - s));
-      segment<T, IDS>(x, ids, out_v, out_i, r, c0, c1, item - (r * m) / per,
-                      m, per, nparts, sm, ring, w);
+      segment<T, IDS, FLOOR>(x, ids, floor_v, floor_i, out_v, out_i, r, c0,
+                             c1, item - (r * m) / per, m, per, nparts, sm,
+                             ring, w);
       s += c1 - c0;
     }
   }
@@ -391,69 +426,94 @@ size_t smem_bytes(int R, int elem_bytes) {
          sizeof(u64) * ((size_t)NW * (R + CAND + 1) + 1);
 }
 
-template <typename T, bool IDS>
+template <typename T, bool IDS, bool FLOOR>
 cudaError_t prepare(size_t smem) {
-  return cudaFuncSetAttribute(local_topk_kernel<T, IDS>,
+  return cudaFuncSetAttribute(local_topk_kernel<T, IDS, FLOOR>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
+}
+
+// Launches the variant, or (occ != null) reports its resident blocks per
+// SM from the occupancy API instead.
+template <typename T, bool IDS, bool FLOOR>
+cudaError_t run(const void* x, const int* ids, const float* floor_v,
+                const int* floor_i, float* out_v, int* out_i, int m, int l,
+                int R, long long per, int nparts, long long total, int grid,
+                size_t smem, cudaStream_t s, int* occ) {
+  cudaError_t e = prepare<T, IDS, FLOOR>(smem);
+  if (e != cudaSuccess) return e;
+  if (occ != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, local_topk_kernel<T, IDS, FLOOR>, NT, smem);
+  local_topk_kernel<T, IDS, FLOOR><<<grid, NT, smem, s>>>(
+      static_cast<const T*>(x), ids, floor_v, floor_i, out_v, out_i, m, l, R,
+      per, nparts, total);
+  return cudaGetLastError();
+}
+
+// The variant for dtype, carried ids and a floor (ids need f32 values; a
+// floor takes no ids).
+cudaError_t dispatch(const void* x, const int* ids, const float* floor_v,
+                     const int* floor_i, float* out_v, int* out_i, int rows,
+                     int m, int l, long long per, int nparts, int grid,
+                     int dtype, bool with_ids, bool with_floor,
+                     cudaStream_t s, int* occ) {
+  const int R = knn::run_width(l);
+  const size_t smem = smem_bytes(R, dtype == knn::kBF16 ? 2 : 4);
+  const long long total = (long long)rows * m;
+  if (with_ids && (dtype != knn::kF32 || with_floor))
+    return cudaErrorInvalidValue;
+  if (with_ids)
+    return run<float, true, false>(x, ids, nullptr, nullptr, out_v, out_i, m,
+                                   l, R, per, nparts, total, grid, smem, s,
+                                   occ);
+  if (dtype == knn::kBF16)
+    return with_floor
+               ? run<__nv_bfloat16, false, true>(x, nullptr, floor_v, floor_i,
+                                                 out_v, out_i, m, l, R, per,
+                                                 nparts, total, grid, smem, s,
+                                                 occ)
+               : run<__nv_bfloat16, false, false>(x, nullptr, nullptr,
+                                                  nullptr, out_v, out_i, m, l,
+                                                  R, per, nparts, total, grid,
+                                                  smem, s, occ);
+  return with_floor
+             ? run<float, false, true>(x, nullptr, floor_v, floor_i, out_v,
+                                       out_i, m, l, R, per, nparts, total,
+                                       grid, smem, s, occ)
+             : run<float, false, false>(x, nullptr, nullptr, nullptr, out_v,
+                                        out_i, m, l, R, per, nparts, total,
+                                        grid, smem, s, occ);
 }
 
 }  // namespace
 
 // x: (rows, m) f32 or bf16; ids: (rows, m) int32 or null (ids = column;
-// carried ids need f32 values).  The rows, flattened, are cut into items of `per` values that
-// `grid` blocks take in turn; out: (rows, nparts, l), one ascending
-// partial per (row, item the row meets), slot j = item - (row * m) / per.
-// nparts must be at least the most items a row meets; slots no item fills
-// are (+inf, INT32_MAX).
-extern "C" int knn_local_topk(const void* x, const int* ids, float* out_v,
-                              int* out_i, int rows, int m, int l,
-                              long long per, int nparts, int grid, int dtype,
-                              void* stream) {
-  const int R = knn::run_width(l);
-  const size_t smem = smem_bytes(R, dtype == knn::kBF16 ? 2 : 4);
-  const long long total = (long long)rows * m;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (ids != nullptr) {
-    if (dtype != knn::kF32) return (int)cudaErrorInvalidValue;
-    if ((e = prepare<float, true>(smem)) != cudaSuccess) return (int)e;
-    local_topk_kernel<float, true><<<grid, NT, smem, s>>>(
-        static_cast<const float*>(x), ids, out_v, out_i, m, l, R, per, nparts,
-        total);
-  } else if (dtype == knn::kBF16) {
-    if ((e = prepare<__nv_bfloat16, false>(smem)) != cudaSuccess) return (int)e;
-    local_topk_kernel<__nv_bfloat16, false><<<grid, NT, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), nullptr, out_v, out_i, m, l, R,
-        per, nparts, total);
-  } else {
-    if ((e = prepare<float, false>(smem)) != cudaSuccess) return (int)e;
-    local_topk_kernel<float, false><<<grid, NT, smem, s>>>(
-        static_cast<const float*>(x), nullptr, out_v, out_i, m, l, R, per,
-        nparts, total);
-  }
-  return (int)cudaGetLastError();
+// carried ids need f32 values); floor_v / floor_i: (rows,) f32 / int32, or
+// both null for no floor (a floor takes no carried ids).  The rows,
+// flattened, are cut into items of `per` values that `grid` blocks take in
+// turn; out: (rows, nparts, l), one ascending partial per (row, item the
+// row meets), slot j = item - (row * m) / per.  nparts must be at least the
+// most items a row meets; slots no item fills are (+inf, INT32_MAX).
+extern "C" int knn_local_topk(const void* x, const int* ids,
+                              const float* floor_v, const int* floor_i,
+                              float* out_v, int* out_i, int rows, int m,
+                              int l, long long per, int nparts, int grid,
+                              int dtype, void* stream) {
+  if ((floor_v == nullptr) != (floor_i == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return (int)dispatch(x, ids, floor_v, floor_i, out_v, out_i, rows, m, l,
+                       per, nparts, grid, dtype, ids != nullptr,
+                       floor_v != nullptr, static_cast<cudaStream_t>(stream),
+                       nullptr);
 }
 
 // Resident blocks per SM of the variant knn_local_topk launches for l,
-// dtype and ids, from the occupancy API (registers and shared memory).
+// dtype, ids and a floor, from the occupancy API (registers and shared
+// memory).
 extern "C" int knn_local_topk_blocks_per_sm(int l, int dtype, int with_ids,
-                                            int* out) {
-  const size_t smem = smem_bytes(knn::run_width(l),
-                                 dtype == knn::kBF16 ? 2 : 4);
-  cudaError_t e;
-  if (with_ids) {
-    if ((e = prepare<float, true>(smem)) != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, local_topk_kernel<float, true>, NT, smem);
-  } else if (dtype == knn::kBF16) {
-    if ((e = prepare<__nv_bfloat16, false>(smem)) != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, local_topk_kernel<__nv_bfloat16, false>, NT, smem);
-  } else {
-    if ((e = prepare<float, false>(smem)) != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, local_topk_kernel<float, false>, NT, smem);
-  }
-  return (int)e;
+                                            int with_floor, int* out) {
+  return (int)dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                       0, 1, l, 1, 1, 1, dtype, with_ids != 0,
+                       with_floor != 0, nullptr, out);
 }

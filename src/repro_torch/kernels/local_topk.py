@@ -10,6 +10,12 @@ row segment of its item.  Further launches of the same kernel merge the
 partials with their indices carried (:func:`merge_partials`), as they
 merge distance_topk's partials.  Ties go to the smaller index, as
 ``lax.top_k`` does.
+
+One pass writes at most ``MAX_L`` slots a row.  A larger l runs
+:func:`passes`: pass p takes an exclusive floor per row, the (value, id)
+of the last slot of pass p - 1, and writes the next slots; keys are
+lexicographic and unique in a row, so the passes together are the one
+top-l, ties to the smaller index.
 """
 
 from __future__ import annotations
@@ -33,12 +39,13 @@ def sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(l: int, dtype_code: int, with_ids: bool) -> int:
+def blocks_per_sm(l: int, dtype_code: int, with_ids: bool,
+                  with_floor: bool = False) -> int:
     """Resident blocks per SM of the kernel variant, from the occupancy
     API (its registers and its shared memory at this l)."""
     out = ctypes.c_int(0)
     _cuda.ok("local_topk", _build.library().knn_local_topk_blocks_per_sm(
-        l, dtype_code, int(with_ids), ctypes.byref(out)))
+        l, dtype_code, int(with_ids), int(with_floor), ctypes.byref(out)))
     if out.value < 1:
         raise RuntimeError(f"local_topk: no block fits an SM at l={l}")
     return out.value
@@ -92,6 +99,57 @@ def local_topk_plain(values: torch.Tensor, l: int):
     return ref.local_topk_ref(values, l)
 
 
+def local_topk_floor_plain(values: torch.Tensor, l: int, floor=None):
+    """One pass of :func:`passes` in PyTorch: ``(rows, m)`` values ->
+    ``(rows, l)`` ascending (value, column) pairs whose key lies above the
+    row's exclusive floor; ``floor`` is None or ``(floor_v, floor_i)``
+    ``(rows,)``.  Slots with no such pair are ``(+inf, 2**31-1)``."""
+    rows, m = values.shape
+    sv, si = torch.sort(values.float(), dim=-1, stable=True)
+    si = si.to(torch.int32)
+    if floor is None:
+        n_in = torch.full((rows, 1), m, device=values.device)
+    else:
+        fv, fi = floor[0].reshape(rows, 1), floor[1].reshape(rows, 1)
+        out = (sv < fv) | ((sv == fv) & (si <= fi))
+        order = torch.argsort(out.to(torch.int8), dim=-1, stable=True)
+        sv, si = sv.gather(-1, order), si.gather(-1, order)
+        n_in = (~out).sum(-1, keepdim=True)
+    if m < l:
+        pad = (rows, l - m)
+        sv = torch.cat([sv, torch.full(pad, float("inf"),
+                                       device=values.device)], -1)
+        si = torch.cat([si, torch.zeros(pad, dtype=torch.int32,
+                                        device=values.device)], -1)
+    sv, si = sv[:, :l], si[:, :l]
+    live = torch.arange(l, device=values.device) < n_in
+    return (torch.where(live, sv, float("inf")),
+            torch.where(live, si, ref.INT32_MAX))
+
+
+def passes(one_pass, rows: int, m: int, l: int, device):
+    """The l smallest (value, id) pairs of ``rows`` rows of ``m`` values,
+    in passes of at most ``MAX_L`` slots.  ``one_pass(lp, floor)`` returns
+    the ``(rows, lp)`` next pairs above ``floor`` (None, then the last
+    slot's ``(values, ids)`` of the pass before).  A pass that would start
+    at or past slot ``m`` is all sentinels ``(+inf, 2**31-1)``, written
+    without a call."""
+    vs, ids, floor = [], [], None
+    for p0 in range(0, min(l, m), _cuda.MAX_L):
+        v, i = one_pass(min(_cuda.MAX_L, l - p0), floor)
+        vs.append(v)
+        ids.append(i)
+        floor = (v[:, -1].contiguous(), i[:, -1].contiguous())
+    rest = l - sum(v.shape[1] for v in vs)
+    if rest:
+        vs.append(torch.full((rows, rest), float("inf"), device=device))
+        ids.append(torch.full((rows, rest), ref.INT32_MAX, dtype=torch.int32,
+                              device=device))
+    if len(vs) == 1:
+        return vs[0], ids[0]
+    return torch.cat(vs, 1), torch.cat(ids, 1)
+
+
 def merge_partials_plain(pv: torch.Tensor, pi: torch.Tensor, l: int):
     """``(rows, chunks, w)`` (value, id) partials -> ``(rows, l)``: the l
     smallest pairs of each row in lexicographic (value, id) order, by a
@@ -110,17 +168,20 @@ def merge_partials_plain(pv: torch.Tensor, pi: torch.Tensor, l: int):
     return sv[:, :l], i.gather(1, by_v)[:, :l]
 
 
-def card_slots(values: torch.Tensor, l: int, with_ids: bool) -> int:
+def card_slots(values: torch.Tensor, l: int, with_ids: bool,
+               with_floor: bool = False) -> int:
     """Resident blocks on the card of ``values`` of the kernel variant
-    for its dtype, ``l`` and ``with_ids``."""
-    return (blocks_per_sm(l, _cuda.dtype_code(values), with_ids)
+    for its dtype, ``l``, ``with_ids`` and ``with_floor``."""
+    return (blocks_per_sm(l, _cuda.dtype_code(values), with_ids, with_floor)
             * sm_count(values.device.index or 0))
 
 
-def launch(values: torch.Tensor, ids, l: int, launch_plan=None):
+def launch(values: torch.Tensor, ids, l: int, launch_plan=None, floor=None):
     """One kernel launch over ``(rows, m)`` values (and int32 ids, or None
     for column indices): ``(rows, nparts, l)`` partial lists, by
-    ``launch_plan`` or else :func:`plan` (``nparts == 1``: the answer)."""
+    ``launch_plan`` or else :func:`plan` (``nparts == 1``: the answer).
+    ``floor``: None, or ``(rows,)`` f32 values and int32 ids, each row's
+    exclusive floor (column ids only)."""
     rows, m = values.shape
     code = _cuda.dtype_code(values)
     dev = values.device
@@ -129,11 +190,14 @@ def launch(values: torch.Tensor, ids, l: int, launch_plan=None):
                 torch.full((rows, 1, l), ref.INT32_MAX, dtype=torch.int32,
                            device=dev))
     per, nparts, grid = launch_plan or plan(
-        rows, m, card_slots(values, l, ids is not None))
+        rows, m, card_slots(values, l, ids is not None, floor is not None))
+    fv, fi = (None, None) if floor is None else floor
     out_v = torch.empty((rows, nparts, l), dtype=torch.float32, device=dev)
     out_i = torch.empty((rows, nparts, l), dtype=torch.int32, device=dev)
     _cuda.ok("local_topk", _build.library().knn_local_topk(
         values.data_ptr(), None if ids is None else ids.data_ptr(),
+        None if fv is None else fv.data_ptr(),
+        None if fi is None else fi.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(), rows, m, l, per, nparts, grid,
         code, _cuda.stream_of(values)))
     COUNT.add()
@@ -154,11 +218,19 @@ def merge_partials(pv: torch.Tensor, pi: torch.Tensor, l: int):
 
 
 def local_topk_cuda(values: torch.Tensor, l: int):
-    """The kernel: ``(..., m) -> ((..., l) ascending f32, (..., l) int32)``."""
+    """The kernel: ``(..., m) -> ((..., l) ascending f32, (..., l) int32)``,
+    any ``l >= 1``: one pass (a launch and its merges) for each ``MAX_L``
+    slots (:func:`passes`)."""
     _cuda.check_cuda("local_topk", values)
-    _cuda.check_l("local_topk", l)
+    if l < 1:
+        raise ValueError(f"local_topk: l={l} < 1")
     _cuda.dtype_code(values)
     lead, m = values.shape[:-1], values.shape[-1]
-    pv, pi = launch(values.reshape(-1, m), None, l)
-    v, i = merge_partials(pv, pi, l)
+    x = values.reshape(-1, m)
+
+    def one_pass(lp, floor):
+        pv, pi = launch(x, None, lp, floor=floor)
+        return merge_partials(pv, pi, lp)
+
+    v, i = passes(one_pass, x.shape[0], m, l, x.device)
     return v.reshape(lead + (l,)), i.reshape(lead + (l,))

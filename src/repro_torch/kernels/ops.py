@@ -3,13 +3,16 @@ by device.
 
 Port of ``repro.kernels.ops``.  The rule is the tensor's device and
 nothing else: a CPU tensor takes the kernel's plain PyTorch version; a
-CUDA tensor launches the hand-written kernel or raises (a wrong dtype,
-a non-contiguous operand, ``l > 256``).  There is no mode switch that
-sends CUDA tensors to the plain version, no fallback on error, and no
-counterpart of the reference's shape gate that sent unaligned routing
-shapes to jnp: at k = 8 the card runs the routing kernels.  Each
-wrapper's counter counts its kernel's launches where it launches it;
-the plain versions count nothing.
+CUDA tensor launches the hand-written kernels or raises (a wrong dtype,
+a non-contiguous operand).  There is no mode switch that sends CUDA
+tensors to the plain version, no fallback on error, and no counterpart
+of the reference's shape gate that sent unaligned routing shapes to
+jnp: at k = 8 the card runs the routing kernel.  Where the reference
+sends ``l > 256`` to its jnp oracle, the card runs kernels too:
+``distance_topk`` becomes l2_distance then the multi-pass local_topk
+(:func:`fused_topk` decides, by l alone).  Each wrapper's counter
+counts its kernel's launches where it launches it; the plain versions
+count nothing.
 """
 
 from __future__ import annotations
@@ -20,10 +23,11 @@ from repro_torch.kernels import distance_topk as _dtk
 from repro_torch.kernels import l2_distance as _l2
 from repro_torch.kernels import local_topk as _ltk
 from repro_torch.kernels import routing as _rt
+from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import MAX_L
 
 COUNTERS = {c.name: c for c in (_l2.COUNT, _dtk.COUNT, _ltk.COUNT,
-                                _rt.ROUTE_COUNT, _rt.INDEX_COUNT)}
+                                _rt.COUNT)}
 
 
 def _path(entry: str, t: torch.Tensor) -> str:
@@ -48,11 +52,24 @@ def l2_distance(queries, points, *, valid=None):
     return out
 
 
+def fused_topk(l: int) -> bool:
+    """Whether the card's distance + top-l step at ``l`` is the fused
+    distance_topk kernel (``l <= MAX_L``, its slots), or else l2_distance
+    then the multi-pass local_topk."""
+    return l <= MAX_L
+
+
 def distance_topk(queries, points, l: int, *, valid=None):
     """Fused distance + top-l: ``((..., B, l) ascending, int32 indices
-    into the point axis)``; +inf slots carry ``2**31-1``."""
+    into the point axis)``; +inf slots carry ``2**31-1``.  On the card,
+    above ``MAX_L`` (:func:`fused_topk`), the distances are written by
+    l2_distance and their top-l taken in passes by local_topk."""
     if _path("distance_topk", queries) == "cuda":
-        return _dtk.distance_topk_cuda(queries, points, l, valid=valid)
+        if fused_topk(l):
+            return _dtk.distance_topk_cuda(queries, points, l, valid=valid)
+        v, i = _ltk.local_topk_cuda(
+            _l2.l2_distance_cuda(queries, points, valid=valid), l)
+        return v, torch.where(torch.isfinite(v), i, ref.INT32_MAX)
     return _dtk.distance_topk_plain(queries, points, l, valid=valid)
 
 
@@ -68,19 +85,29 @@ def _rows_i32(x, device) -> torch.Tensor:
         -1).contiguous()
 
 
+def route_index(queries, ls, packed, rows=None, *, with_rows: bool = True):
+    """The routing prologue of one batch: ``(rows (B, k) int32 or None,
+    bucket rows (B, k*b) int32 or None, unions (k [+ k*b],) bool)``, the
+    shards and buckets any row keeps.  ``packed``: a
+    ``routing.PackedRouting`` on the queries' device; ``rows``: the
+    caller's routing rows for index-only operands; ``with_rows=False``:
+    the unions alone.  One launch on the card."""
+    if _path("route_index", queries) == "cuda":
+        return _rt.route_index_cuda(queries, ls, packed, rows,
+                                    with_rows=with_rows)
+    return _rt.route_index_plain(queries, ls, packed, rows,
+                                 with_rows=with_rows)
+
+
 def route_mask(queries, ls, packed, *, slack: float = 1e-4):
     """``(B, k)`` bool active mask, the ``route_shards`` decision on the
     device (kernels/routing.py).  ``ls``: ``(B,)`` ranks, 0 for padding
     rows; ``packed``: ``routing.pack_summaries`` operands (numpy, or
-    tensors already on the queries' device)."""
+    tensors already on the queries' device), packed anew each call."""
     dev = queries.device
-    q = queries.to(torch.float32).contiguous()
-    la = _rows_i32(ls, dev)
-    ops = _rt.on_device(packed, dev)
-    if _path("route_mask", q) == "cuda":
-        out = _rt.route_mask_cuda(q, la, ops, slack=slack)
-    else:
-        out = _rt.route_mask_plain(q, la, ops, slack=slack)
+    pr = _rt.PackedRouting(packed, device=dev, slack=slack)
+    out, _, _ = route_index(queries.to(torch.float32).contiguous(),
+                            _rows_i32(ls, dev), pr)
     return out != 0
 
 
@@ -89,14 +116,11 @@ def index_mask(queries, ls, rows, packed, *, oversample: float = 2.0):
     decision on the device.  ``rows``: the ``(B, k)`` routing keep (bool
     or int); ``packed``: ``routing.pack_index`` operands."""
     dev = queries.device
-    q = queries.to(torch.float32).contiguous()
-    la = _rows_i32(ls, dev)
     r = torch.as_tensor(rows, device=dev).to(torch.int32).contiguous()
-    ops = _rt.on_device(packed, dev)
-    if _path("index_mask", q) == "cuda":
-        out = _rt.index_mask_cuda(q, la, r, ops, oversample=oversample)
-    else:
-        out = _rt.index_mask_plain(q, la, r, ops, oversample=oversample)
+    pr = _rt.PackedRouting(index=packed, device=dev, k=r.shape[1],
+                           oversample=oversample)
+    _, out, _ = route_index(queries.to(torch.float32).contiguous(),
+                            _rows_i32(ls, dev), pr, r)
     return out != 0
 
 
@@ -114,31 +138,37 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     """Which path each kernel takes for one service bucket shape, without
     launching anything: ``cuda`` on the card, ``plain`` on the CPU.
 
-    On the card, ``dtk_chunk`` is the points per distance_topk chunk and
-    ``dtk_blocks`` its persistent blocks (each walks its chunk in all k
-    shards), and ``l2_blocks`` the persistent l2_distance blocks per
-    query tile; all None on the CPU.  ``l > 256``, or a width whose query
-    tile does not fit in shared memory, has no kernel on the card
-    (``unsupported``): the server refuses ``l_max > 256`` at construction
-    and the wrappers raise on both.
+    On the card, ``dtk_path`` names the distance + top-l step
+    (:func:`fused_topk`): ``"distance_topk"``, with ``dtk_chunk`` the
+    points per chunk and ``dtk_blocks`` its persistent blocks (each walks
+    its chunk in all k shards), or ``"l2+local_topk"`` above ``MAX_L``,
+    with ``ltk_passes`` local_topk's passes; ``l2_blocks`` is the
+    persistent l2_distance blocks per query tile.  All None on the CPU.
+    A width whose query tile does not fit in shared memory has no kernel
+    on the card (``unsupported``), and the wrappers raise on it.
     """
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
     env = {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
-           "k": k, "path": path, "dtk_chunk": None, "dtk_blocks": None,
-           "l2_blocks": None, "unsupported": None}
+           "k": k, "path": path, "dtk_path": None, "dtk_chunk": None,
+           "dtk_blocks": None, "ltk_passes": None, "l2_blocks": None,
+           "unsupported": None}
     if path == "plain":
         return env
-    smem = _dtk.smem(dim, l, 4)
-    if l > MAX_L:
-        env["unsupported"] = f"l={l} > MAX_L={MAX_L}: no kernel"
-    elif smem > _l2.SMEM_MAX:
+    fused = fused_topk(l)
+    smem = _dtk.smem(dim, l, 4) if fused else _l2.loop_smem(dim, 4)
+    if smem > _l2.SMEM_MAX:
         env["unsupported"] = (f"dim={dim}: {smem} bytes of shared memory a "
                               f"block > {_l2.SMEM_MAX}: no kernel")
-    else:
+        return env
+    sms = _ltk.sm_count(dev.index or 0)
+    env.update(l2_blocks=_l2.BLOCKS_PER_SM * sms)
+    if fused:
         chunk = _dtk.chunking(bucket_b, k, m_local, dev)
-        sms = _ltk.sm_count(dev.index or 0)
-        env.update(dtk_chunk=chunk, dtk_blocks=-(-m_local // chunk)
-                   * -(-bucket_b // _dtk.QUERY_TILE),
-                   l2_blocks=_l2.BLOCKS_PER_SM * sms)
+        env.update(dtk_path="distance_topk", dtk_chunk=chunk,
+                   dtk_blocks=-(-m_local // chunk)
+                   * -(-bucket_b // _dtk.QUERY_TILE))
+    else:
+        env.update(dtk_path="l2+local_topk",
+                   ltk_passes=-(-min(l, m_local) // MAX_L))
     return env

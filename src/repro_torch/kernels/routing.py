@@ -1,9 +1,11 @@
-"""Shard routing and the bucket keep on the device: the CUDA kernels'
-wrappers, their plain PyTorch versions, and the operand packing.
+"""Shard routing and the bucket keep on the device: the CUDA kernel's
+wrapper, the plain PyTorch versions, and the operand packing.
 
 Port of ``repro.kernels.routing`` (Pallas ``route_mask`` and
-``index_mask``).  The kernels are ``csrc/route_mask.cu`` and
-``csrc/index_mask.cu``; their notes say what bounds them on the card.
+``index_mask``).  One kernel, ``csrc/route_index_mask.cu``, computes
+both masks and their batch unions in one launch, in three modes: route,
+route + index, and index with the caller's routing rows; its note says
+what bounds it on the card.
 
 **Parity.**  ``route_mask`` is held to the host f64 ``route_shards``
 bit for bit on the test instances, as the reference's kernel is: the f32
@@ -22,7 +24,9 @@ reference calls that tier approximate against its host rule
 (``store/index.py`` ``bucket_keep``).
 
 ``pack_summaries`` / ``pack_index`` give the reference's operand
-layouts, as host numpy; the server uploads them to the device once.
+layouts, as host numpy; :class:`PackedRouting` puts them in one device
+buffer once (the server does so at construction), so a call checks two
+tensors and makes one ctypes call.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import torch
 
 from repro_torch.kernels import _build, _cuda
 
-ROUTE_COUNT = _cuda.LaunchCounter("route_mask")
-INDEX_COUNT = _cuda.LaunchCounter("index_mask")
+COUNT = _cuda.LaunchCounter("route_index_mask")
+MODES = {"route": 0, "route+index": 1, "index": 2}
 
 _F32_EPS = float(np.finfo(np.float32).eps)       # 2^-23
 
@@ -236,59 +240,144 @@ def index_mask_plain(queries, ls, rows, packed, *, oversample: float = 2.0):
     return (g & (lb <= T) & (l2 > 0)).to(torch.int32)
 
 
-def _check(name, queries, ls, *ops):
-    _cuda.check_cuda(name, queries, ls, *ops)
-    if queries.dim() != 2 or queries.dtype != torch.float32:
-        raise TypeError(f"{name}: queries must be (B, dim) float32, got "
+class PackedRouting:
+    """The routing kernel's operands in one contiguous f32 buffer on one
+    device, with its f32 constants rounded once.
+
+    ``summaries``: the 11 :func:`pack_summaries` operands, or None (index
+    mode, which then needs ``k``); ``index``: the 3 :func:`pack_index`
+    operands, or None.  The buffer holds them flattened in that order
+    (``csrc/route_index_mask.cu`` ``Ops`` reads the same layout), padded
+    to whole float4s; :meth:`route_ops` and :meth:`index_ops` are views
+    of it, for the plain versions.
+    """
+
+    def __init__(self, summaries=None, index=None, *, device, k=None,
+                 slack: float = 1e-4, oversample: float = 2.0):
+        if summaries is None and index is None:
+            raise ValueError("PackedRouting needs summaries or an index")
+        parts = [torch.as_tensor(x, dtype=torch.float32, device=device)
+                 for x in (*(summaries or ()), *(index or ()))]
+        if summaries is not None:
+            self.dim, self.k = parts[0].shape
+            self.m, self.r = parts[7].shape[0], parts[3].shape[0]
+        else:
+            self.dim, self.k, self.m, self.r = parts[0].shape[0], k, 0, 0
+        self.kb = 0 if index is None else parts[-3].shape[1]
+        self.route, self.index = summaries is not None, index is not None
+        self.shapes = self._shapes()
+        if [tuple(x.shape) for x in parts] != self.shapes:
+            raise ValueError(f"packed operands {[tuple(x.shape) for x in parts]}"
+                             f" do not fit dim={self.dim}, k={self.k}, "
+                             f"m={self.m}, r={self.r}, kb={self.kb}")
+        if self.index and (not self.k or self.kb % self.k):
+            raise ValueError(f"k*b={self.kb} columns for k={self.k} shards")
+        n = sum(x.numel() for x in parts)
+        self.buf = torch.zeros(-(-n // 4) * 4, dtype=torch.float32,
+                               device=device)
+        self.buf[:n] = torch.cat([x.reshape(-1) for x in parts])
+        self.slack, self.oversample = slack, oversample
+        self.slack1, self.errc = _route_constants(self.dim, slack)
+        self.over = float(np.float32(oversample))
+
+    def _shapes(self):
+        dim, k, m, r, kb = self.dim, self.k, self.m, self.r, self.kb
+        route = [(dim, k), (1, k), (1, k), (r, k), (r, k), (m * dim, k),
+                 (m, k), (m, k), (m, k), (1, 1), (dim, r)]
+        return ((route if self.route else [])
+                + ([(dim, kb), (1, kb), (1, kb)] if self.index else []))
+
+    def _views(self):
+        out, o = [], 0
+        for shape in self.shapes:
+            n = shape[0] * shape[1]
+            out.append(self.buf[o:o + n].view(shape))
+            o += n
+        return out
+
+    def route_ops(self) -> tuple[torch.Tensor, ...]:
+        return tuple(self._views()[:11])
+
+    def index_ops(self) -> tuple[torch.Tensor, ...]:
+        return tuple(self._views()[-3:])
+
+    def mode(self, rows) -> str:
+        """The kernel's mode for a call with ``rows`` (None or given):
+        route, route + index, or index, which takes index-only operands
+        (the kernel reads the buffer by the mode)."""
+        if rows is not None:
+            if self.route or not self.index:
+                raise ValueError("routing rows go with index-only operands")
+            return "index"
+        if not self.route:
+            raise ValueError("index-only operands need the routing rows")
+        return "route+index" if self.index else "route"
+
+
+def route_index_plain(queries, ls, packed: PackedRouting, rows=None, *,
+                      with_rows: bool = True):
+    """The kernel's function in PyTorch: ``(rows (B, k) int32 or None,
+    bucket rows (B, k*b) int32 or None, unions (k [+ k*b],) bool)`` by
+    :func:`route_mask_plain` and :func:`index_mask_plain`, the unions
+    their ``any(0)``; ``with_rows=False`` returns the unions alone."""
+    mode = packed.mode(rows)
+    route = idx = None
+    if mode != "index":
+        rows = route = route_mask_plain(queries, ls, packed.route_ops(),
+                                        slack=packed.slack)
+    unions = [rows.any(0)]
+    if mode != "route":
+        idx = index_mask_plain(queries, ls, rows, packed.index_ops(),
+                               oversample=packed.oversample)
+        unions.append(idx.any(0))
+    if not with_rows:
+        route = idx = None
+    return route, idx, torch.cat(unions)
+
+
+def route_index_cuda(queries, ls, packed: PackedRouting, rows=None, *,
+                     with_rows: bool = True):
+    """The kernel, one launch for any B: ``(rows (B, k) int32 or None,
+    bucket rows (B, k*b) int32 or None, unions (k [+ k*b],) bool)``; the
+    mode as :meth:`PackedRouting.mode`.  ``with_rows=False`` (the
+    server's prologue) has the kernel write the unions alone."""
+    mode = packed.mode(rows)
+    dev = queries.device
+    if (queries.device.type != "cuda" or packed.buf.device != dev
+            or ls.device != dev):
+        raise ValueError(f"route_index_mask: queries, ls and the packed "
+                         f"operands must be on one CUDA device, got "
+                         f"{queries.device}, {ls.device}, {packed.buf.device}")
+    B = queries.shape[0]
+    if (queries.dtype != torch.float32 or queries.shape != (B, packed.dim)
+            or not queries.is_contiguous()):
+        raise TypeError(f"route_index_mask: queries must be contiguous "
+                        f"({B}, {packed.dim}) float32, got "
                         f"{tuple(queries.shape)} {queries.dtype}")
-    if ls.dtype != torch.int32 or ls.shape != queries.shape[:1]:
-        raise TypeError(f"{name}: ls must be (B,) int32, got "
+    if ls.dtype != torch.int32 or ls.shape != (B,):
+        raise TypeError(f"route_index_mask: ls must be ({B},) int32, got "
                         f"{tuple(ls.shape)} {ls.dtype}")
-
-
-def route_mask_cuda(queries, ls, packed, *, slack: float = 1e-4):
-    """The kernel: one block per query row -> ``(B, k)`` int32 keep."""
-    (centsT, radii, live, loT, hiT, pivT, pivrT, occT, pliveT, rmax,
-     dirsT) = packed
-    _check("route_mask", queries, ls, *packed)
-    if any(x.dtype != torch.float32 for x in packed):
-        raise TypeError("route_mask: packed operands must be float32")
-    B, dim = queries.shape
-    k, m, r = centsT.shape[1], occT.shape[0], loT.shape[0]
-    if centsT.shape[0] != dim or pivT.shape != (m * dim, k):
-        raise ValueError(f"route_mask: packed operands do not fit dim={dim}")
-    out = torch.empty((B, k), dtype=torch.int32, device=queries.device)
-    if B:
-        slack1, errc = _route_constants(dim, slack)
-        _cuda.ok("route_mask", _build.library().knn_route_mask(
-            queries.data_ptr(), ls.data_ptr(),
-            *[x.data_ptr() for x in packed], out.data_ptr(), B, dim, k, m,
-            r, slack1, errc, _cuda.stream_of(queries)))
-        ROUTE_COUNT.add()
-    return out
-
-
-def index_mask_cuda(queries, ls, rows, packed, *, oversample: float = 2.0):
-    """The kernel: one block per query row, one thread per bucket column
-    -> ``(B, k*b)`` int32 keep."""
-    bcentsT, bradii, blive = packed
-    _check("index_mask", queries, ls, rows, *packed)
-    if any(x.dtype != torch.float32 for x in packed):
-        raise TypeError("index_mask: packed operands must be float32")
-    if rows.dtype != torch.int32 or rows.shape[0] != queries.shape[0]:
-        raise TypeError("index_mask: rows must be (B, k) int32")
-    B, dim = queries.shape
-    k, kb = rows.shape[1], bcentsT.shape[1]
-    if bcentsT.shape[0] != dim or kb % k:
-        raise ValueError(f"index_mask: packed operands do not fit dim={dim}"
-                         f", k={k}")
-    out = torch.empty((B, kb), dtype=torch.int32, device=queries.device)
-    if B:
-        _cuda.ok("index_mask", _build.library().knn_index_mask(
-            queries.data_ptr(), ls.data_ptr(), rows.data_ptr(),
-            bcentsT.data_ptr(), bradii.data_ptr(), blive.data_ptr(),
-            out.data_ptr(), B, dim, k, kb,
-            float(np.float32(oversample)), _cuda.stream_of(queries)))
-        INDEX_COUNT.add()
-    return out
-
+    k, kb = packed.k, packed.kb if mode != "route" else 0
+    if rows is not None and (rows.dtype != torch.int32 or rows.shape != (B, k)
+                             or rows.device != dev
+                             or not rows.is_contiguous()):
+        raise TypeError(f"route_index_mask: rows must be contiguous ({B}, "
+                        f"{k}) int32 on {dev}")
+    route = idx = None
+    if with_rows and mode != "index":
+        route = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if with_rows and kb:
+        idx = torch.empty((B, kb), dtype=torch.int32, device=dev)
+    unions = torch.empty(k + kb, dtype=torch.bool, device=dev)
+    if not B:
+        unions.zero_()
+        return route, idx, unions
+    _cuda.ok("route_index_mask", _build.library().knn_route_index_mask(
+        queries.data_ptr(), ls.data_ptr(), packed.buf.data_ptr(),
+        None if rows is None else rows.data_ptr(),
+        None if route is None else route.data_ptr(),
+        None if idx is None else idx.data_ptr(), unions.data_ptr(), B,
+        packed.dim, k, packed.m, packed.r, packed.kb, MODES[mode],
+        packed.slack1, packed.errc, packed.over, _cuda.stream_of(queries)))
+    COUNT.add()
+    return route, idx, unions

@@ -16,18 +16,20 @@ round/message bill.
 built once from the construction points) prove they hold no winner;
 answers stay byte-identical to ``route="exact"`` and only the touched
 shards pay in the k-machine bill (``QueryResult.shards_touched``).  The
-decision runs on the host in f64 (``route_compute="host"``) or as the
-``route_mask`` kernel (``"device"``), whose per-row mask equals the host
-one.  ``search="approx"`` adds the bucket index (``store/index``): the
-kept buckets' slots are the only candidates, under a measured recall
-(``recall_mode="approx"``); under device routing its keep is the
-``index_mask`` kernel, gated by the ``route_mask`` rows.
+decision runs on the host in f64 (``route_compute="host"``) or on the
+device (``"device"``), whose per-row mask equals the host one.
+``search="approx"`` adds the bucket index (``store/index``): the kept
+buckets' slots are the only candidates, under a measured recall
+(``recall_mode="approx"``).  On the device one launch of the
+route_index_mask kernel gives the batch's routing and bucket unions.
 
 The entry point runs on the card: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Tests pass ``device="cpu"``, which takes
-the kernels' plain versions.  A batch's random stream is a
-``torch.Generator`` seeded from ``(seed, batch_id)``, so two fresh
-servers give byte-identical answers and iteration counts.
+the kernels' plain versions.  Any ``l_max`` is served: above one
+top-l pass (256 slots) the card's top-l takes several passes.  A
+batch's random stream is a ``torch.Generator`` seeded from
+``(seed, batch_id)``, so two fresh servers give byte-identical answers
+and iteration counts.
 
 Knobs of later slices of the port (the mutable store, prediction,
 tracing, shadow audits, SLOs and the HTTP endpoint) raise
@@ -50,7 +52,6 @@ from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
 from repro_torch.core import knn as knn_mod
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import routing as routing_mod
-from repro_torch.kernels._cuda import MAX_L
 from repro_torch.obs import ContractAuditor, MetricsRegistry
 from repro_torch.parallel.collectives import accounting
 from repro_torch.store import index as index_mod
@@ -243,10 +244,6 @@ class KnnServer:
             # the port's numerics are f32 throughout (no TF32 anywhere)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-            if cfg.l_max > MAX_L:
-                raise ValueError(
-                    f"l_max={cfg.l_max} > {MAX_L}: the top-l kernels take "
-                    f"l <= {MAX_L} on the card (ROADMAP open item)")
         self.k = int(shards)
         if isinstance(points, torch.Tensor):
             pts = points.to(device=self.device, dtype=torch.float32)
@@ -269,25 +266,18 @@ class KnnServer:
                                   k=self.k, device=self.device)
             for b in cfg.bucket_sizes]
 
-        # routing summaries and bucket index, built once from the points
-        self._summaries = self._index = None
-        self._route_ops = self._index_ops = None
+        # routing summaries and bucket index, built once from the points;
+        # under device routing, their operands packed on the device once
+        self._summaries = self._index = self._routing = None
         if cfg.route == "pruned":
             self._summaries = summaries_mod.build_summaries(
                 pts, self.k, num_projections=cfg.route_num_projections,
                 seed=cfg.route_proj_seed, num_pivots=cfg.summary_pivots)
-            if cfg.route_compute == "device":
-                self._route_ops = routing_mod.on_device(
-                    routing_mod.pack_summaries(self._summaries),
-                    self.device)
         if cfg.search == "approx":
             idx = index_mod.IndexMaintainer(self.k, self.m_local, self.dim,
                                             cfg.index_buckets)
             idx.rebuild(pts)
             self._index = idx.freeze(0)
-            if self._route_ops is not None:
-                self._index_ops = routing_mod.on_device(
-                    routing_mod.pack_index(self._index), self.device)
             # slot -> flat bucket column, uploaded once: the batch-union
             # bucket keep becomes the (k, m) candidate mask on the device
             colidx, has = index_mod.slot_decode(self._index, self.m_local)
@@ -295,6 +285,13 @@ class KnnServer:
                 self.k, self.m_local)
             self._has = torch.from_numpy(has).to(self.device).reshape(
                 self.k, self.m_local)
+        if cfg.route == "pruned" and cfg.route_compute == "device":
+            self._routing = routing_mod.PackedRouting(
+                routing_mod.pack_summaries(self._summaries),
+                None if self._index is None
+                else routing_mod.pack_index(self._index),
+                device=self.device, slack=cfg.route_slack,
+                oversample=cfg.index_oversample)
 
         self._batch_counter = 0
         self._cv = threading.Condition()
@@ -324,27 +321,23 @@ class KnnServer:
         bool or None, point_candidates (k, m) bool or None, touched,
         candidate fraction or None, host_syncs)``.
 
-        Device routing runs ``route_mask`` and, under ``search="approx"``,
-        ``index_mask`` on its rows, then reads the batch unions back in
-        one transfer; host routing runs the f64 ``route_shards`` and
-        ``bucket_keep``.  Both take the union over the batch's rows
+        Device routing is one ``route_index`` call (one launch on the card:
+        the routing rows and, under ``search="approx"``, the bucket rows
+        gated by them, with both batch unions), whose unions are read
+        back in one transfer; host routing runs the f64 ``route_shards``
+        and ``bucket_keep``.  Both take the union over the batch's rows
         (padding rows, l = 0, route nowhere)."""
         cfg = self.cfg
         active = keep_t = keep_any = act = None
         syncs = 0
-        if self._route_ops is not None:
-            rows = kops.route_mask(qt, lt, self._route_ops,
-                                   slack=cfg.route_slack)
-            active = rows.any(0)
+        if self._routing is not None:
+            _, _, unions = kops.route_index(qt, lt, self._routing,
+                                            with_rows=False)
+            host = unions.cpu().numpy()
+            active, act = unions[:self.k], host[:self.k]
             if self._index is not None:
-                keep_t = kops.index_mask(
-                    qt, lt, rows, self._index_ops,
-                    oversample=cfg.index_oversample).any(0)
-                host = torch.cat([active, keep_t]).cpu().numpy()
-                act = host[:self.k]
+                keep_t = unions[self.k:]
                 keep_any = host[self.k:].reshape(self.k, -1)
-            else:
-                act = active.cpu().numpy()
             syncs = 1
         else:
             rows = None
@@ -404,6 +397,12 @@ class KnnServer:
                       self._generator(0))
 
     # ---- request path ----------------------------------------------------
+
+    @property
+    def with_values(self) -> bool:
+        """Whether answers carry the int payload table (the static
+        ``values=`` argument)."""
+        return self._values is not None
 
     def values_for(self, ids):
         """Map global ids to int payload values, -1 where absent."""
@@ -572,6 +571,11 @@ class KnnServer:
         if t is not None:
             t.join()
         self.flush()
+
+    def close(self) -> None:
+        """Quiesce the micro-batcher (idempotent; there is no exposition
+        endpoint to release, so this is stop())."""
+        self.stop()
 
     def serving(self):
         return _Serving(self)

@@ -248,6 +248,105 @@ def test_local_topk_kernel_inf_rows(card, dtype, shape):
     assert torch.equal(v, rv) and torch.equal(i, ri)
 
 
+def _ltk_launches(x, l):
+    """local_topk launches of local_topk_cuda(x, l) on this card: per
+    pass, the first launch and, for split rows, its merge's."""
+    rows, m = x.shape
+    n = 0
+    for p0 in range(0, min(l, m), 256):
+        lp = min(256, l - p0)
+        _, nparts, _ = ltk.plan(rows, m, ltk.card_slots(x, lp, False, p0 > 0))
+        slots = ltk.blocks_per_sm(lp, 0, True) * ltk.sm_count(0)
+        n += 1 + (len(ltk.merge_plans(rows, nparts * lp, lp, slots))
+                  if nparts > 1 else 0)
+    return n
+
+
+def _rows(card, rows, m, mode, seed):
+    """Rows for the multi-pass tests: random, ties (one decimal), all
+    equal, signed zeros, or +inf rows (whole, mostly and in a stride)."""
+    x = _randn(card, rows, m, seed=seed)
+    if mode == "ties":
+        x = torch.round(x * 10) / 10
+    elif mode == "equal":
+        x = torch.full_like(x, 1.5)
+    elif mode == "zeros":
+        x = torch.round(x * 2) / 8
+        neg = torch.rand((rows, m), generator=torch.Generator(device=card)
+                         .manual_seed(seed), device=card) < 0.5
+        x = torch.where((x == 0) & neg, torch.full_like(x, -0.0), x)
+    elif mode == "inf":
+        x[: rows // 2] = float("inf")
+        x[rows // 2, 40:] = float("inf")
+        x[rows // 2 + 1, ::3] = float("inf")
+    return x
+
+
+@pytest.mark.parametrize("l", [257, 1000])
+@pytest.mark.parametrize("shape,mode", [
+    ((256, 65536), "random"), ((7, 100003), "random"), ((8, 4096), "ties"),
+    ((5, 20000), "equal"), ((6, 50003), "zeros"), ((16, 50003), "inf"),
+    ((3, 600), "random")])
+def test_local_topk_multipass_kernel(card, shape, mode, l):
+    """l above one pass: the passes (a floored launch and its merge each)
+    equal the plain top-l bit for bit; signed zeros against the CPU's
+    stable sort, which compares values."""
+    x = _rows(card, *shape, mode, seed=20)
+    before = ltk.COUNT.n
+    v, i = ltk.local_topk_cuda(x, l)
+    torch.cuda.synchronize()
+    assert ltk.COUNT.n == before + _ltk_launches(x, l)
+    if mode == "zeros":
+        x, v, i = x.cpu(), v.cpu(), i.cpu()
+    rv, ri = ltk.local_topk_plain(x, l)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,mode", [((256, 65536), "ties"),
+                                        ((9, 1000), "inf"),
+                                        ((5, 20000), "equal")])
+def test_local_topk_floor_pass_kernel(card, shape, mode, dtype):
+    """One floored pass (its launch and merge) against
+    local_topk_floor_plain, with floors on values of the rows (equal
+    values on both sides of the floor's id) and below every value."""
+    x = _rows(card, *shape, mode, seed=21).to(dtype)
+    rows, m = shape
+    g = torch.Generator(device=card).manual_seed(21)
+    pick = torch.randint(0, m, (rows,), generator=g, device=card)
+    fv = x.float().gather(1, pick[:, None])[:, 0].contiguous()
+    fi = torch.randint(0, m, (rows,), generator=g, device=card,
+                       dtype=torch.int32)
+    fv[0], fi[0] = -float("inf"), -1
+    for lp in (1, 100, 256):
+        pv, pi = ltk.launch(x, None, lp, floor=(fv, fi))
+        v, i = ltk.merge_partials(pv, pi, lp)
+        rv, ri = ltk.local_topk_floor_plain(x, lp, (fv, fi))
+        assert torch.equal(v, rv) and torch.equal(i, ri), lp
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_distance_topk_above_one_pass(card, masked):
+    """ops.distance_topk at l = 300: l2_distance then local_topk's
+    passes, no distance_topk launch, equal to the plain version."""
+    k, m, d, l = 4, 4096, 64, 300
+    q, p = _randn(card, 13, d), _randn(card, k, m, d, seed=22)
+    valid = _mask(card, k, m, "random", seed=3) if masked else None
+    before = ops.launch_counts()
+    v, i = ops.distance_topk(q, p, l, valid=valid)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["distance_topk"] == before["distance_topk"]
+    assert after["l2_distance"] == before["l2_distance"] + 1
+    assert after["local_topk"] >= before["local_topk"] + 2
+    rv, ri = dtk.distance_topk_plain(q, p, l, valid=valid)
+    full = l2.l2_distance_plain(q, p)
+    if masked:
+        full = torch.where(valid.unsqueeze(1), full,
+                           torch.full_like(full, float("inf")))
+    _topk_close(v, i, rv, ri, full)
+
+
 def _sentinel_partials(card, rows, chunks, w, seed):
     """distance_topk-like partials: unique ids, many (+inf, INT32_MAX)."""
     g = torch.Generator(device=card)
@@ -311,9 +410,14 @@ def test_merge_of_distance_topk_partials(card, monkeypatch, masked):
 
 
 def test_wrappers_raise_instead_of_falling_back(card):
-    q, p = _randn(card, 4, 16), _randn(card, 64, 16)
+    q, p = _randn(card, 4, 16), _randn(card, 1000, 16)
     with pytest.raises(ValueError, match="l=300"):
-        ops.distance_topk(q, p, 300)
+        dtk.distance_topk_cuda(q, p, 300)
+    # the dispatcher serves l = 300 with kernels (l2_distance, then
+    # local_topk's passes), equal to the plain version
+    v, i = ops.distance_topk(q, p, 300)
+    rv, ri = dtk.distance_topk_plain(q, p, 300)
+    _topk_close(v, i, rv, ri, l2.l2_distance_plain(q, p))
     with pytest.raises(TypeError):
         ops.l2_distance(q.double(), p.double())
     with pytest.raises(ValueError, match="contiguous"):
@@ -331,8 +435,14 @@ def test_server_on_the_card_matches_the_cpu(card):
         cpu = KnnServer(pts, cfg=cfg.replace(sampler=sampler), device="cpu")
         for a, b in zip(gpu.query_batch(qs, ls), cpu.query_batch(qs, ls)):
             np.testing.assert_allclose(a.dists, b.dists, **F32)
-    with pytest.raises(ValueError, match="l_max"):
-        KnnServer(pts, cfg=cfg.replace(l_max=257), device=card)
+    # l_max above one top-l pass is served on the card too
+    big = cfg.replace(l_max=300)
+    ls = [1, 300, 257, 30, 2, 299]
+    for sampler in ("selection", "gather"):
+        gpu = KnnServer(pts, cfg=big.replace(sampler=sampler), device=card)
+        cpu = KnnServer(pts, cfg=big.replace(sampler=sampler), device="cpu")
+        for a, b in zip(gpu.query_batch(qs, ls), cpu.query_batch(qs, ls)):
+            np.testing.assert_allclose(a.dists, b.dists, **F32)
 
 
 def _routing_instance(B, pivots, seed=0, k=8, per=256, dim=64):
@@ -353,40 +463,75 @@ def _routing_instance(B, pivots, seed=0, k=8, per=256, dim=64):
 
 
 @pytest.mark.parametrize("pivots", [1, 2, 4])
-@pytest.mark.parametrize("B", [1, 5, 32])
+@pytest.mark.parametrize("B", [1, 5, 32, 70])
 def test_route_mask_kernel_bit_equal(card, pivots, B):
+    """The fused kernel's route mode: rows equal route_mask_plain's on
+    the card and on the CPU, in one launch (B = 70: warps take rows in
+    turn); unions are the rows' any(0)."""
     pts, valid, q, ls, summ = _routing_instance(B, pivots, seed=B)
-    packed = rt.on_device(rt.pack_summaries(summ), card)
+    packed = rt.PackedRouting(rt.pack_summaries(summ), device=card)
     qt = torch.from_numpy(q).to(card)
     lt = torch.from_numpy(ls).to(card)
-    before = rt.ROUTE_COUNT.n
-    out = rt.route_mask_cuda(qt, lt, packed)
+    before = rt.COUNT.n
+    out, keep, unions = rt.route_index_cuda(qt, lt, packed)
     torch.cuda.synchronize()
-    assert rt.ROUTE_COUNT.n == before + 1
-    assert torch.equal(out, rt.route_mask_plain(qt, lt, packed))
+    assert rt.COUNT.n == before + 1 and keep is None
+    assert torch.equal(out, rt.route_mask_plain(qt, lt, packed.route_ops()))
     cpu = rt.route_mask_plain(torch.from_numpy(q), torch.from_numpy(ls),
                               rt.on_device(rt.pack_summaries(summ), "cpu"))
     assert torch.equal(out.cpu(), cpu)
+    assert torch.equal(unions, out.any(0))
     assert not bool(out[0].any()) and not bool(out[:, 2].any())
 
 
 @pytest.mark.parametrize("B", [1, 5, 32])
 def test_index_mask_kernel_bit_equal(card, B):
+    """The fused kernel's index mode, on caller-given rows."""
     pts, valid, q, ls, summ = _routing_instance(B, 1, seed=10 + B)
     idx = IndexMaintainer(8, 256, 64, 8)
     idx.rebuild(pts, valid)
-    packed = rt.on_device(rt.pack_index(idx.freeze(0)), card)
+    iops = rt.pack_index(idx.freeze(0))
     qt = torch.from_numpy(q).to(card)
     lt = torch.from_numpy(ls).to(card)
-    rows = rt.route_mask_cuda(
-        qt, lt, rt.on_device(rt.pack_summaries(summ), card))
+    rows = rt.route_mask_plain(qt, lt,
+                               rt.on_device(rt.pack_summaries(summ), card))
     rows[:, 5] = 0                                 # the gate drops shard 5
-    before = rt.INDEX_COUNT.n
-    out = rt.index_mask_cuda(qt, lt, rows, packed)
+    packed = rt.PackedRouting(index=iops, device=card, k=8)
+    before = rt.COUNT.n
+    none, out, unions = rt.route_index_cuda(qt, lt, packed, rows)
     torch.cuda.synchronize()
-    assert rt.INDEX_COUNT.n == before + 1
-    assert torch.equal(out, rt.index_mask_plain(qt, lt, rows, packed))
+    assert rt.COUNT.n == before + 1 and none is None
+    assert torch.equal(out, rt.index_mask_plain(qt, lt, rows,
+                                                packed.index_ops()))
+    assert torch.equal(unions, torch.cat([rows.any(0), out.any(0)]))
     assert not bool(out[0].any()) and not bool(out[:, 40:48].any())
+
+
+@pytest.mark.parametrize("pivots", [1, 4])
+@pytest.mark.parametrize("B", [1, 5, 32, 33])
+def test_route_index_kernel_unions(card, pivots, B):
+    """Route + index in one launch: both row sets bit-equal to the plain
+    versions (the buckets gated by the rows the launch computed), and the
+    unions, shards then buckets, their any(0)."""
+    pts, valid, q, ls, summ = _routing_instance(B, pivots, seed=30 + B)
+    idx = IndexMaintainer(8, 256, 64, 8)
+    idx.rebuild(pts, valid)
+    packed = rt.PackedRouting(rt.pack_summaries(summ),
+                              rt.pack_index(idx.freeze(0)), device=card)
+    qt = torch.from_numpy(q).to(card)
+    lt = torch.from_numpy(ls).to(card)
+    before = rt.COUNT.n
+    rows, keep, unions = ops.route_index(qt, lt, packed)
+    torch.cuda.synchronize()
+    assert rt.COUNT.n == before + 1
+    want_rows, want_keep, want_unions = rt.route_index_plain(qt, lt, packed)
+    assert torch.equal(rows, want_rows) and torch.equal(keep, want_keep)
+    assert torch.equal(unions, want_unions)
+    assert torch.equal(unions, torch.cat([rows.any(0), keep.any(0)]))
+    # the server's launch: the unions alone, no rows written
+    none, none2, alone = ops.route_index(qt, lt, packed, with_rows=False)
+    assert none is None and none2 is None and torch.equal(alone, unions)
+    assert rt.COUNT.n == before + 2
 
 
 def test_routed_server_on_the_card_matches_the_cpu(card):
@@ -408,7 +553,6 @@ def test_routed_server_on_the_card_matches_the_cpu(card):
             np.testing.assert_allclose(a.dists, b.dists, **F32)
             assert a.shards_touched == b.shards_touched < 8
     after = ops.launch_counts()
-    # one batch (bucket 8) per server: route_mask in each, index_mask in
-    # the approx one
-    assert after["route_mask"] - before["route_mask"] == 3
-    assert after["index_mask"] - before["index_mask"] == 1
+    # one batch (bucket 8) per server: one routing launch in each, the
+    # approx one's computing the bucket rows too
+    assert after["route_index_mask"] - before["route_index_mask"] == 3

@@ -312,3 +312,52 @@ def test_device_router_counts_its_readback():
                 route_compute="device").query_batch(q, [1, 8, 4, 2])
     assert [r.host_syncs for r in dev] == [r.host_syncs + 1 for r in host]
     assert all(r.generation == 0 and r.recall_mode == "exact" for r in dev)
+
+
+@pytest.mark.parametrize("mode", ["route", "route+index", "index"])
+def test_route_index_unions_are_the_rows_any(mode):
+    """ops.route_index (the plain version on the CPU) in each mode: its
+    rows are route_mask_plain's and index_mask_plain's on the packed
+    buffer's views, and its unions their any(0), shards then buckets."""
+    from repro_torch.store import IndexMaintainer
+    pts, q = _instance("clustered", 3)
+    la = torch.tensor([0, 1, 8, 256], dtype=torch.int32)
+    qt = torch.from_numpy(q)
+    ts = build_summaries(pts, K, num_pivots=2)
+    idx = IndexMaintainer(K, M, DIM, 4)
+    idx.rebuild(pts)
+    sops = trouting.pack_summaries(ts)
+    iops = trouting.pack_index(idx.freeze(0))
+    want_rows = trouting.route_mask_plain(
+        qt, la, trouting.on_device(sops, "cpu"), slack=SLACK)
+    given = want_rows.clone()
+    given[:, 5] = 0                              # caller rows gate shard 5
+    packed = trouting.PackedRouting(
+        None if mode == "index" else sops,
+        None if mode == "route" else iops, device="cpu", k=K, slack=SLACK)
+    rows, keep, unions = tops.route_index(
+        qt, la, packed, given if mode == "index" else None)
+    gate = given if mode == "index" else want_rows
+    want = [gate.any(0)]
+    if mode == "route":
+        assert keep is None
+    else:
+        want_keep = trouting.index_mask_plain(
+            qt, la, gate, trouting.on_device(iops, "cpu"))
+        assert torch.equal(keep, want_keep)
+        want.append(want_keep.any(0))
+    if mode == "index":
+        assert rows is None
+    else:
+        assert torch.equal(rows, want_rows)
+    assert unions.dtype == torch.bool
+    assert torch.equal(unions, torch.cat(want))
+    alone = tops.route_index(qt, la, packed,
+                             given if mode == "index" else None,
+                             with_rows=False)
+    assert alone[0] is None and alone[1] is None
+    assert torch.equal(alone[2], unions)
+    assert unions.shape == (K + (0 if mode == "route" else K * 4),)
+    # rows go with index-only operands, which need them
+    with pytest.raises(ValueError):
+        tops.route_index(qt, la, packed, None if mode == "index" else given)

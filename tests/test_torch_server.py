@@ -143,6 +143,32 @@ def test_values_lookup_with_sentinel_slots(mesh8, rng):
     assert sorted(tr.values[:K * 2].tolist()) == vals.tolist()
 
 
+@pytest.mark.parametrize("with_values", [False, True])
+def test_with_values_and_close_match_jax(mesh8, rng, pts, with_values):
+    """with_values follows the static values= argument on both servers;
+    close() stops a serving server and a stopped one, twice each, and a
+    closed server still answers synchronously."""
+    vals = np.arange(N, dtype=np.int32) if with_values else None
+    port = KnnServer(pts, vals, cfg=CONFIG.replace(**KW), shards=K,
+                     device="cpu")
+    ref = JaxServer(pts, vals, cfg=JCONFIG.replace(**KW), mesh=mesh8,
+                    axis_name="x")
+    assert port.with_values is ref.with_values is with_values
+    q = rng.normal(size=(DIM,)).astype(np.float32)
+    for srv in (port, ref):
+        srv.start()
+        fut = srv.submit(q, 4)
+        srv.close()
+        srv.close()
+        assert fut.done() and len(fut.result(timeout=0).ids) == 4
+    stopped = KnnServer(pts, vals, cfg=CONFIG.replace(**KW), shards=K,
+                        device="cpu")
+    stopped.close()
+    stopped.close()
+    res = port.query_batch(q[None], [4])[0]
+    assert (res.values is not None) is with_values
+
+
 def test_rejects_bad_requests(pts):
     srv = _port(pts)
     with pytest.raises(ValueError):
