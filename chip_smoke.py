@@ -36,6 +36,26 @@ Phases:
      1..1024, with 257, 1000 and 1024), both samplers, exact route: every
      answer equal to brute force, local_topk's passes launched and no
      distance_topk launch;
+  3d. serve_store: a MutableStore of 2^22 slots (k = 8 x 524,288, dim 64,
+     affinity placement, proximity re-deal, 2 pivots, re-tightening, the
+     split trigger, 8 index buckets) filled from drifting_clusters by
+     insert + flush (2^20 points); eight churn rounds (8,192 inserts,
+     4,096 deletes, 2,048 updates, one flush; an explicit compact()
+     after round 5), after each 40 requests to five servers over the
+     store (exact selection and gather; pruned device and host routing;
+     pruned device routing with search="approx"): every answer equal to
+     an f64 brute force over the live set of its generation, pruned
+     answers byte-identical to the exact route's and touching the same
+     shards under device and host routing, the generation's packed
+     routing operands equal to a fresh packing and one route + index
+     launch on them equal to the plain version and host route_shards
+     bit for bit, approx recall@l >= 0.95, 0 contract violations, each
+     path's kernels launched; then
+     the store's masks on the kernels (phase 2's store cases), a flush's
+     clone + scatter, the routing operands' repack, compact() split into
+     its parts, and epoch swaps under load (a store with history carried
+     over by convert.store_from_mirrors, served by the micro-batcher
+     while an ingest thread flushes);
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -47,7 +67,9 @@ Phases:
      the long row at l = 1024 in passes beside one pass at l = 256; the
      routing kernel's three modes at B = 32 beside a launch floor (one
      PyTorch op on a 1-element tensor) and the device-routed prologue's
-     wall;
+     wall; the distance kernels, the long row and the merge under the
+     store's real mask after the churn (bounds counting its live tiles),
+     and distance_topk there with each shard's slots shuffled;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -94,11 +116,13 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/route_index_mask.cu",
         replaces="src/repro/kernels/routing.py:226",
         counter="route_index_mask",
-        runs=("a_device_selection", "c_device_gather", "d_device_approx")),
+        runs=("a_device_selection", "c_device_gather", "d_device_approx",
+              "store_a_device_selection", "store_d_device_approx")),
     "index_mask": dict(
         source="src/repro_torch/kernels/csrc/route_index_mask.cu",
         replaces="src/repro/kernels/routing.py:339",
-        counter="route_index_mask", runs=("d_device_approx",)),
+        counter="route_index_mask",
+        runs=("d_device_approx", "store_d_device_approx")),
 }
 # every launch counter of the port (kernels/ops.py COUNTERS)
 COUNTERS = ("l2_distance", "distance_topk", "local_topk", "route_index_mask")
@@ -123,7 +147,18 @@ ROUTE_KEYS = ("device_ms", "both_ms", "both_device_ms", "both_plain_ms",
               "prologue_ms", "routing_readback_ms")
 # phase 4's extra numbers for local_topk at l above one pass
 LARGE_L_KEYS = ("large_l", "large_l_ms", "large_l_kernel_ms",
-                "large_l_plain_ms", "large_l_one_pass_ms", "large_l_bound_ms")
+                "large_l_plain_ms", "large_l_one_pass_ms", "large_l_bound_ms",
+                "large_l_library_ms")
+# phase 4's numbers under the store's real mask after the churn (the
+# distance kernels, local_topk's long row, and its merge of distance_topk's
+# partials), each bound counting the live tiles or the pairs the data needs
+STORE_KEYS = ("store_masked_ms", "store_masked_kernel_ms",
+              "store_masked_plain_ms", "store_masked_bound_ms",
+              "store_masked_bound_by", "store_live_tiles",
+              "store_shuffled_ms", "store_shuffled_kernel_ms",
+              "merge_store_ms", "merge_store_kernel_ms",
+              "merge_store_plain_ms", "merge_store_bound_ms",
+              "merge_store_bound_by")
 # the routed phase's B = 32 routing inputs and approx server, kept for
 # phase 4's timing
 ROUTED_INPUTS = {}
@@ -848,7 +883,8 @@ def phase_serve_routed(dev, gpu, results):
             iops = rt.pack_index(srv._index)
             route = rt.PackedRouting(sops, device=dev, slack=rcfg.route_slack)
             ROUTED_INPUTS.update(
-                q=q32, ls=l32, route=route, both=srv._routing,
+                q=q32, ls=l32, route=route,
+                both=srv._operands(srv._summaries, srv._index)[0],
                 index=rt.PackedRouting(index=iops, device=dev, k=K,
                                        oversample=rcfg.index_oversample),
                 rows=rt.route_index_cuda(q32, l32, route)[0],
@@ -944,6 +980,561 @@ def phase_serve_large_l(dev, gpu, results):
     del points
     torch.cuda.empty_cache()
 
+
+# ---- phase 3d: the mutable store at full width ---------------------------------
+
+STORE_CAP = M                 # 2^19 slots a shard, 2^22 in all
+STORE_STEP = 1 << 16          # points a prefill flush (8 clusters x 8192)
+CHURN = dict(rounds=8, inserts=8192, deletes=4096, updates=2048)
+STORE_COMPACT_ROUND = 5       # the explicit compact(), after this round
+PREFILL = 1 << 20              # live points the prefill reaches
+LOAD_CYCLES = 6               # the ingest thread's insert/flush/delete/flush
+# the store servers: name, config changes, exact twin, kernels the path
+# must launch
+STORE_RUNS = (
+    ("store_exact_selection", {}, None, ["distance_topk", "local_topk"]),
+    ("store_exact_gather", dict(sampler="gather"), None,
+     ["l2_distance", "local_topk"]),
+    ("store_a_device_selection",
+     dict(route="pruned", route_compute="device"), "store_exact_selection",
+     ["route_index_mask", "distance_topk", "local_topk"]),
+    ("store_b_host_selection", dict(route="pruned", route_compute="host"),
+     "store_exact_selection", ["distance_topk", "local_topk"]),
+    ("store_d_device_approx",
+     dict(route="pruned", route_compute="device", search="approx"), None,
+     ["route_index_mask", "distance_topk", "local_topk"]),
+)
+# the store's real mask, points and queries after the churn, kept for
+# phase 4's timing; and the kernels' errors under the store's masks
+STORE_INPUTS = {}
+
+
+def store_config():
+    """The store phase's service config: the serve phases' shapes and the
+    store knobs of the adaptive A/B (benchmarks/bench_serve.py); the
+    tombstone trigger is set once the prefill's size is known."""
+    from repro_torch.configs import CONFIG
+    return CONFIG.replace(
+        placement="affinity", redeal="proximity", summary_pivots=2,
+        retighten_every=4096, split_radius_factor=1.0, index_buckets=8,
+        store_capacity_per_shard=STORE_CAP, store_staging_size=1 << 30)
+
+
+def interleaved(pts):
+    """A drifting_clusters batch (cluster-major rows) in the order eight
+    concurrent writers, one a cluster, would send it: cluster 0, 1, ...,
+    7, 0, 1, ..."""
+    return pts.reshape(K, -1, DIM).transpose(1, 0, 2).reshape(-1, DIM).copy()
+
+
+def truth_on_card(lid, lp, q, l):
+    """The brute-force top-(l+1) over the live set (ids ``lid`` numpy,
+    points ``lp`` on the card), in f64 by direct differences:
+    (distances, ids, |q|^2 + max |p|^2) as numpy and a float."""
+    import torch
+    q64 = q.double()
+    d = ((lp.double() - q64) ** 2).sum(-1)
+    bv, bi = torch.topk(d, min(l + 1, d.numel()), largest=False)
+    mag = float((q64 * q64).sum() + (lp.double() ** 2).sum(-1).max())
+    return bv.cpu().numpy(), lid[bi.cpu().numpy()], mag
+
+
+def store_check(res, truth, l, generation, what=""):
+    """One store answer against the f64 brute-force truth of its
+    generation: distances within ``F32_TOL`` plus the f32 rounding of the
+    expanded distance ``|q|^2 - 2 q.p + |p|^2`` the kernels compute,
+    ``32 * 2^-23 * (|q|^2 + max |p|^2)`` (the store's clusters lie far
+    from the origin); ids equal, or the strict interior where the l-th
+    and (l+1)-th distances lie within that tolerance; sentinels past the
+    live count."""
+    import numpy as np
+    bv, bid, mag = truth
+    if res.generation != generation:
+        raise PhaseError(f"{what}: answer of generation {res.generation}, "
+                         f"want {generation}")
+    n = min(l, len(bv))
+    if len(res.dists) != l or not np.all(np.isinf(res.dists[n:])) or not (
+            np.all(res.ids[n:] == INT32_MAX)):
+        raise PhaseError(f"{what}: sentinel slots differ")
+    got_d, got_i = res.dists[:n], res.ids[:n]
+    tol = (F32_TOL["atol"] + F32_TOL["rtol"] * abs(float(bv[n - 1]))
+           + 32 * 2.0 ** -23 * mag)
+    err = float(np.abs(got_d - bv[:n]).max())
+    if err > tol:
+        raise PhaseError(f"{what} l={l}: distances differ from brute force "
+                         f"by {err:.4g} > {tol:.4g}")
+    if len(set(got_i.tolist())) != n:
+        raise PhaseError(f"{what}: repeated id in an answer")
+    if len(bv) == n or bv[n] - bv[n - 1] > tol:
+        if set(got_i.tolist()) != set(bid[:n].tolist()):
+            raise PhaseError(f"{what} l={l}: id set differs from brute force")
+    elif not set(bid[:n][bv[:n] < bv[n - 1] - tol].tolist()) <= set(
+            got_i.tolist()):
+        raise PhaseError(f"{what} l={l}: interior ids differ")
+    return err
+
+
+def store_masks(valid_real, dev):
+    """The three store masks of the kernel checks, (k, m) bool on the
+    card: the store's real mask after the churn; that mask with shard 2
+    cut to 0 < live < l (l // 3 live points, scattered) and shard 5
+    emptied; and scattered tombstones, 30% of every shard's live slots."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    few = valid_real.clone()
+    few[2] = False
+    few[2, torch.randperm(M, generator=g, device=dev)[:L // 3]] = True
+    few[5] = False
+    tomb = valid_real & (torch.rand(valid_real.shape, generator=g,
+                                    device=dev) > 0.3)
+    return {"real": valid_real, "few": few, "tombstones": tomb}
+
+
+def store_mask_kernels(dev, q, p, valid_real):
+    """distance_topk, l2_distance and local_topk's merge of
+    distance_topk's partials held against their plain versions under the
+    three store masks, at full width.  Returns the max abs errors."""
+    import torch
+    from repro_torch.kernels import distance_topk as dtk
+    from repro_torch.kernels import l2_distance as l2
+    from repro_torch.kernels import local_topk as ltk
+    from repro_torch.kernels import ref
+    errs = {"l2_distance": 0.0, "distance_topk": 0.0, "local_topk": 0.0}
+    for mode, valid in store_masks(valid_real, dev).items():
+        out = l2.l2_distance_cuda(q, p, valid=valid)
+        want = ref.masked_l2_distance_ref(q, p, valid)
+        if not torch.equal(torch.isinf(out), torch.isinf(want)):
+            raise PhaseError(f"l2_distance store mask {mode}: +inf entries "
+                             f"differ")
+        if not torch.allclose(out, want, **F32_TOL):
+            raise PhaseError(f"l2_distance store mask {mode}: max abs "
+                             f"{(out - want).abs().max()}")
+        fin = torch.isfinite(want)
+        errs["l2_distance"] = max(errs["l2_distance"], float(
+            torch.where(fin, (out - want).abs(), 0).max()))
+        del out
+        (v, i), (pv, pi) = capture_merge(
+            lambda: dtk.distance_topk_cuda(q, p, L, valid=valid))
+        torch.cuda.synchronize()
+        rv, ri = dtk.distance_topk_plain(q, p, L, valid=valid)
+        err = topk_agree(v, i, rv, ri, want, F32_TOL)
+        errs["distance_topk"] = max(errs["distance_topk"], err)
+        fin = torch.isfinite(v)
+        dead = (~valid).unsqueeze(1).expand(K, q.shape[0], M)
+        if bool((dead.gather(2, torch.where(fin, i, 0).long()) & fin).any()):
+            raise PhaseError(f"distance_topk store mask {mode}: a dead slot "
+                             f"surfaced")
+        live = valid.sum(1)
+        short = int((fin.sum(-1) != torch.clamp(live, max=L)[:, None]).sum())
+        if short:
+            raise PhaseError(f"distance_topk store mask {mode}: {short} rows "
+                             f"with another count of finite slots than "
+                             f"min(live, l)")
+        mv, mi = ltk.merge_partials(pv, pi, L)
+        rmv, rmi = ltk.merge_partials_plain(pv, pi, L)
+        if not (torch.equal(mv, rmv) and torch.equal(mi, rmi)):
+            raise PhaseError(f"local_topk merge store mask {mode}: differs "
+                             f"from the plain version")
+        if mode == "real":
+            STORE_INPUTS["merge"] = (pv, pi)
+        log(f"  store mask {mode}: live per shard {live.tolist()}; "
+            f"l2_distance, distance_topk (max abs {err:.3g}) and the merge of "
+            f"its partials {tuple(pv.shape)} ({int(torch.isfinite(pv).sum())} "
+            f"finite) equal to plain")
+        del want
+    return errs
+
+
+def store_routing_check(srv, st, q, ls, dev):
+    """The device router on the store's current generation: the operands
+    ``srv`` packed for it when it served are a packing from scratch of the
+    generation's summaries and index, and one route + index launch on
+    them equals the plain version, and its rows host ``route_shards``,
+    bit for bit."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import routing as rt
+    from repro_torch.store import route_shards
+    _, summ, idx = st.serving_snapshot()
+    ops = srv._gen_ops
+    if ops is None or ops[0] is not summ or ops[1] is not idx:
+        raise PhaseError(f"store routing: the server's operands are not "
+                         f"generation {st.generation}'s")
+    packed = ops[2]
+    fresh = rt.PackedRouting(rt.pack_summaries(summ), rt.pack_index(idx),
+                             device=dev)
+    if not torch.equal(packed.buf, fresh.buf):
+        raise PhaseError(f"store routing: generation {st.generation}'s "
+                         f"packed operands differ from a fresh packing")
+    qt = torch.as_tensor(q, device=dev)
+    lt = torch.as_tensor(ls.astype(np.int32), device=dev)
+    got = rt.route_index_cuda(qt, lt, packed)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(
+            got, rt.route_index_plain(qt, lt, packed))):
+        raise PhaseError(f"store routing: route_index_mask on generation "
+                         f"{st.generation} differs from the plain version")
+    host = route_shards(summ, q, ls, slack=srv.cfg.route_slack)
+    if not np.array_equal(got[0].cpu().numpy() != 0, host):
+        raise PhaseError(f"store routing: generation {st.generation}'s "
+                         f"device rows differ from host route_shards")
+
+
+def phase_serve_store(dev, gpu, results):
+    """The mutable store at full width (module docstring, phase 3d)."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.data import drifting_clusters
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import routing as rt
+    from repro_torch.runtime import KnnServer
+    from repro_torch.store import MutableStore, scatter_operands
+    from repro_torch.store.mutable import scatter_apply
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = store_config()
+    out = {"capacity_slots": K * STORE_CAP}
+    stream = drifting_clusters(K, STORE_STEP // K, DIM, steps=1 << 10,
+                               drift=4.0, scale=12.0, seed=17)
+    # the store keeps the bucket index the approx server reads
+    store_kw = cfg.replace(search="approx").store_kwargs()
+    st = MutableStore(DIM, device=dev, **store_kw)
+
+    # prefill: insert + flush a step at a time up to 2^20 live points
+    t0 = time.perf_counter()
+    pts, centers = next(stream)
+    st.insert(interleaved(pts))
+    st.flush()
+    rate = STORE_STEP / (time.perf_counter() - t0)
+    log(f"  [{gpu}] prefill: {rate:.0f} points/s of insert + flush on the "
+        f"first {STORE_STEP} points; {PREFILL} to go")
+    flush_walls = []
+    while st.live_count < PREFILL:
+        pts, centers = next(stream)
+        st.insert(interleaved(pts))
+        t1 = time.perf_counter()
+        st.flush()
+        flush_walls.append(time.perf_counter() - t1)
+    prefill_s = time.perf_counter() - t0
+    # the tombstone trigger at one and a half rounds of deletes over the
+    # live count, so the churn's deletes fire it within two rounds,
+    # before a split's repack clears them
+    st.compact_tombstone_frac = 1.5 * CHURN["deletes"] / st.live_count
+    out.update(prefill_points=st.live_count,
+               compact_tombstone_frac=st.compact_tombstone_frac,
+               prefill_rate_first_step=rate,
+               prefill_rate=st.live_count / prefill_s, prefill_s=prefill_s,
+               prefill_flush_s=flush_walls, prefill_stats=dict(
+                   vars(st.stats)))
+    log(f"  [{gpu}] prefill: {st.live_count} live in {prefill_s:.1f} s "
+        f"({st.live_count / prefill_s:.0f} points/s), generation "
+        f"{st.generation}, live per shard {st.live_per_shard.tolist()}, "
+        f"stats {vars(st.stats)}; tombstone trigger "
+        f"{st.compact_tombstone_frac:.5f}")
+
+    servers = {}
+    for name, kw, twin, needs in STORE_RUNS:
+        srv = KnnServer(store=st, cfg=cfg.replace(**kw), device=dev, seed=0)
+        srv.warmup()
+        servers[name] = srv
+    torch.cuda.synchronize()
+    launches = {name: {c: 0 for c in COUNTERS} for name, *_ in STORE_RUNS}
+    rng = np.random.default_rng(171)
+    groups = [32, 5, 2, 1]                  # buckets 32, 8, 2, 1
+    rounds = []
+    recalls, errs = [], []
+    for rnd in range(1, CHURN["rounds"] + 1):
+        pts, centers = next(stream)
+        prev = st.serving_snapshot()[1:]
+        live_ids, live_pts = st.live_arrays()
+        gone = rng.choice(live_ids, CHURN["deletes"], replace=False)
+        keep = np.setdiff1d(live_ids, gone)
+        moved = rng.choice(keep, CHURN["updates"], replace=False)
+        # an update moves a point a little: N(0, 0.25) a coordinate
+        old = live_pts[np.searchsorted(live_ids, moved)]
+        st.insert(interleaved(pts)[:CHURN["inserts"]])
+        st.delete(gone)
+        st.update(moved, old + rng.normal(scale=0.5, size=old.shape).astype(
+            np.float32))
+        t1 = time.perf_counter()
+        before = st.stats.compactions
+        gen = st.flush()
+        flush_s = time.perf_counter() - t1
+        auto = (st.stats.last_compact_reason
+                if st.stats.compactions > before else None)
+        compact_s = None
+        if rnd == STORE_COMPACT_ROUND:
+            t2 = time.perf_counter()
+            gen = st.compact()
+            compact_s = time.perf_counter() - t2
+        lid, lpts = st.live_arrays()
+        lp = torch.as_tensor(lpts, device=dev)
+        queries, ls = [], []
+        for size in groups:
+            c = centers[int(rng.integers(0, K))]
+            queries.append((c + rng.normal(size=(size, DIM))).astype(
+                np.float32))
+            ls.append(rng.integers(1, L + 1, size))
+        ls[0][0], ls[0][1] = 1, L
+        truth = [truth_on_card(lid, lp, torch.as_tensor(q, device=dev),
+                               int(l))
+                 for qg, lg in zip(queries, ls) for q, l in zip(qg, lg)]
+        answers = {}
+        for name, kw, twin, needs in STORE_RUNS:
+            srv = servers[name]
+            torch.cuda.synchronize()
+            kops.reset_launch_counts()
+            res = []
+            for qg, lg in zip(queries, ls):
+                res += srv.query_batch(qg, lg.tolist())
+            torch.cuda.synchronize()
+            counts = kops.launch_counts()
+            for c, n in counts.items():
+                launches[name][c] += n
+            for kname in needs:
+                if counts[kname] < 1:
+                    raise PhaseError(f"{name}: {kname} was never launched")
+            want = (len(groups) if kw.get("route_compute") == "device"
+                    else 0)
+            if counts["route_index_mask"] != want:
+                raise PhaseError(f"{name}: {counts['route_index_mask']} "
+                                 f"routing launches for {len(groups)} "
+                                 f"batches, want {want}")
+            answers[name] = res
+            all_l = [int(x) for lg in ls for x in lg]
+            if kw.get("search") == "approx":
+                for r, (bv, bid, _), l in zip(res, truth, all_l):
+                    if r.generation != gen or r.recall_mode != "approx":
+                        raise PhaseError(f"{name}: generation or mode")
+                    n = min(l, len(bv))
+                    recalls.append(len(set(bid[:n].tolist())
+                                       & set(r.ids.tolist())) / n)
+            else:
+                for r, t, l in zip(res, truth, all_l):
+                    errs.append(store_check(r, t, l, gen, name))
+            if twin is not None:
+                for r, w in zip(res, answers[twin]):
+                    if (r.dists.tobytes() != w.dists.tobytes()
+                            or not np.array_equal(r.ids, w.ids)):
+                        raise PhaseError(f"{name}: an answer differs from "
+                                         f"the exact route's")
+        for ra, rb in zip(answers["store_a_device_selection"],
+                          answers["store_b_host_selection"]):
+            if ra.shards_touched != rb.shards_touched:
+                raise PhaseError("store routing: the device router touched "
+                                 "other shards than the host router")
+        store_routing_check(servers["store_d_device_approx"], st,
+                            np.concatenate(queries), np.concatenate(ls), dev)
+        entry = dict(round=rnd, generation=gen, live=st.live_count,
+                     flush_s=flush_s, compact_s=compact_s,
+                     flush_compacted=auto,
+                     last_compact_reason=st.stats.last_compact_reason,
+                     touched=[r.shards_touched for r in
+                              answers["store_a_device_selection"][::10]],
+                     live_per_shard=st.live_per_shard.tolist())
+        rounds.append(entry)
+        log(f"  [{gpu}] round {rnd}: generation {gen}, {st.live_count} live, "
+            f"flush {flush_s:.2f} s"
+            + (f", compact() {compact_s:.2f} s" if compact_s else "")
+            + f"; {len(truth)} requests to each of {len(STORE_RUNS)} servers "
+            f"equal brute force (the approx server's recall is checked "
+            f"after the churn); stats {vars(st.stats)}")
+    if min(recalls) < 0.95:
+        raise PhaseError(f"store approx recall@l min {min(recalls)} < 0.95")
+    auto = [(e["round"], e["flush_compacted"]) for e in rounds
+            if e["flush_compacted"]]
+    if not any(r.startswith("tombstone_density") for _, r in auto):
+        raise PhaseError("the churn's tombstones fired no auto-compaction")
+    log(f"  [{gpu}] churn: stats.last_compact_reason "
+        f"{st.stats.last_compact_reason!r}; flushes that repacked (round, "
+        f"reason): {auto}; approx recall@l min {min(recalls):.4f} mean "
+        f"{float(np.mean(recalls)):.4f}")
+    for name, srv in servers.items():
+        snap = srv.obs_snapshot()
+        if snap["audit"]["contract"]["violations"]:
+            raise PhaseError(f"{name}: contract audit violations")
+    log(f"  [{gpu}] largest distance error against the f64 brute force: "
+        f"{max(errs):.4g}")
+    out.update(rounds=rounds, launches=launches, max_dist_err=max(errs),
+               approx_recall_min=min(recalls),
+               approx_recall_mean=float(np.mean(recalls)),
+               stats=dict(vars(st.stats)),
+               audit={n: s.obs_snapshot()["audit"]["contract"]["checks"]
+                      for n, s in servers.items()})
+
+    # each server's batch of 32 on the churned store, and the store's
+    # metrics as its servers recorded them
+    q32, l32 = queries[0], ls[0].tolist()
+    walls = {}
+    for name, srv in servers.items():
+        w = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            srv.query_batch(q32, l32)
+            w.append(time.perf_counter() - t1)
+        w.sort()
+        walls[name] = dict(p50_ms=w[2] * 1e3, all_ms=[x * 1e3 for x in w])
+    out["batch32_wall"] = walls
+    # the store records into the registry of the server built last
+    reg = servers[STORE_RUNS[-1][0]].metrics.snapshot()
+    out["store_metrics"] = {k: v for k, v in reg.items()
+                            if k.startswith("store.")}
+    log(f"  [{gpu}] batch of 32 wall p50 (ms): "
+        f"{ {n: round(w['p50_ms'], 3) for n, w in walls.items()} }; "
+        f"store metrics {out['store_metrics']}")
+
+    # the device time of one flush's clone + scatter, at a churn round's
+    # touched-slot count; the route_index_mask launch on this generation
+    # and the repack of its operands and slot decode per generation
+    snap = st.snapshot()
+    n_touch = CHURN["inserts"] + CHURN["deletes"] + CHURN["updates"]
+    slots = sorted(rng.choice(K * STORE_CAP, n_touch, replace=False).tolist())
+    idx, up, ui, uv = scatter_operands(slots, st._pts, st._ids, st._valid,
+                                       st.total, DIM, id_sentinel=INT32_MAX)
+    sl = torch.as_tensor(idx[:n_touch].astype(np.int64), device=dev)
+    up, ui, uv = (torch.as_tensor(x[:n_touch], device=dev)
+                  for x in (up, ui, uv))
+    scatter = lambda: scatter_apply(snap.points, snap.ids, snap.valid, sl,  # noqa: E731
+                                    up, ui, uv)
+    out["flush_device_ms"] = time_ms(scatter, 10)
+    out["flush_device_bound_ms"] = bound(
+        2 * (snap.points.numel() * 4 + snap.ids.numel() * 4
+             + snap.valid.numel()), 0)[0]
+    dsrv = servers["store_d_device_approx"]
+    _, summ, sidx = st.serving_snapshot()
+    packed = dsrv._operands(summ, sidx)[0]
+    qt = torch.as_tensor(q32, device=dev)
+    lt = torch.as_tensor(np.asarray(l32, np.int32), device=dev)
+    route = lambda: rt.route_index_cuda(qt, lt, packed,  # noqa: E731
+                                        with_rows=False)
+    out["route_index_ms"] = time_ms(route, 200)
+    out["route_index_device_ms"] = device_ms(route, "route_index_kernel")
+    repacks = []
+    for i in range(10):
+        pair = (summ, sidx) if i % 2 else prev
+        t1 = time.perf_counter()
+        dsrv._operands(*pair)
+        torch.cuda.synchronize()
+        repacks.append(time.perf_counter() - t1)
+    repacks.sort()
+    out["operands_repack_ms_p50"] = repacks[5] * 1e3
+    log(f"  [{gpu}] one flush's clone + scatter ({n_touch} slots): "
+        f"{out['flush_device_ms']:.4f} ms of device time (bound "
+        f"{out['flush_device_bound_ms']:.4f}); route_index_mask on this "
+        f"generation {out['route_index_ms']:.4f} ms (device "
+        f"{out['route_index_device_ms']} ms); operands + slot decode "
+        f"repacked a generation in {out['operands_repack_ms_p50']:.3f} ms p50")
+
+    # phase 2's store cases, on the churned store's real mask and points
+    valid_real = snap.valid.view(K, STORE_CAP)
+    pts3 = snap.points.view(K, STORE_CAP, DIM)
+    q = torch.as_tensor(q32, device=dev)
+    STORE_INPUTS.update(q=q, points=pts3, valid=valid_real)
+    out["kernel_max_abs_err"] = store_mask_kernels(dev, q, pts3, valid_real)
+    # every churn round held the routing kernel bit for bit
+    # (store_routing_check), else the phase failed there
+    out["kernel_max_abs_err"].update(route_mask=0.0, index_mask=0.0)
+
+    # an explicit compact() at full width, split: the host repack, the
+    # summaries and index rebuild, the upload
+    parts = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t1 = time.perf_counter()
+            r = fn(*a, **kw)
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t1
+            return r
+        return run
+    st._summ.rebuild = timed("summaries_rebuild_s", st._summ.rebuild)
+    st._index.rebuild = timed("index_rebuild_s", st._index.rebuild)
+    st._upload_snapshot_locked = timed("upload_s",
+                                       st._upload_snapshot_locked)
+    t1 = time.perf_counter()
+    st.compact()
+    parts["compact_s"] = time.perf_counter() - t1
+    del st._summ.rebuild, st._index.rebuild, st._upload_snapshot_locked
+    parts["repack_s"] = (parts["compact_s"] - parts["summaries_rebuild_s"]
+                         - parts["index_rebuild_s"] - parts["upload_s"])
+    out["compact"] = parts
+    log(f"  [{gpu}] compact() at {st.live_count} live: "
+        f"{ {k: round(v, 3) for k, v in parts.items()} } s (repack_s is the "
+        f"rest: the re-deal, the slot map, freezing and bookkeeping)")
+
+    # epoch swaps under load: a store with history, continued from this
+    # one's mirrors, served by the micro-batcher while an ingest thread
+    # runs insert/flush/delete/flush cycles
+    del servers
+    live = st.live_count
+    st2 = convert.store_from_mirrors(
+        st._pts, st._ids, st._valid, cap=STORE_CAP, shards=K,
+        generation=st.generation, device=dev, used=st._used,
+        next_id=st._next_id, used_ids=st._used_ids, track_history=True, **{
+            k: v for k, v in store_kw.items() if k != "capacity_per_shard"})
+    del st
+    srv = KnnServer(store=st2, cfg=cfg.replace(max_wait_ms=5.0), device=dev,
+                    seed=0)
+    srv.warmup()
+    stop = threading.Event()
+    cycles = []
+
+    def mutate():
+        r = np.random.default_rng(5)
+        while not stop.is_set() and len(cycles) < LOAD_CYCLES:
+            c = centers[int(r.integers(0, K))]
+            ids = st2.insert((c + r.normal(size=(256, DIM))).astype(
+                np.float32))
+            st2.flush()
+            st2.delete(ids)
+            st2.flush()
+            cycles.append(st2.generation)
+
+    t = threading.Thread(target=mutate, daemon=True)
+    lrng = np.random.default_rng(6)
+    load_q = [(centers[int(lrng.integers(0, K))]
+               + lrng.normal(size=DIM)).astype(np.float32)
+              for _ in range(24)]
+    with srv.serving():
+        t.start()
+        futs = [srv.submit(q, L) for q in load_q[:12]]
+        res = [f.result(timeout=300) for f in futs]
+        st2.insert(load_q[0][None] + 0.01)
+        forced = st2.flush()
+        futs = [srv.submit(q, L) for q in load_q[12:]]
+        res += [f.result(timeout=300) for f in futs]
+        stop.set()
+        t.join(timeout=300)
+    if t.is_alive():
+        raise PhaseError("the ingest thread did not stop")
+    gens = [r.generation for r in res]
+    if not min(gens[12:]) >= forced > max(gens[:12]):
+        raise PhaseError(f"answers crossed the epoch swap the wrong way: "
+                         f"{gens}, forced {forced}")
+    for q, r in zip(load_q, res):
+        hid, hpts = st2.history(r.generation)
+        store_check(r, truth_on_card(hid, torch.as_tensor(hpts, device=dev),
+                                     torch.as_tensor(q, device=dev), L),
+                    L, r.generation, "load")
+    if srv.obs_snapshot()["audit"]["contract"]["violations"]:
+        raise PhaseError("load: contract audit violations")
+    out["load"] = dict(requests=len(res), generations=sorted(set(gens)),
+                       swaps=len(cycles) * 2 + 1,
+                       history=len(st2._history), live_before=live)
+    log(f"  [{gpu}] epoch swaps under load: {len(res)} requests answered "
+        f"across generations {sorted(set(gens))} while {len(cycles)} "
+        f"insert/flush/delete/flush cycles ran; every answer equal to brute "
+        f"force over its generation's history ({len(st2._history)} "
+        f"generations kept)")
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{gpu}] max_memory_allocated {out['max_memory_allocated']} bytes")
+    results["serve_store"] = out
+    del srv, st2
+    torch.cuda.empty_cache()
 
 def phase_profile(dev, gpu, results):
     """Where one full bucket's time goes: torch.profiler over one
@@ -1067,6 +1658,83 @@ def merge_bytes(pv, l):
     flat = pv.reshape(rows, -1)
     lth = torch.topk(flat, l, dim=1, largest=False).values[:, -1:]
     return 4 * flat.numel() + 4 * int((flat <= lth).sum()) + 8 * rows * l
+
+
+def store_timing(timing):
+    """Phase 4 under the store's real mask after the churn (STORE_INPUTS):
+    l2_distance and distance_topk, local_topk's long row of the masked
+    distances, and its merge of distance_topk's partials.  The distance
+    bounds count the points of the 64-point tiles with a live point (the
+    tiles the kernels read), the flags and the outputs; the long row's,
+    the row read and the answer written; the merge's, merge_bytes."""
+    import torch
+    from repro_torch.kernels import distance_topk as dtk
+    from repro_torch.kernels import l2_distance as l2
+    from repro_torch.kernels import local_topk as ltk
+    from repro_torch.kernels import ref
+    q, p, valid = (STORE_INPUTS[x] for x in ("q", "points", "valid"))
+    b, n = q.shape[0], K * M
+    tiles = int(valid.view(K, M // 64, 64).any(-1).sum())
+    live_pts = 64 * tiles
+    flops = 2 * b * live_pts * DIM + 3 * b * live_pts
+    rows = l2.l2_distance_cuda(q, p, valid=valid)
+    runs = {
+        "l2_distance": (
+            lambda: l2.l2_distance_cuda(q, p, valid=valid),
+            lambda: ref.masked_l2_distance_ref(q, p, valid),
+            4 * (b * DIM + live_pts * DIM) + K * M + 4 * b * n, flops),
+        "distance_topk": (
+            lambda: dtk.distance_topk_cuda(q, p, L, valid=valid),
+            lambda: dtk.distance_topk_plain(q, p, L, valid=valid),
+            4 * (b * DIM + live_pts * DIM) + K * M + 8 * K * b * L, flops),
+        "local_topk": (
+            lambda: ltk.local_topk_cuda(rows, L),
+            lambda: ltk.local_topk_plain(rows, L),
+            4 * b * n + 8 * K * b * L, b * n),
+    }
+    for name, (kern, plain, nbytes, ops) in runs.items():
+        b_ms, by = bound(nbytes, ops)
+        t = timing[name]
+        t.update(store_masked_ms=time_ms(kern, 20),
+                 store_masked_kernel_ms=device_ms(
+                     kern, f"{name}_kernel", per_call=True),
+                 store_masked_plain_ms=time_ms(plain, 3),
+                 store_masked_bound_ms=b_ms, store_masked_bound_by=by,
+                 store_live_tiles=tiles)
+        log(f"  {name} under the store's mask ({tiles} of {n // 64} tiles "
+            f"live): {t['store_masked_ms']:.4f} ms, kernels alone "
+            f"{t['store_masked_kernel_ms']:.4f} (plain "
+            f"{t['store_masked_plain_ms']:.4f}, bound {b_ms:.6f} by {by})")
+    # distance_topk on the same points and mask with each shard's slots
+    # in one fixed random order: the store's slot order follows the ids,
+    # which follow the drifting stream, so does the order alone move it?
+    g = torch.Generator(device=q.device)
+    g.manual_seed(3)
+    perm = torch.randperm(M, generator=g, device=q.device)
+    ps, vs = p[:, perm].contiguous(), valid[:, perm].contiguous()
+    shuffled = lambda: dtk.distance_topk_cuda(q, ps, L, valid=vs)  # noqa: E731
+    t = timing["distance_topk"]
+    t.update(store_shuffled_ms=time_ms(shuffled, 20),
+             store_shuffled_kernel_ms=device_ms(
+                 shuffled, "distance_topk_kernel", per_call=True))
+    log(f"  distance_topk under the store's mask, each shard's slots "
+        f"shuffled: {t['store_shuffled_ms']:.4f} ms, kernel alone "
+        f"{t['store_shuffled_kernel_ms']:.4f}")
+    del ps, vs
+    pv, pi = STORE_INPUTS["merge"]
+    mb_ms, mby = bound(merge_bytes(pv, L), pv.numel())
+    merge = lambda: ltk.merge_partials(pv, pi, L)         # noqa: E731
+    t = timing["local_topk"]
+    t.update(merge_store_ms=time_ms(merge, 20),
+             merge_store_kernel_ms=device_ms(merge, "local_topk_kernel",
+                                             per_call=True),
+             merge_store_plain_ms=time_ms(
+                 lambda: ltk.merge_partials_plain(pv, pi, L), 3),
+             merge_store_bound_ms=mb_ms, merge_store_bound_by=mby)
+    log(f"  local_topk merge of distance_topk partials {tuple(pv.shape)} "
+        f"under the store's mask: {t['merge_store_ms']:.4f} ms (kernel alone "
+        f"{t['merge_store_kernel_ms']:.4f}, plain "
+        f"{t['merge_store_plain_ms']:.4f}, bound {mb_ms:.6f} by {mby})")
 
 
 def phase_timing(dev, results):
@@ -1254,11 +1922,14 @@ def phase_timing(dev, results):
                  lambda: ltk.local_topk_plain(dmat, L_LARGE), 3),
              large_l_one_pass_ms=time_ms(
                  lambda: ltk.local_topk_cuda(dmat, 256), 10),
+             large_l_library_ms=time_ms(
+                 lambda: torch.topk(dmat, L_LARGE, largest=False), 3),
              large_l_bound_ms=lb_ms)
     log(f"  local_topk long row at l={L_LARGE}: {t['large_l_ms']:.4f} ms "
         f"(kernels alone {t['large_l_kernel_ms']:.4f}; one pass at l=256 "
         f"{t['large_l_one_pass_ms']:.4f}; plain {t['large_l_plain_ms']:.4f};"
-        f" bound {lb_ms:.6f})")
+        f" library {t['large_l_library_ms']:.4f}; bound {lb_ms:.6f})")
+    store_timing(timing)
     # the routing kernel's route + index mode (the approx server's launch),
     # the launch floor of this card and stack (one PyTorch op on a
     # 1-element tensor), and the device-routed prologue of the approx
@@ -1334,6 +2005,7 @@ def main(argv=None) -> int:
     phases = [("build", None), ("kernels", phase_kernels),
               ("serve", phase_serve), ("serve_routed", phase_serve_routed),
               ("serve_large_l", phase_serve_large_l),
+              ("serve_store", phase_serve_store),
               ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
@@ -1363,7 +2035,7 @@ def main(argv=None) -> int:
                         ("f32_ids", 0, True))}
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "serve_large_l",
-                          "profile"):
+                          "serve_store", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -1385,6 +2057,7 @@ def main(argv=None) -> int:
                    if run[:2] in ("a_", "b_", "c_", "d_")})
     counts.update({run: e["launches"] for run, e in
                    results["serve_large_l"].items()})
+    counts.update(results["serve_store"]["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]
@@ -1394,12 +2067,14 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], status="ported",
+            store_max_abs_err=results["serve_store"][
+                "kernel_max_abs_err"].get(name),
             launches=sum(by_run.values()), launches_by_run=by_run,
             max_abs_err=results["max_abs_err"][name], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{key: t[key] for key in MASKED_KEYS + LTK_KEYS + ROUTE_KEYS
-               + LARGE_L_KEYS if key in t}))
+               + LARGE_L_KEYS + STORE_KEYS if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

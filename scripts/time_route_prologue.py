@@ -17,8 +17,9 @@ clock around the call and a synchronise, median and quartiles in ms over
   fraction;
 * ``routing``: the routing step alone, up to its readback, as the
   tree's ``_prologue`` makes it: one ``route_index`` launch where the
-  server packs its operands (``_routing``), else ``route_mask``, its
-  ``any(0)``, ``index_mask``, its ``any(0)`` and a ``cat``.
+  server packs its operands (``_operands``, or ``_routing`` in older
+  trees), else ``route_mask``, its ``any(0)``, ``index_mask``, its
+  ``any(0)`` and a ``cat``.
 
 Prints one JSON line with the card and its power limit and the tree.
 """
@@ -70,10 +71,11 @@ def main(argv=None) -> int:
     qt, lt = torch.as_tensor(q, device=dev), torch.as_tensor(ls, device=dev)
     from repro_torch.kernels import ops as kops
 
-    if hasattr(srv, "_routing"):
+    packed = (srv._operands(srv._summaries, srv._index)[0]
+              if hasattr(srv, "_operands") else getattr(srv, "_routing", None))
+    if packed is not None:
         def routing():
-            return kops.route_index(qt, lt, srv._routing,
-                                    with_rows=False)[2].cpu()
+            return kops.route_index(qt, lt, packed, with_rows=False)[2].cpu()
     else:
         def routing():
             rows = kops.route_mask(qt, lt, srv._route_ops,

@@ -1,9 +1,14 @@
-"""Carry the reference server's state across to the port's layout.
+"""Carry the reference's state across to the port's layout.
 
 The JAX server shards an ``(n, dim)`` point array over its mesh axis with
 ``P(axis)``: shard j holds rows ``[j*m, (j+1)*m)``, m = n / k, and ids
 are ``arange(n)``.  The port holds the same split as a leading shard
 dimension: points ``(k, m, dim)``, ids ``(k, m)``.
+
+A reference ``MutableStore``'s state is its host mirrors (points, ids
+and valid, ``(k*cap, ...)`` with shard j owning slots ``[j*cap,
+(j+1)*cap)``); :func:`store_from_mirrors` builds the port's store from
+them, the role weights play elsewhere.
 """
 
 from __future__ import annotations
@@ -41,3 +46,58 @@ def shards_from_tensor(points: torch.Tensor, k: int):
         raise ValueError(f"n_points={n} must divide the shard count {k}")
     ids = torch.arange(n, dtype=torch.int32, device=points.device)
     return points.reshape(k, n // k, dim), ids.reshape(k, -1)
+
+
+def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
+                       used, next_id: int, used_ids, values=None,
+                       generation: int = 0, device=None, **store_kwargs):
+    """The port's :class:`~repro_torch.store.MutableStore` holding a
+    reference store's applied state.
+
+    ``points`` (k*cap, dim) f32, ``ids`` (k*cap,) int32 and ``valid``
+    (k*cap,) bool are the reference's mirrors (``_pts`` / ``_ids`` /
+    ``_valid``) as numpy arrays; ``values`` an optional id -> int payload
+    mapping.  The slot map and live counts follow from them.  What the
+    mirrors do not hold comes from the reference store as it is: ``used``
+    (its ``_used``, each shard's high-water mark), ``next_id`` (its
+    ``_next_id``) and ``used_ids`` (its ``_used_ids``, every id ever
+    inserted, deleted ones included, so an id stays single-use across the
+    conversion).  The summaries and the index are rebuilt exactly, and
+    the snapshot uploaded as generation ``generation``.
+    ``store_kwargs`` are the store's other knobs.
+    """
+    from repro_torch.store.mutable import MutableStore
+    points = np.ascontiguousarray(points, np.float32)
+    ids = np.ascontiguousarray(ids, np.int32)
+    valid = np.ascontiguousarray(valid, bool)
+    total = shards * cap
+    if points.shape[0] != total or ids.shape != (total,) or (
+            valid.shape != (total,)):
+        raise ValueError(f"mirrors {points.shape}, {ids.shape}, "
+                         f"{valid.shape} do not hold {shards} x {cap} slots")
+    st = MutableStore(points.shape[1], capacity_per_shard=cap,
+                      shards=shards, device=device,
+                      with_values=values is not None, **store_kwargs)
+    with st._lock:
+        st._pts, st._ids, st._valid = points.copy(), ids.copy(), valid.copy()
+        slots = np.flatnonzero(valid)
+        live_ids = ids[slots].astype(np.int64)
+        st._slot_of = {int(i): int(s) for i, s in zip(live_ids, slots)}
+        st._used_ids = {int(i) for i in used_ids}
+        st._live = np.bincount(slots // cap, minlength=shards).astype(
+            np.int64)
+        st._used = np.asarray(used, np.int64).copy()
+        st._next_id = int(next_id)
+        if values is not None:
+            st._values = {int(i): int(v) for i, v in dict(values).items()}
+        st._projected_live = int(st._live.sum())
+        st._summ.rebuild(st._pts, st._valid, cap)
+        if st._index is not None:
+            st._index.rebuild(st._pts, st._valid)
+        st._snap = st._upload_snapshot_locked(generation=int(generation))
+        st._summaries = st._summ.freeze(int(generation))
+        if st._index is not None:
+            st._frozen_index = st._index.freeze(int(generation))
+        st._history.clear()
+        st._record_history()
+    return st

@@ -1,3 +1,3 @@
-from repro_torch.data.synthetic import sharded_clusters
+from repro_torch.data.synthetic import drifting_clusters, sharded_clusters
 
-__all__ = ["sharded_clusters"]
+__all__ = ["drifting_clusters", "sharded_clusters"]

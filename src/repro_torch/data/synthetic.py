@@ -1,12 +1,15 @@
-"""Synthetic point sets for the port's routing workloads.
+"""Synthetic point sets for the port's routing and store workloads.
 
-The port's own copy of ``repro.data.synthetic.sharded_clusters``: one
-Gaussian cluster per shard, laid out contiguously, so shard j owns rows
-``[j*m, (j+1)*m)``, all near ``centers[j]``.  The numpy path gives the
-reference's seeded output exactly.  The torch path (``device=``) makes
-the points on that device from a ``torch.Generator``, so a full-width
-set (2^22 x 64) never passes through host memory; its numbers differ
-from the numpy path's, as the two generators do.
+The port's own copies of ``repro.data.synthetic``'s ``sharded_clusters``
+and ``drifting_clusters``.  ``sharded_clusters``: one Gaussian cluster
+per shard, laid out contiguously, so shard j owns rows ``[j*m, (j+1)*m)``,
+all near ``centers[j]``.  Its numpy path gives the reference's seeded
+output exactly; its torch path (``device=``) makes the points on that
+device from a ``torch.Generator``, so a full-width set (2^22 x 64) never
+passes through host memory, and its numbers differ from the numpy
+path's, as the two generators do.  ``drifting_clusters``: the clustered
+stream the store's tests and the chip run ingest, numpy only, the
+reference's seeded output exactly.
 """
 
 from __future__ import annotations
@@ -45,3 +48,26 @@ def sharded_clusters(k: int, per_shard: int, dim: int, *, scale: float = 8.0,
                             dtype=torch.float64)
         pts[j * per_shard:(j + 1) * per_shard] = centers[j] + noise
     return pts, centers.cpu().numpy()
+
+
+def drifting_clusters(k: int, per_step: int, dim: int, *, steps: int,
+                      drift: float = 4.0, scale: float = 12.0,
+                      seed: int = 0):
+    """Drifting-cluster stream: k Gaussian clusters whose centres take a
+    length-``drift`` random-walk step between emissions.
+
+    Yields ``steps`` pairs of (points (k*per_step, dim) f32 cluster-major,
+    rows ``[c*per_step, (c+1)*per_step)`` near that step's
+    ``centers[c]``, and centers (k, dim) f64 as used for that batch).
+    Seeded: the same arguments replay the same stream.
+    """
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=scale, size=(k, dim))
+    for _ in range(steps):
+        pts = np.concatenate(
+            [centers[c] + rng.normal(size=(per_step, dim))
+             for c in range(k)])
+        yield pts.astype(np.float32), centers.copy()
+        step = rng.normal(size=(k, dim))
+        centers = centers + drift * step / np.maximum(
+            np.linalg.norm(step, axis=1, keepdims=True), 1e-30)

@@ -25,8 +25,9 @@ reference calls that tier approximate against its host rule
 
 ``pack_summaries`` / ``pack_index`` give the reference's operand
 layouts, as host numpy; :class:`PackedRouting` puts them in one device
-buffer once (the server does so at construction), so a call checks two
-tensors and makes one ctypes call.
+buffer, so a call checks two tensors and makes one ctypes call.  The
+static server packs once; a store-backed server packs each generation's
+summaries and index into a new one.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 from repro_torch.obs.audit import ContractAuditor
-from repro_torch.obs.metrics import (Counter, Histogram, MetricsRegistry,
-                                     default_registry)
+from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
+                                     MetricsRegistry, default_registry)
 
-__all__ = ["ContractAuditor", "Counter", "Histogram", "MetricsRegistry",
-           "default_registry"]
+__all__ = ["ContractAuditor", "Counter", "Gauge", "Histogram",
+           "MetricsRegistry", "default_registry"]

@@ -1,7 +1,8 @@
-"""Metrics registry: counters and streaming-quantile histograms.
+"""Metrics registry: counters, gauges and streaming-quantile histograms.
 
 The port's own copy of the subset of ``repro.obs.metrics`` that the
-query server and the kernel dispatcher use.  Stdlib only.
+query server, the mutable store and the kernel dispatcher use.  Stdlib
+only.
 
 Histograms keep no samples: an observation lands in the geometric bucket
 ``floor(log(v) / log(GROWTH))``, so ``observe`` is O(1) and memory is
@@ -33,6 +34,21 @@ class Counter:
     def inc(self, n: int = 1) -> None:
         with self._lock:
             self.value += n
+
+    def snapshot(self):
+        return self.value
+
+
+class Gauge:
+    __slots__ = ("_lock", "value")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self.value = v
 
     def snapshot(self):
         return self.value
@@ -120,11 +136,14 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
     def histogram(self, name: str) -> Histogram:
         return self._get(name, Histogram)
 
     def value(self, name: str, default=0):
-        """Counter value by name (default when absent)."""
+        """Counter or gauge value by name (default when absent)."""
         with self._lock:
             m = self._metrics.get(name)
         return default if m is None else m.snapshot()

@@ -1,27 +1,35 @@
-"""Micro-batched distributed l-NN query service over a static point set.
+"""Micro-batched distributed l-NN query service.
 
-Port of ``repro.runtime.knn_server`` for the static backing.  Requests,
-each with its own l, are coalesced into device batches of one of the
-configured bucket sizes (padding rows carry l=0 and select nothing),
-answered by Algorithm 2 (``sampler="selection"``) or the paper's simple
-method (``sampler="gather"``) over k shards held on one device, and
-resolved per request in ascending order with the k-machine
-round/message bill.
+Port of ``repro.runtime.knn_server``.  Requests, each with its own l,
+are coalesced into device batches of one of the configured bucket sizes
+(padding rows carry l=0 and select nothing), answered by Algorithm 2
+(``sampler="selection"``) or the paper's simple method
+(``sampler="gather"``) over k shards held on one device, and resolved
+per request in ascending order with the k-machine round/message bill.
 
     submit(q, l) -> [queue] -> micro-batcher (linger max_wait_ms, pad to
-        bucket) -> [routing / bucket prologue] -> core.knn on the device
-        -> QueryResult per request
+        bucket) -> [snapshot capture] -> [routing / bucket prologue]
+        -> core.knn on the device -> QueryResult per request
 
-``route="pruned"`` masks the shards whose summaries (``store/summaries``,
-built once from the construction points) prove they hold no winner;
-answers stay byte-identical to ``route="exact"`` and only the touched
-shards pay in the k-machine bill (``QueryResult.shards_touched``).  The
-decision runs on the host in f64 (``route_compute="host"``) or on the
+Two backings.  **Static** (``points=``): a fixed point set, generation
+0 forever; its routing summaries and bucket index are built once.
+**Mutable** (``store=``, a :class:`repro_torch.store.MutableStore`):
+each dispatch captures the store's (snapshot, summaries, index) under
+one lock and answers against that generation while newer ones land;
+the snapshot's ``valid`` masks dead slots, and every answer reports the
+generation it was computed against.  ``insert`` / ``update`` /
+``delete`` / ``flush_store`` pass through to the store.
+
+``route="pruned"`` masks the shards whose summaries prove they hold no
+winner; answers stay byte-identical to ``route="exact"`` and only the
+touched shards pay in the k-machine bill (``QueryResult.shards_touched``).
+The decision runs on the host in f64 (``route_compute="host"``) or on the
 device (``"device"``), whose per-row mask equals the host one.
-``search="approx"`` adds the bucket index (``store/index``): the kept
-buckets' slots are the only candidates, under a measured recall
-(``recall_mode="approx"``).  On the device one launch of the
-route_index_mask kernel gives the batch's routing and bucket unions.
+``search="approx"`` adds the bucket index: the kept buckets' slots are
+the only candidates, under a measured recall (``recall_mode="approx"``).
+On the device one launch of the route_index_mask kernel gives the
+batch's routing and bucket unions; its operands and the slot decode are
+packed again for each generation, into the same device buffers.
 
 The entry point runs on the card: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Tests pass ``device="cpu"``, which takes
@@ -31,9 +39,9 @@ batch's random stream is a ``torch.Generator`` seeded from
 ``(seed, batch_id)``, so two fresh servers give byte-identical answers
 and iteration counts.
 
-Knobs of later slices of the port (the mutable store, prediction,
-tracing, shadow audits, SLOs and the HTTP endpoint) raise
-``NotImplementedError`` naming their ROADMAP item.
+Knobs of later slices of the port (prediction, tracing, shadow audits,
+SLOs and the HTTP endpoint) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import torch
 from repro_torch import convert
 from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
 from repro_torch.core import knn as knn_mod
+from repro_torch.device import later_slice, resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import routing as routing_mod
 from repro_torch.obs import ContractAuditor, MetricsRegistry
@@ -72,7 +81,8 @@ class QueryResult(NamedTuple):
     ``host_syncs`` counts the carrying batch's device-to-host reads: the
     Algorithm 1 loop's done checks, the answer readbacks and, under
     device routing, the one readback of the touched shards and kept
-    buckets.  ``generation`` is 0 for a static point set.
+    buckets.  ``generation``: the store generation the answer was
+    computed against (0 for a static point set).
     ``shards_touched``: k under ``route="exact"``, else the batch's union
     of routed shards.  ``recall_mode``: ``"approx"`` when the answer went
     through the bucket index, else ``"exact"``.
@@ -151,12 +161,6 @@ class _Pending:
     future: Future
 
 
-def _later_slice(what: str, item: int, name: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item}: "
-        f"{name})")
-
-
 def _check_config(cfg: KnnServiceConfig) -> None:
     """Reject bad values like the reference, and every knob of a later
     slice of the port; no knob is silently ignored."""
@@ -189,38 +193,32 @@ def _check_config(cfg: KnnServiceConfig) -> None:
             f"distance_impl={cfg.distance_impl!r}: the port picks the "
             f"kernel or its plain version by the device; only 'auto'")
     if cfg.predict != "none":
-        _later_slice(f"predict={cfg.predict!r}", 7, "prediction")
+        later_slice(f"predict={cfg.predict!r}", 6, "prediction")
     for knob in ("obs_trace", "obs_audit_every", "obs_http_port",
                  "slo_latency_p99_s", "slo_recall_floor",
                  "slo_staleness_generations", "slo_contract_violations",
                  "slo_label_agreement_floor"):
         if getattr(cfg, knob):
-            _later_slice(f"{knob}={getattr(cfg, knob)!r}", 8,
-                         "rest of obs and the operator layer")
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the card; a missing card is an error, never a
-    quiet move to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain versions on the CPU")
-    return dev
+            later_slice(f"{knob}={getattr(cfg, knob)!r}", 7,
+                        "rest of obs and the operator layer")
 
 
 class KnnServer:
-    """Serve l-NN queries against a static point set split into k shards.
+    """Serve l-NN queries against k shards of a static point set or a
+    mutable store.
 
     ``points``: an ``(n, dim)`` numpy array (split by the reference's
     row -> shard rule, ``convert.shards_from_numpy``) or an ``(n, dim)``
     float32 tensor (viewed in place on its device when it is there).
     ``values``: optional ``(n,)`` int payload, looked up on the host.
-    ``shards``: k, the counterpart of the reference's mesh axis size.
-
-    ``cfg.route="pruned"`` builds the routing summaries and
-    ``cfg.search="approx"`` the bucket index from the construction
+    ``shards``: k, the counterpart of the reference's mesh axis size (8
+    when omitted).  ``cfg.route="pruned"`` builds the routing summaries
+    and ``cfg.search="approx"`` the bucket index from the construction
     points, on their device; both are generation 0 forever.
+
+    ``store``: a :class:`repro_torch.store.MutableStore` instead of
+    points (module docstring).  Its device must be the server's, and its
+    summary sketch and index must match ``cfg``, as in the reference.
 
     Synchronous use: ``submit(...)`` then ``flush()``, or ``query_batch``.
     Server use: ``with server.serving(): ...`` runs the micro-batcher
@@ -230,20 +228,58 @@ class KnnServer:
 
     def __init__(self, points=None, values=None, labels=None, *,
                  store=None, cfg: KnnServiceConfig = CONFIG,
-                 shards: int = 8, device=None, seed: int = 0):
+                 shards: Optional[int] = None, device=None, seed: int = 0):
         _check_config(cfg)
-        if store is not None:
-            _later_slice("store=", 4, "mutable store")
         if labels is not None:
-            _later_slice("labels=", 7, "prediction")
-        if points is None:
-            raise ValueError("points required")
+            later_slice("labels=", 6, "prediction")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the port's numerics are f32 throughout (no TF32 anywhere)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self._store = store
+        self._summaries = self._index = None
+        self._points = self._ids = self._values = None
+        if store is not None:
+            self._init_store(store, points, values, shards)
+        else:
+            self._init_static(points, values, 8 if shards is None
+                              else shards)
+        self.seed = int(seed)
+        self.envelopes = [
+            kops.service_envelope(b, self.m_local, self.dim, cfg.l_max,
+                                  k=self.k, device=self.device)
+            for b in cfg.bucket_sizes]
+
+        # device routing operands and the index's slot decode, built
+        # fresh for the generation last served: (summaries, index,
+        # packed, decode), replaced whole, so a batch keeps what it read
+        self._gen_ops = None
+        if store is None:
+            self._operands(self._summaries, self._index)
+
+        self._batch_counter = 0
+        self._cv = threading.Condition()
+        self._pending: list[_Pending] = []
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+        self.stats = ServerStats()
+        self.metrics = MetricsRegistry()
+        reg = self.metrics
+        self._m = {name: reg.histogram(f"serve.{name}") for name in (
+            "queued_s", "snapshot_s", "kernel_s", "resolve_s", "dispatch_s",
+            "latency_s", "rounds", "messages", "host_syncs",
+            "touched_shards", "candidate_fraction")}
+        self._errors = reg.counter("serve.dispatch_errors")
+        self._contract = ContractAuditor(reg, k=self.k)
+        if store is not None:
+            store.attach_metrics(reg)
+
+    def _init_static(self, points, values, shards: int) -> None:
+        cfg = self.cfg
+        if points is None:
+            raise ValueError("points or store= required")
         self.k = int(shards)
         if isinstance(points, torch.Tensor):
             pts = points.to(device=self.device, dtype=torch.float32)
@@ -260,15 +296,6 @@ class KnnServer:
         self._values = values
         self.m_local = n // self.k
         self.dim = int(self._points.shape[-1])
-        self.seed = int(seed)
-        self.envelopes = [
-            kops.service_envelope(b, self.m_local, self.dim, cfg.l_max,
-                                  k=self.k, device=self.device)
-            for b in cfg.bucket_sizes]
-
-        # routing summaries and bucket index, built once from the points;
-        # under device routing, their operands packed on the device once
-        self._summaries = self._index = self._routing = None
         if cfg.route == "pruned":
             self._summaries = summaries_mod.build_summaries(
                 pts, self.k, num_projections=cfg.route_num_projections,
@@ -278,35 +305,40 @@ class KnnServer:
                                             cfg.index_buckets)
             idx.rebuild(pts)
             self._index = idx.freeze(0)
-            # slot -> flat bucket column, uploaded once: the batch-union
-            # bucket keep becomes the (k, m) candidate mask on the device
-            colidx, has = index_mod.slot_decode(self._index, self.m_local)
-            self._colidx = torch.from_numpy(colidx).to(self.device).reshape(
-                self.k, self.m_local)
-            self._has = torch.from_numpy(has).to(self.device).reshape(
-                self.k, self.m_local)
-        if cfg.route == "pruned" and cfg.route_compute == "device":
-            self._routing = routing_mod.PackedRouting(
-                routing_mod.pack_summaries(self._summaries),
-                None if self._index is None
-                else routing_mod.pack_index(self._index),
-                device=self.device, slack=cfg.route_slack,
-                oversample=cfg.index_oversample)
 
-        self._batch_counter = 0
-        self._cv = threading.Condition()
-        self._pending: list[_Pending] = []
-        self._thread: Optional[threading.Thread] = None
-        self._running = False
-        self.stats = ServerStats()
-        self.metrics = MetricsRegistry()
-        reg = self.metrics
-        self._m = {name: reg.histogram(f"serve.{name}") for name in (
-            "queued_s", "kernel_s", "resolve_s", "dispatch_s",
-            "latency_s", "rounds", "messages", "host_syncs",
-            "touched_shards", "candidate_fraction")}
-        self._errors = reg.counter("serve.dispatch_errors")
-        self._contract = ContractAuditor(reg, k=self.k)
+    def _init_store(self, store, points, values, shards) -> None:
+        cfg = self.cfg
+        if points is not None or values is not None:
+            raise ValueError("pass either points/values or store=, not both")
+        if shards is not None and int(shards) != store.k:
+            raise ValueError(f"store-backed server uses the store's "
+                             f"{store.k} shards, got shards={shards}")
+        if store.device != self.device:
+            raise ValueError(f"store on {store.device}, server on "
+                             f"{self.device}")
+        self.k, self.dim, self.m_local = store.k, store.dim, store.cap
+        # the sketch and the index are the store's, frozen with each
+        # generation: a conflicting config fails loudly
+        if cfg.route == "pruned" and (
+                store.summary_projections != cfg.route_num_projections
+                or store.summary_seed != cfg.route_proj_seed
+                or store.summary_pivots != cfg.summary_pivots):
+            raise ValueError(
+                f"route summary sketch mismatch: store was built with "
+                f"summary_projections={store.summary_projections}"
+                f"/summary_seed={store.summary_seed}"
+                f"/summary_pivots={store.summary_pivots} but cfg asks "
+                f"for route_num_projections={cfg.route_num_projections}"
+                f"/route_proj_seed={cfg.route_proj_seed}"
+                f"/summary_pivots={cfg.summary_pivots}; "
+                f"configure the store, or match the config to it")
+        if cfg.search == "approx" and store.index_buckets != cfg.index_buckets:
+            raise ValueError(
+                f"search index mismatch: store was built with "
+                f"index_buckets={store.index_buckets} (0 = no index "
+                f"maintained) but cfg asks for "
+                f"index_buckets={cfg.index_buckets}; construct the "
+                f"store from cfg.store_kwargs(), or match the config to it")
 
     # ---- device work -----------------------------------------------------
 
@@ -316,10 +348,56 @@ class KnnServer:
         gen.manual_seed((self.seed * _SEED_MIX + batch_id) % (2**63))
         return gen
 
-    def _prologue(self, q: np.ndarray, l_arr: np.ndarray, qt, lt):
+    def _capture(self):
+        """The batch's backing: ``(points (k, m, dim), ids (k, m), valid
+        (k, m) or None, generation, live count, summaries, index)``.  A
+        store-backed server captures the store's serving triple under one
+        lock here, the epoch-swap point; the summaries and the index are
+        None where the config does not read them."""
+        cfg = self.cfg
+        if self._store is None:
+            return (self._points, self._ids, None, 0, self.m_local * self.k,
+                    self._summaries, self._index)
+        snap, summ, idx = self._store.serving_snapshot()
+        k, m = self.k, self.m_local
+        return (snap.points.view(k, m, self.dim), snap.ids.view(k, m),
+                snap.valid.view(k, m), snap.generation, snap.live,
+                summ if cfg.route == "pruned" else None,
+                idx if cfg.search == "approx" else None)
+
+    def _operands(self, summ, idx):
+        """The device router's operands for (summaries, index) (None
+        unless routing is pruned on the device) and the index's slot
+        decode ``(colidx, has)``, both (k, m) (None without an index),
+        built when the pair differs by identity from the last one built.
+        Two threads may both build a new pair; each uses its own."""
+        ops = self._gen_ops
+        if ops is None or ops[0] is not summ or ops[1] is not idx:
+            cfg, dev = self.cfg, self.device
+            packed = decode = None
+            if cfg.route == "pruned" and cfg.route_compute == "device":
+                packed = routing_mod.PackedRouting(
+                    routing_mod.pack_summaries(summ),
+                    None if idx is None else routing_mod.pack_index(idx),
+                    device=dev, slack=cfg.route_slack,
+                    oversample=cfg.index_oversample)
+            if idx is not None:
+                # each slot's flat bucket column shard*b + bucket, and
+                # whether it is assigned (index_mod.slot_decode)
+                assign = torch.from_numpy(idx.assign).to(dev).view(
+                    self.k, self.m_local)
+                base = torch.arange(self.k, device=dev)[:, None]
+                decode = (assign.clamp(min=0) + base * idx.num_buckets,
+                          assign >= 0)
+            ops = self._gen_ops = (summ, idx, packed, decode)
+        return ops[2], ops[3]
+
+    def _prologue(self, q: np.ndarray, l_arr: np.ndarray, qt, lt,
+                  summ=None, idx=None):
         """The batch's masks ahead of Algorithm 2: ``(shard_active (k,)
         bool or None, point_candidates (k, m) bool or None, touched,
-        candidate fraction or None, host_syncs)``.
+        candidate fraction or None, host_syncs)``, from ``summ`` and
+        ``idx`` (a static server's own when omitted).
 
         Device routing is one ``route_index`` call (one launch on the card:
         the routing rows and, under ``search="approx"``, the bucket rows
@@ -328,14 +406,16 @@ class KnnServer:
         and ``bucket_keep``.  Both take the union over the batch's rows
         (padding rows, l = 0, route nowhere)."""
         cfg = self.cfg
-        active = keep_t = keep_any = act = None
+        if self._store is None:
+            summ, idx = self._summaries, self._index
+        active = keep_t = keep_any = act = cand = frac = None
         syncs = 0
-        if self._routing is not None:
-            _, _, unions = kops.route_index(qt, lt, self._routing,
-                                            with_rows=False)
+        packed, decode = self._operands(summ, idx)
+        if cfg.route == "pruned" and cfg.route_compute == "device":
+            _, _, unions = kops.route_index(qt, lt, packed, with_rows=False)
             host = unions.cpu().numpy()
             active, act = unions[:self.k], host[:self.k]
-            if self._index is not None:
+            if idx is not None:
                 keep_t = unions[self.k:]
                 keep_any = host[self.k:].reshape(self.k, -1)
             syncs = 1
@@ -343,41 +423,47 @@ class KnnServer:
             rows = None
             if cfg.route == "pruned":
                 rows = summaries_mod.route_shards(
-                    self._summaries, q, l_arr, slack=cfg.route_slack)
+                    summ, q, l_arr, slack=cfg.route_slack)
                 act = rows.any(0)
                 active = torch.from_numpy(act).to(self.device)
-            if self._index is not None:
+            if idx is not None:
                 keep_any = index_mod.bucket_keep(
-                    self._index, q, l_arr, shard_keep=rows,
+                    idx, q, l_arr, shard_keep=rows,
                     oversample=cfg.index_oversample).any(0)
                 keep_t = torch.from_numpy(keep_any.reshape(-1)).to(
                     self.device)
-        touched = self.k if act is None else int(act.sum())
-        cand = frac = None
         if keep_t is not None:
-            cand = keep_t[self._colidx] & self._has
-            frac = index_mod.candidate_fraction(self._index, keep_any)
+            colidx, has = decode
+            cand = keep_t[colidx] & has
+            frac = index_mod.candidate_fraction(idx, keep_any)
+        touched = self.k if act is None else int(act.sum())
         return active, cand, touched, frac, syncs
 
-    def _run(self, q: np.ndarray, l_arr: np.ndarray, gen) -> _Batch:
-        """One batch on the device, read back to the host; ``d``/``i`` of
-        shape ``(B, l_max)``."""
+    def _run(self, q: np.ndarray, l_arr: np.ndarray, gen,
+             backing=None) -> _Batch:
+        """One batch on the device against ``backing`` (a
+        :meth:`_capture`, taken now when omitted), read back to the
+        host; ``d``/``i`` of shape ``(B, l_max)``."""
         cfg = self.cfg
+        points, ids, valid, _, _, summ, idx = (self._capture()
+                                               if backing is None
+                                               else backing)
         qt = torch.from_numpy(q).to(self.device)
         lt = torch.from_numpy(l_arr).to(self.device)
-        active, cand, touched, frac, syncs = self._prologue(q, l_arr, qt, lt)
-        masks = dict(shard_active=active, point_candidates=cand)
+        active, cand, touched, frac, syncs = self._prologue(
+            q, l_arr, qt, lt, summ, idx)
+        masks = dict(point_valid=valid, shard_active=active,
+                     point_candidates=cand)
         if cfg.sampler == "selection":
             res = knn_mod.knn_query_batched(
-                self._points, self._ids, qt, cfg.l_max, lt, gen,
+                points, ids, qt, cfg.l_max, lt, gen,
                 use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots,
                 **masks)
             d, i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
             surv = res.prune.survivors.cpu().numpy()
             return _Batch(d, i, res.selection.iterations, surv,
                           res.selection.host_syncs + 3 + syncs, touched, frac)
-        sd, si = knn_mod.knn_simple(self._points, self._ids, qt, cfg.l_max,
-                                    **masks)
+        sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max, **masks)
         # per-request l: ranks >= l[b] become sentinels
         keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
                 < lt[:, None])
@@ -390,22 +476,53 @@ class KnnServer:
         """Run every bucket shape once, at rank ``cfg.l`` so the Algorithm
         1 loop and the routing prologue run too: on the card this builds
         the kernels and loads every CUDA module the path uses before the
-        first request."""
+        first request.  Works on an empty store (every answer sentinels)."""
         for b in self.cfg.bucket_sizes:
             self._run(np.zeros((b, self.dim), np.float32),
                       np.full(b, min(self.cfg.l, self.cfg.l_max), np.int32),
                       self._generator(0))
 
+    # ---- store passthrough -----------------------------------------------
+
+    def _require_store(self, op: str):
+        if self._store is None:
+            raise ValueError(f"{op}() needs a store-backed server "
+                             f"(construct with store=)")
+        return self._store
+
+    def insert(self, points, ids=None, values=None, labels=None):
+        """Stage insertions on the store; returns the assigned global ids
+        (``MutableStore.insert``)."""
+        return self._require_store("insert").insert(
+            points, ids=ids, values=values, labels=labels)
+
+    def update(self, ids, points, labels=None):
+        """Stage in-place overwrites (``MutableStore.update``)."""
+        return self._require_store("update").update(ids, points,
+                                                    labels=labels)
+
+    def delete(self, ids):
+        """Stage deletions by global id (``MutableStore.delete``)."""
+        return self._require_store("delete").delete(ids)
+
+    def flush_store(self) -> int:
+        """Apply staged mutations as one epoch swap; returns the new
+        generation (``MutableStore.flush``)."""
+        return self._require_store("flush_store").flush()
+
     # ---- request path ----------------------------------------------------
 
     @property
     def with_values(self) -> bool:
-        """Whether answers carry the int payload table (the static
-        ``values=`` argument)."""
-        return self._values is not None
+        """Whether answers carry the int payload table (the store's
+        ``with_values``, or the static ``values=`` argument)."""
+        return (self._store.with_values if self._store is not None
+                else self._values is not None)
 
     def values_for(self, ids):
         """Map global ids to int payload values, -1 where absent."""
+        if self._store is not None:
+            return self._store.values_for(ids)
         if self._values is None:
             raise RuntimeError("server has no value payload")
         ids = np.asarray(ids)
@@ -469,7 +586,10 @@ class KnnServer:
             self._batch_counter += 1
         t_dispatch = time.perf_counter()
         try:
-            out = self._run(q, l_arr, self._generator(batch_id))
+            backing = self._capture()
+            t_snap = time.perf_counter()
+            generation, n_live = backing[3], backing[4]
+            out = self._run(q, l_arr, self._generator(batch_id), backing)
         except Exception as exc:
             # a failed dispatch must never strand its futures (the chunk
             # already left the queue) or kill the micro-batcher thread
@@ -491,9 +611,9 @@ class KnnServer:
         audit_l = (cfg.l_max if cfg.sampler == "gather"
                    else max(rec.l for rec in chunk))
         self._contract.check(
-            l_max=audit_l, n_live=self.m_local * self.k, rounds=rounds,
+            l_max=audit_l, n_live=n_live, rounds=rounds,
             messages=messages, use_sampling=cfg.use_sampling,
-            sampler=cfg.sampler, generation=0)
+            sampler=cfg.sampler, generation=generation)
 
         t_res0 = time.perf_counter()
         for row, rec in enumerate(chunk):
@@ -502,21 +622,22 @@ class KnnServer:
             order = np.argsort(d[row, :rec.l], kind="stable")
             dists = d[row, order]
             ids = i[row, order]
-            values = None if self._values is None else self.values_for(ids)
+            values = self.values_for(ids) if self.with_values else None
             _resolve(rec.future, result=QueryResult(
                 dists=dists, ids=ids, values=values, l=rec.l,
                 iterations=iters, rounds=rounds, messages=messages,
                 survivors=int(surv[row]), bucket=bucket,
                 queued_s=t_dispatch - rec.t_enqueue,
                 latency_s=t_done - rec.t_enqueue, host_syncs=syncs,
-                shards_touched=out.touched,
-                recall_mode="approx" if self._index is not None
+                generation=generation, shards_touched=out.touched,
+                recall_mode="approx" if cfg.search == "approx"
                 else "exact"))
             self._m["queued_s"].observe(t_dispatch - rec.t_enqueue)
             self._m["latency_s"].observe(time.perf_counter() - rec.t_enqueue)
         t_res1 = time.perf_counter()
         m = self._m
-        m["kernel_s"].observe(t_done - t_dispatch)
+        m["snapshot_s"].observe(t_snap - t_dispatch)
+        m["kernel_s"].observe(t_done - t_snap)
         m["resolve_s"].observe(t_res1 - t_res0)
         m["dispatch_s"].observe(t_res1 - t_dispatch)
         m["rounds"].observe(rounds)
@@ -527,17 +648,39 @@ class KnnServer:
             m["candidate_fraction"].observe(out.candidate_fraction)
 
     def placement_stats(self) -> dict:
-        """Routing effectiveness so far: ``prune_rate`` is the fraction of
-        shard visits the routing test avoided over the ``route="pruned"``
-        batches, ``1 - touched / (batches * k)`` (0.0 before the first);
-        ``live_per_shard`` is uniform for a static point set."""
+        """Locality and bound fidelity of the layout being served.
+
+        ``prune_rate``: the fraction of shard visits the routing test
+        avoided over the ``route="pruned"`` batches, ``1 - touched /
+        (batches * k)`` (0.0 before the first).  ``live_per_shard``: the
+        store's per-shard live counts (uniform for a static point set).
+        ``summary_slack``: per-shard covering-radius decay of the store's
+        summaries (``MutableStore.summary_slack``; 0.0 for a static set,
+        whose summaries are exact).  ``maintenance``: the adaptive
+        knobs and counters."""
         snap = self.stats.snapshot()
         routed = snap["routed_batches"]
         rate = (1.0 - snap["touched_shards"] / (routed * self.k)
                 if routed else 0.0)
-        return {"placement": "static",
-                "live_per_shard": [self.m_local] * self.k,
-                "routed_batches": routed, "prune_rate": rate}
+        st = self._store
+        if st is not None:
+            hist = [int(v) for v in st.live_per_shard]
+            placement, redeal = st.placement, st.redeal
+            slack = [float(v) for v in st.summary_slack()]
+            maintenance = st.maintenance_stats()
+        else:
+            hist = [self.m_local] * self.k
+            placement = redeal = "static"
+            slack = [0.0] * self.k
+            maintenance = {"summary_pivots": self.cfg.summary_pivots,
+                           "retighten_every": 0,
+                           "split_radius_factor": 0.0,
+                           "retightens": 0, "splits": 0}
+        return {"placement": placement, "redeal": redeal,
+                "live_per_shard": hist, "routed_batches": routed,
+                "prune_rate": rate, "summary_slack": slack,
+                "max_summary_slack": max(slack) if slack else 0.0,
+                "maintenance": maintenance}
 
     def obs_snapshot(self) -> dict:
         """Serving counters, this server's metrics, the process-wide

@@ -1,11 +1,11 @@
 """Per-shard approximate search index: bucket-pruned candidates.
 
-The port's copy of what the static service needs from
-``repro.store.index``: the frozen :class:`ShardIndex`, the exact build
-(:class:`IndexMaintainer` ``rebuild``/``freeze``) and the host keep rule
-(:func:`bucket_keep`, :func:`candidate_mask`,
-:func:`candidate_fraction`).  The incremental insert/delete/update of
-the mutable store are not here.
+The port's copy of ``repro.store.index``: the frozen
+:class:`ShardIndex`, the :class:`IndexMaintainer` (exact ``rebuild``,
+the mutable store's incremental ``insert`` / ``delete`` / ``update`` in
+host f64 numpy, bit-equal to the reference's, and ``freeze``) and the
+host keep rule (:func:`bucket_keep`, :func:`candidate_mask`,
+:func:`candidate_fraction`).
 
 Each shard's live points are covered by up to ``b`` balls ("buckets"),
 built like the routing pivots (``store/adaptive.py``).  Per query, the
@@ -68,6 +68,58 @@ class IndexMaintainer:
         self._live = np.zeros((k, b), np.int64)
         self._count = np.zeros(k, np.int64)
         self._assign = np.full(k * cap, -1, np.int32)
+
+    # ---- incremental ops (store lock held) ------------------------------
+
+    def insert(self, shard: int, slot: int, point) -> None:
+        """Assign a new live slot to a bucket: claim a free bucket when the
+        point lies outside every ball, else join the ball needing the
+        least inflation."""
+        j = int(shard)
+        p = np.asarray(point, np.float64)
+        c = int(self._count[j])
+        if c == 0:
+            self._centers[j, 0] = p
+            self._radii[j, 0] = 0.0
+            self._count[j] = 1
+            self._live[j, 0] = 1
+            self._assign[slot] = 0
+            return
+        d = np.sqrt(((self._centers[j, :c] - p) ** 2).sum(-1))
+        if (d > self._radii[j, :c]).all() and c < self.num_buckets:
+            self._centers[j, c] = p
+            self._radii[j, c] = 0.0
+            self._count[j] = c + 1
+            self._live[j, c] = 1
+            self._assign[slot] = c
+        else:
+            t = int(np.argmin(d - self._radii[j, :c]))
+            self._radii[j, t] = max(self._radii[j, t], float(d[t]))
+            self._live[j, t] += 1
+            self._assign[slot] = t
+
+    def delete(self, slot: int) -> None:
+        """Debit the slot's bucket exactly; the ball stays covering for
+        its remaining members."""
+        t = int(self._assign[slot])
+        if t >= 0:
+            j = int(slot) // self.cap
+            self._live[j, t] = max(self._live[j, t] - 1, 0)
+            self._assign[slot] = -1
+
+    def update(self, slot: int, point) -> None:
+        """An overwrite keeps its bucket, whose ball inflates to cover the
+        moved point."""
+        t = int(self._assign[slot])
+        if t < 0:
+            return
+        j = int(slot) // self.cap
+        d = float(np.sqrt(
+            ((np.asarray(point, np.float64) - self._centers[j, t]) ** 2)
+            .sum()))
+        self._radii[j, t] = max(self._radii[j, t], d)
+
+    # ---- exact rebuild ---------------------------------------------------
 
     def rebuild(self, points, valid=None) -> None:
         """Exact per-shard rebuild: farthest-point bucket centers

@@ -1,11 +1,12 @@
 """Per-shard summaries and the host router behind ``route="pruned"``.
 
-The port's copy of what the static service needs from
-``repro.store.summaries``: the frozen :class:`ShardSummaries`, the exact
-build (:class:`SummaryMaintainer` ``rebuild``/``freeze`` and
-:func:`build_summaries`), and the f64 routing bounds and decision
-(:func:`route_shards`).  The incremental insert/delete/update of the
-mutable store are not here.
+The port's copy of ``repro.store.summaries``: the frozen
+:class:`ShardSummaries`, the :class:`SummaryMaintainer` (exact
+``rebuild``, the mutable store's incremental ``insert`` / ``delete`` /
+``update``, ``placement_view`` and ``freeze``), :func:`build_summaries`,
+the f64 routing bounds and decision (:func:`route_shards`), and the
+covering probes :func:`summary_invariants`, :func:`summary_slack` and
+:func:`summary_slack_sampled`.
 
 **Summary contents** (one row per shard, host f64): the live-point
 centroid and a covering radius; optionally up to ``m`` pivot balls whose
@@ -25,7 +26,14 @@ covers the f32 rounding of the computed distances the pipeline ranks by,
 so pruned answers stay bit-identical to exact ones.  Rows with l = 0
 (bucket padding) route nowhere.
 
-**The build on the points' device.**  The reference builds in f64 numpy.
+**Incremental maintenance** (the mutable store, under its lock): an
+insert or delete moves the centroid by d, so the covering radius grows
+by d; deletes never shrink the radius or the projection intervals
+(stale but still covering).  These ops run in host f64 numpy, op for op
+as the reference's, so they are bit-equal to it.
+
+**The exact build on the points' device.**  The reference builds in f64
+numpy.
 The port takes numpy or a torch tensor and builds shard by shard in f64
 torch on the points' device, so a full-width set made on the card (2^22
 x 64, 2 GB in f64) never goes through host memory.  The sums are taken
@@ -112,6 +120,39 @@ class SummaryMaintainer:
         n = self._n[j]
         return self._sum[j] / n if n else np.zeros(self.dim)
 
+    def insert(self, shard: int, point) -> None:
+        j = int(shard)
+        p = np.asarray(point, np.float64)
+        c_old = self._centroid(j)
+        had = self._n[j] > 0
+        self._sum[j] += p
+        self._n[j] += 1
+        c_new = self._centroid(j)
+        drift = float(np.linalg.norm(c_new - c_old)) if had else 0.0
+        self._radius[j] = max(self._radius[j] + drift,
+                              float(np.linalg.norm(p - c_new)))
+        pr = self.directions @ p
+        np.minimum(self._lo[j], pr, out=self._lo[j])
+        np.maximum(self._hi[j], pr, out=self._hi[j])
+
+    def delete(self, shard: int, point) -> None:
+        j = int(shard)
+        p = np.asarray(point, np.float64)
+        c_old = self._centroid(j)
+        self._sum[j] -= p
+        self._n[j] -= 1
+        if self._n[j] <= 0:
+            self._reset_shard(j)
+            return
+        # the radius grows by the centroid drift; the projection
+        # intervals stay as they are (stale but still covering)
+        drift = float(np.linalg.norm(self._centroid(j) - c_old))
+        self._radius[j] += drift
+
+    def update(self, shard: int, old_point, new_point) -> None:
+        self.delete(shard, old_point)
+        self.insert(shard, new_point)
+
     def _reset_shard(self, j: int) -> None:
         self._sum[j] = 0.0
         self._n[j] = 0
@@ -140,6 +181,13 @@ class SummaryMaintainer:
         pr = pj @ torch.from_numpy(self.directions.T.copy()).to(pj.device)
         self._lo[j] = _host(pr.amin(0))
         self._hi[j] = _host(pr.amax(0))
+
+    def placement_view(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(centroids (k, dim), radii (k,), occupied (k,) bool) of the
+        applied state, what affinity placement and the proximity re-deal
+        consult (``store/placement.py``)."""
+        n = np.maximum(self._n, 1)[:, None]
+        return self._sum / n, self._radius.copy(), self._n > 0
 
     def freeze(self, generation: int) -> ShardSummaries:
         n = np.maximum(self._n, 1)[:, None]
@@ -325,3 +373,68 @@ def route_shards(s: ShardSummaries, queries, ls, *,
                  slack: float = 1e-4) -> np.ndarray:
     """(B, k) bool: shard j may hold one of row b's ``ls[b]`` winners."""
     return routing_detail(s, queries, ls, slack=slack)["keep"]
+
+
+# ---- covering probes (host f64, as in the reference) ---------------------
+
+def _live_rows(points, valid, j: int, cap: int) -> np.ndarray:
+    sl = slice(j * cap, (j + 1) * cap)
+    return np.asarray(points[sl], np.float64)[np.asarray(valid[sl], bool)]
+
+
+def summary_invariants(s: ShardSummaries, points: np.ndarray,
+                       valid: np.ndarray, cap: int) -> dict:
+    """Worst-case violation of the covering invariants over the live set
+    (<= ~1e-9 for a correct maintainer: f64 rounding only)."""
+    radius_viol = proj_viol = 0.0
+    live_mismatch = 0
+    for j in range(s.live.shape[0]):
+        pj = _live_rows(points, valid, j, cap)
+        live_mismatch = max(live_mismatch, abs(len(pj) - int(s.live[j])))
+        if not len(pj):
+            continue
+        d = np.sqrt(((pj - s.centroids[j]) ** 2).sum(-1))
+        radius_viol = max(radius_viol, float((d - s.radii[j]).max()))
+        pr = pj @ s.directions.T
+        proj_viol = max(proj_viol,
+                        float((s.proj_lo[j] - pr).max()),
+                        float((pr - s.proj_hi[j]).max()))
+    return {"radius_violation": radius_viol,
+            "projection_violation": proj_viol,
+            "live_mismatch": live_mismatch}
+
+
+def summary_slack(s: ShardSummaries, points: np.ndarray, valid: np.ndarray,
+                  cap: int) -> np.ndarray:
+    """(k,) covering-radius slack: the maintained radius minus the exact
+    live radius about the maintained centroid (0.0 for empty shards), the
+    pruning power incremental maintenance has cost since the last exact
+    rebuild.  O(live*dim) host work, never on the dispatch path."""
+    out = np.zeros(s.live.shape[0])
+    for j in range(s.live.shape[0]):
+        pj = _live_rows(points, valid, j, cap)
+        if not len(pj):
+            continue
+        exact = float(np.sqrt(((pj - s.centroids[j]) ** 2).sum(-1)).max())
+        out[j] = float(s.radii[j]) - exact
+    return out
+
+
+def summary_slack_sampled(s: ShardSummaries, points: np.ndarray,
+                          valid: np.ndarray, cap: int, *,
+                          sample: int = 64, rng=None) -> np.ndarray:
+    """(k,) :func:`summary_slack` with the exact radius taken over at most
+    ``sample`` live points drawn per shard: an over-estimate of the slack,
+    for ranking shards, never a bound."""
+    if rng is None:
+        rng = np.random.default_rng(0)
+    out = np.zeros(s.live.shape[0])
+    for j in range(s.live.shape[0]):
+        pj = _live_rows(points, valid, j, cap)
+        if not len(pj):
+            continue
+        if len(pj) > sample:
+            pj = pj[rng.choice(len(pj), size=sample, replace=False)]
+        exact = float(np.sqrt(((pj - s.centroids[j]) ** 2).sum(-1)).max())
+        out[j] = float(s.radii[j]) - exact
+    return out

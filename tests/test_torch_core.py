@@ -21,6 +21,10 @@ from repro_torch.core import sampling as tsampling
 from repro_torch.core import selection as tsel
 from repro_torch.parallel import collectives
 
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
+
 K = 8
 DIM = 8
 N = K * 256

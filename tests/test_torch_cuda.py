@@ -556,3 +556,121 @@ def test_routed_server_on_the_card_matches_the_cpu(card):
     # one batch (bucket 8) per server: one routing launch in each, the
     # approx one's computing the bucket rows too
     assert after["route_index_mask"] - before["route_index_mask"] == 3
+
+
+def _store_mask(card, k, m, mode, l, seed=0):
+    """A (k, m) valid mask as a mutable store leaves it: unequal live
+    prefixes and dead tails ("tail"), tombstones scattered in the used
+    prefix ("scattered"), or one shard at 0 < live < l and one empty
+    ("few")."""
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    used = torch.randint(m // 4, m + 1, (k, 1), generator=g, device=card)
+    v = torch.arange(m, device=card)[None, :] < used
+    if mode == "scattered":
+        v &= torch.rand((k, m), generator=g, device=card) > 0.3
+    elif mode == "few":
+        v[2] = False
+        v[2, torch.randperm(m, generator=g, device=card)[:l // 3]] = True
+        v[5] = False
+    return v
+
+
+@pytest.mark.parametrize("mode", ["tail", "scattered", "few"])
+def test_masked_kernels_under_store_masks(card, monkeypatch, mode):
+    """distance_topk, l2_distance and the merge of distance_topk's
+    partials under a store's masks equal their plain versions: values
+    within F32, +inf slots with the sentinel id, no dead point surfacing,
+    the merge bit for bit."""
+    k, m, d, l = 8, 32768, 64, 128
+    q, p = _randn(card, 32, d, seed=21), _randn(card, k, m, d, seed=22)
+    valid = _store_mask(card, k, m, mode, l)
+    full = torch.where(valid.unsqueeze(1), l2.l2_distance_plain(q, p),
+                       torch.full((k, 32, m), float("inf"), device=card))
+    out = l2.l2_distance_cuda(q, p, valid=valid)
+    assert torch.equal(torch.isinf(out), torch.isinf(full))
+    torch.testing.assert_close(out, full, **F32)
+    seen = []
+    merge = ltk.merge_partials
+
+    def keep(pv, pi, l):
+        seen.append((pv.clone(), pi.clone()))
+        return merge(pv, pi, l)
+
+    monkeypatch.setattr(ltk, "merge_partials", keep)
+    v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
+    rv, ri = dtk.distance_topk_plain(q, p, l, valid=valid)
+    _topk_close(v, i, rv, ri, full)
+    fin = torch.isfinite(v)
+    dead = (~valid).unsqueeze(1).expand(k, 32, m)
+    assert not bool((dead.gather(2, torch.where(fin, i, 0).long())
+                     & fin).any())
+    if mode == "few":
+        assert int(fin[2].sum(-1).max()) == l // 3 and not bool(fin[5].any())
+    (pv, pi), = seen
+    mv, mi = ltk.merge_partials_plain(pv, pi, l)
+    assert torch.equal(v.reshape(-1, l), mv) and torch.equal(
+        i.reshape(-1, l), mi)
+
+
+def test_store_server_on_the_card(card):
+    """A small store on the card under churn: every server's answers
+    equal brute force over the live set of the generation they report,
+    the pruned answers byte-identical to the exact route's, and the
+    snapshot captured before a flush unchanged by it."""
+    from repro_torch.data import drifting_clusters
+    from repro_torch.store import MutableStore
+    dim, cap = 32, 2048
+    cfg = CONFIG.replace(dim=dim, l_max=64, bucket_sizes=(4, 8),
+                         summary_pivots=2, placement="affinity",
+                         redeal="proximity", retighten_every=256,
+                         store_capacity_per_shard=cap,
+                         store_staging_size=10**9)
+    st = MutableStore(dim, device=card,
+                      **cfg.replace(search="approx").store_kwargs())
+    servers = {name: KnnServer(store=st, cfg=cfg.replace(**kw), device=card)
+               for name, kw in (
+                   ("exact", {}), ("gather", dict(sampler="gather")),
+                   ("pruned", dict(route="pruned",
+                                   route_compute="device")),
+                   ("approx", dict(route="pruned", route_compute="device",
+                                   search="approx",
+                                   index_oversample=1e9)))}
+    servers["exact"].warmup()                     # on the empty store
+    rng = np.random.default_rng(3)
+    ls = [1, 64, 7, 30, 2, 64]
+    for pts, centers in drifting_clusters(8, 300, dim, steps=4, seed=3):
+        ids = st.insert(pts)
+        st.flush()
+        before = st.snapshot()
+        held = before.points.clone()
+        st.delete(rng.choice(ids, 500, replace=False))
+        st.flush()
+        assert torch.equal(held, before.points)
+        lid, lpts = st.live_arrays()
+        lp = torch.as_tensor(lpts, device=card).double()
+        qs = (centers[rng.integers(0, 8, 6)]
+              + rng.normal(size=(6, dim))).astype(np.float32)
+        answers = {n: s.query_batch(qs, ls) for n, s in servers.items()}
+        for j, (q, l) in enumerate(zip(qs, ls)):
+            q64 = torch.as_tensor(q, device=card).double()
+            d = ((lp - q64) ** 2).sum(-1)              # f64 brute force
+            bv, bi = (t.cpu().numpy() for t in torch.topk(d, l + 1,
+                                                          largest=False))
+            # F32 plus the f32 rounding of the expanded distance the
+            # kernels compute, 32 * 2^-23 * (|q|^2 + max |p|^2); ids as
+            # sets, or the strict interior where the l-th and (l+1)-th
+            # distances lie within that of each other
+            mag = float((q64 * q64).sum() + (lp * lp).sum(-1).max())
+            tol = 1e-3 + 1e-4 * bv[l - 1] + 32 * 2.0 ** -23 * mag
+            want = set(lid[bi[:l] if bv[l] - bv[l - 1] > tol
+                           else bi[:l][bv[:l] < bv[l - 1] - tol]].tolist())
+            for name, res in answers.items():
+                assert res[j].generation == st.generation
+                np.testing.assert_allclose(res[j].dists, bv[:l], rtol=0,
+                                           atol=tol)
+                got = set(res[j].ids.tolist())
+                assert want <= got if bv[l] - bv[l - 1] <= tol else (
+                    want == got), name
+            assert answers["pruned"][j].dists.tobytes() == \
+                answers["exact"][j].dists.tobytes()

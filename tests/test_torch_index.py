@@ -40,6 +40,10 @@ from repro_torch.store import index as tindex
 
 from test_torch_routing import FAMILIES, L_SET, _instance
 
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
+
 K = 8
 DIM = 8
 M = 64
@@ -218,3 +222,44 @@ def test_search_knob_validation():
     with pytest.raises(ValueError, match="index_buckets"):
         KnnServer(np.zeros((8, DIM), np.float32),
                   cfg=_cfg(search="approx", index_buckets=0), device="cpu")
+
+
+def test_bucket_rows_per_store_generation_equal_host():
+    """Each generation's index (and summaries), packed anew per
+    generation by the server: the plain route_index bucket rows equal
+    host ``bucket_keep`` gated by host ``route_shards``, except an entry
+    whose bucket's lower bound lies within f32 rounding of the row's
+    threshold (named by the test); the packed operands are the reference
+    packing of this generation's; and the server's slot decode of the
+    batch union is host ``candidate_mask``."""
+    from test_torch_routing import store_generations
+    la = np.array([0, 1, 8, 40])
+    lt = torch.from_numpy(la.astype(np.int32))
+    srv = None
+    for st, q in store_generations(2, 13, buckets=4):
+        _, summ, idx = st.serving_snapshot()
+        if srv is None:
+            srv = KnnServer(store=st, cfg=_cfg(
+                route="pruned", route_compute="device", search="approx",
+                index_buckets=4, summary_pivots=2), device="cpu")
+        packed = srv._operands(summ, idx)[0]
+        want_buf = trouting.PackedRouting(trouting.pack_summaries(summ),
+                                          trouting.pack_index(idx),
+                                          device="cpu").buf
+        assert torch.equal(packed.buf, want_buf)
+        qt = torch.from_numpy(q)
+        rows, keep, unions = tops.route_index(qt, lt, packed)
+        host_rows = jroute(summ, q, la)
+        assert np.array_equal(rows.numpy() != 0, host_rows)
+        want = tindex.bucket_keep(idx, q, la, host_rows).reshape(len(q), -1)
+        g, lb, T = trouting.index_parts(qt, lt, rows, packed.index_ops())
+        for r, c in zip(*np.nonzero((keep.numpy() != 0) != want)):
+            bound, thr = float(lb[r, c]), float(T[r, 0])
+            assert bool(g[r, c]) and abs(bound - thr) <= 4 * F32_EPS * abs(
+                thr), f"gen {st.generation} row {r} bucket {c}"
+        keep_any = unions[K:].numpy().reshape(K, -1)
+        _, cand, _, frac, _ = srv._prologue(q, la.astype(np.int32), qt, lt,
+                                            summ, idx)
+        assert np.array_equal(cand.reshape(-1).numpy(),
+                              tindex.candidate_mask(idx, keep_any, M))
+        assert frac == tindex.candidate_fraction(idx, keep_any)

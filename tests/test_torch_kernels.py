@@ -20,6 +20,10 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.local_topk import local_topk_plain
 
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
+
 SHAPES = [  # (B, d, m)
     (8, 128, 256),
     (16, 256, 512),

@@ -31,6 +31,10 @@ from repro_torch.kernels import local_topk as ltk
 from repro_torch.kernels import ops as tops
 from repro_torch.runtime import KnnServer
 
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
+
 INT32_MAX = 2**31 - 1
 TOL = dict(rtol=1e-4, atol=1e-3)          # tests/test_torch_kernels.py _tol
 ROWS = ("random", "ties", "zeros", "inf", "short")

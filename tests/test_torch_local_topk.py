@@ -20,6 +20,10 @@ import torch
 from repro.kernels.distance_topk import _merge_tile
 from repro_torch.kernels import local_topk as ltk
 
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
+
 INT32_MAX = 2**31 - 1
 
 

@@ -37,6 +37,10 @@ from repro_torch.runtime import KnnServer
 from repro_torch.store import adaptive as tadaptive
 from repro_torch.store import build_summaries, route_shards, routing_detail
 
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
+
 K = 8
 DIM = 8
 M = 64
@@ -361,3 +365,82 @@ def test_route_index_unions_are_the_rows_any(mode):
     # rows go with index-only operands, which need them
     with pytest.raises(ValueError):
         tops.route_index(qt, la, packed, None if mode == "index" else given)
+
+
+# ---- store generations -----------------------------------------------------
+
+def store_generations(pivots: int, seed: int, *, buckets: int = 0,
+                      rounds: int = 6):
+    """A port store on drifting clusters (affinity placement, re-tightening,
+    the proximity re-deal), churned round by round; yields ``(store,
+    queries (B, DIM) f32 near the clusters)`` after each round's flush."""
+    from repro_torch.data import drifting_clusters
+    from repro_torch.store import MutableStore
+    rng = np.random.default_rng(seed)
+    st = MutableStore(DIM, capacity_per_shard=M, device="cpu",
+                      staging_size=10**9, placement="affinity",
+                      redeal="proximity", summary_pivots=pivots,
+                      retighten_every=24, index_buckets=buckets)
+    live = []
+    for pts, centers in drifting_clusters(K, 6, DIM, steps=rounds, drift=3.0,
+                                          seed=seed):
+        live += st.insert(pts).tolist()
+        if len(live) > 60:
+            gone = rng.choice(live, 12, replace=False)
+            st.delete(gone)
+            live = [i for i in live if i not in set(gone.tolist())]
+            moved = rng.choice(live, 6, replace=False)
+            st.update(moved, (centers[rng.integers(0, K, 6)]
+                              + rng.normal(size=(6, DIM))).astype(np.float32))
+        st.flush()
+        q = centers[rng.integers(0, K, B)] + rng.normal(size=(B, DIM))
+        yield st, q.astype(np.float32)
+
+
+@pytest.mark.parametrize("pivots", [1, 2])
+def test_route_rows_per_store_generation_equal_host(pivots):
+    """Each generation's summaries, packed anew per generation: the plain
+    route_index rows equal the port's and the reference's host
+    route_shards bit for bit (the loosened radii and undercounted pivot
+    credits between rebuilds included)."""
+    la = np.array([0, 1, 8, 40])
+    lt = torch.from_numpy(la.astype(np.int32))
+    for st, q in store_generations(pivots, 5):
+        summ = st.summaries()
+        packed = trouting.PackedRouting(trouting.pack_summaries(summ),
+                                        device="cpu", slack=SLACK)
+        rows, _, unions = tops.route_index(torch.from_numpy(q), lt, packed)
+        want = route_shards(summ, q, la, slack=SLACK)
+        assert np.array_equal(rows.numpy() != 0, want)
+        assert np.array_equal(jroute(summ, q, la, slack=SLACK), want)
+        assert torch.equal(unions, rows.any(0))
+    assert st.stats.retightens + st.stats.compactions > 0
+
+
+@pytest.mark.parametrize("sampler", ["selection", "gather"])
+def test_pruned_equals_exact_across_store_generations(sampler):
+    """Servers over one churned store: the pruned routes (host and device)
+    answer byte-identically to the exact route at every generation, and
+    the device rows' union is the host rows'."""
+    servers = None
+    touched = []
+    for st, q in store_generations(2, 9):
+        if servers is None:
+            kw = dict(dim=DIM, l=8, l_max=16, bucket_sizes=(4,),
+                      sampler=sampler, summary_pivots=2)
+            servers = [KnnServer(store=st, cfg=CONFIG.replace(**kw, **rk),
+                                 device="cpu")
+                       for rk in (dict(), dict(route="pruned"),
+                                  dict(route="pruned",
+                                       route_compute="device"))]
+        ls = [1, 4, 16, 8]
+        ex, host, dev = (s.query_batch(q, ls) for s in servers)
+        for a, b, c in zip(ex, host, dev):
+            assert a.generation == b.generation == c.generation == (
+                st.generation)
+            for r in (b, c):
+                assert a.dists.tobytes() == r.dists.tobytes()
+                assert np.array_equal(a.ids, r.ids)
+            assert b.shards_touched == c.shards_touched
+        touched.append(host[0].shards_touched)
+    assert min(touched) < K

@@ -18,6 +18,11 @@ from repro_torch import convert
 from repro_torch.configs import CONFIG
 from repro_torch.runtime import KnnServer
 from repro_torch.runtime import knn_server as tserver
+from repro_torch.store import MutableStore
+
+# the cases are small: one intra-op thread a process is faster here than
+# a pool, and leaves the cores to the other test processes
+torch.set_num_threads(1)
 
 K = 8
 DIM = 32
@@ -195,11 +200,24 @@ def test_out_of_slice_knobs_raise(pts, knob):
         _port(pts, **knob)
 
 
-def test_out_of_slice_arguments_raise(pts):
-    with pytest.raises(NotImplementedError, match="mutable store"):
-        KnnServer(pts, store=object(), cfg=CONFIG.replace(**KW),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="prediction"):
+@pytest.mark.parametrize("case", ["points_and_store", "later_items"])
+def test_out_of_slice_arguments_raise(pts, case):
+    """points with store= is an error, as in the reference; the store's
+    background maintenance and label payload, and labels=, raise naming
+    their ROADMAP item."""
+    if case == "points_and_store":
+        st = MutableStore(DIM, capacity_per_shard=N // K, device="cpu")
+        with pytest.raises(ValueError, match="not both"):
+            KnnServer(pts, store=st, cfg=CONFIG.replace(**KW), device="cpu")
+        return
+    with pytest.raises(NotImplementedError,
+                       match="item 10: background maintenance"):
+        MutableStore(DIM, capacity_per_shard=8, device="cpu",
+                     maintenance="background")
+    with pytest.raises(NotImplementedError, match="item 6: prediction"):
+        MutableStore(DIM, capacity_per_shard=8, device="cpu",
+                     with_labels=True)
+    with pytest.raises(NotImplementedError, match="item 6: prediction"):
         KnnServer(pts, labels=np.zeros(N, np.float32),
                   cfg=CONFIG.replace(**KW), device="cpu")
 
