@@ -56,6 +56,23 @@ Phases:
      its parts, and epoch swaps under load (a store with history carried
      over by convert.store_from_mirrors, served by the micro-batcher
      while an ingest thread flushes);
+  3e. serve_predict: label prediction at the serve phases' widths on
+     labeled_mixture(2^22, 64, 16 classes, separation 8): exact vote
+     (exact route; pruned device routing, also with search="approx"),
+     exact regress, ensemble vote (pruned host routing) and regress, 40
+     requests each: exact answers equal to brute force and each label
+     and confidence equal to the f64 vote or mean over the labels of the
+     served ids (and of the f64 brute-force ids, near-ties at rank l
+     reported), each ensemble payload equal, shard by shard, to a vote
+     over an f64 top-kl of that shard, routed-away shards silent, the
+     label the host aggregate of it and the bill one message a touched
+     shard; ensemble-vs-exact agreement >= cfg.accuracy_floor and both
+     modes' accuracy against bayes_labels; batch walls with and without
+     the fold and the fold's device time; then a labeled store of 2^20
+     slots (2^18 live) under exact vote, ensemble vote and exact vote at
+     l_max = 512: each query's nearest neighbour deleted, labels
+     rewritten, compact(), every answer's label held to an f64 vote over
+     its generation, labels_for and the device labels to the host mirror;
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -117,12 +134,14 @@ KERNELS = {
         replaces="src/repro/kernels/routing.py:226",
         counter="route_index_mask",
         runs=("a_device_selection", "c_device_gather", "d_device_approx",
-              "store_a_device_selection", "store_d_device_approx")),
+              "store_a_device_selection", "store_d_device_approx",
+              "predict_exact_vote_routed", "predict_exact_vote_approx")),
     "index_mask": dict(
         source="src/repro_torch/kernels/csrc/route_index_mask.cu",
         replaces="src/repro/kernels/routing.py:339",
         counter="route_index_mask",
-        runs=("d_device_approx", "store_d_device_approx")),
+        runs=("d_device_approx", "store_d_device_approx",
+              "predict_exact_vote_approx")),
 }
 # every launch counter of the port (kernels/ops.py COUNTERS)
 COUNTERS = ("l2_distance", "distance_topk", "local_topk", "route_index_mask")
@@ -1536,6 +1555,530 @@ def phase_serve_store(dev, gpu, results):
     del srv, st2
     torch.cuda.empty_cache()
 
+
+# ---- phase 3e: label prediction ---------------------------------------------
+
+# the labeled workload: tests/test_predict.py's family at the serve phases'
+# widths (racing-ingest case: separation 8.0, seed 11)
+PREDICT_SEED, PREDICT_SEPARATION, NUM_CLASSES = 11, 8.0, 16
+# the static prediction servers: name, config changes, kernels the path
+# must launch
+PREDICT_RUNS = (
+    ("predict_exact_vote", dict(predict="vote"),
+     ["distance_topk", "local_topk"]),
+    ("predict_exact_vote_routed",
+     dict(predict="vote", route="pruned", route_compute="device"),
+     ["route_index_mask", "distance_topk", "local_topk"]),
+    ("predict_exact_vote_approx",
+     dict(predict="vote", route="pruned", route_compute="device",
+          search="approx"),
+     ["route_index_mask", "distance_topk", "local_topk"]),
+    ("predict_exact_regress", dict(predict="regress"),
+     ["distance_topk", "local_topk"]),
+    ("predict_ensemble_vote",
+     dict(predict="vote", predict_mode="ensemble", route="pruned",
+          route_compute="host"), ["distance_topk", "local_topk"]),
+    ("predict_ensemble_regress",
+     dict(predict="regress", predict_mode="ensemble"),
+     ["distance_topk", "local_topk"]),
+)
+# the labeled store: 2^20 slots, 2^18 live after the prefill
+PREDICT_STORE_CAP = 1 << 17
+PREDICT_STORE_LIVE = 1 << 18
+PREDICT_STORE_L_MAX = 512      # the third store server: local_topk's passes
+
+
+def f64_dists(points, q):
+    """(B, n) f64 squared distances of the numpy queries ``q`` to
+    ``points`` (n, dim) on the card; dead slots are masked by the caller."""
+    import torch
+    p = points.double()
+    qq = torch.as_tensor(q, device=points.device).double()
+    return (p * p).sum(-1)[None] - 2.0 * qq @ p.T + (qq * qq).sum(-1)[:, None]
+
+
+def host_vote(lab, l=None):
+    """The f64 host fold over the labels ``lab`` of the winners: vote
+    ``(label, confidence)`` as f32, ties to the lowest class; or, with the
+    request's ``l``, regress ``(f64 mean, f32 count / l)``."""
+    import numpy as np
+    if l is None:
+        hist = np.bincount(lab.astype(np.int64), minlength=NUM_CLASSES)
+        total = int(hist.sum())
+        return (np.float32(hist.argmax() if total else -1),
+                np.float32(hist.max()) / np.float32(max(total, 1)))
+    den = len(lab)
+    return (float(lab.astype(np.float64).sum()) / max(den, 1),
+            np.float32(den) / np.float32(l))
+
+
+def label_check(r, lab, mode):
+    """One exact answer's label and confidence against the f64 host fold
+    over the labels ``lab`` of its served ids: bit for bit (vote), the
+    mean within 1e-6 relative and the confidence exactly (regress).
+    Returns the number of mismatches (0 or 1)."""
+    import numpy as np
+    want, conf = host_vote(lab, None if mode == "vote" else r.l)
+    if mode == "vote":
+        return int(np.float32(r.label).tobytes() != want.tobytes()
+                   or np.float32(r.confidence).tobytes() != conf.tobytes())
+    return int(abs(r.label - want) > 1e-6 * abs(want)
+               or np.float32(r.confidence).tobytes() != conf.tobytes())
+
+
+def brute_vote_check(r, dq, id_of, lab_of, mode):
+    """The label against the vote over the f64 brute-force ids (``dq``:
+    one query's f64 distances on the card over a point set whose row i
+    holds id ``id_of(i)``; ``lab_of``: ids -> labels) where the served and
+    brute-force id sets are equal; ``(mismatch, near_tie)``, a near-tie
+    being a row whose sets differ within the f32 tolerance at rank l."""
+    import numpy as np
+    import torch
+    n = int(np.isfinite(r.dists).sum())
+    bv, bi = torch.topk(dq, min(n + 1, dq.numel()), largest=False)
+    bv, bid = bv.cpu().numpy(), id_of(bi.cpu().numpy())
+    if set(bid[:n].tolist()) != set(r.ids[:n].tolist()):
+        tol = F32_TOL["atol"] + F32_TOL["rtol"] * abs(float(bv[n - 1]))
+        if len(bv) > n and bv[n] - bv[n - 1] <= tol:
+            return 0, 1
+        raise PhaseError("served ids differ from brute force away from a "
+                         "near-tie")
+    return label_check(r, lab_of(bid[:n]), mode), 0
+
+
+def capture_ensemble(srv):
+    """Wrap ``srv``'s ensemble pass: each batch's (payload, routed-shard
+    flags, l, touched) is kept."""
+    seen = []
+    run = srv._ensemble_run
+
+    def keep(points, ids, valid, labels, active, act, qt, l_arr, touched,
+             syncs):
+        out = run(points, ids, valid, labels, active, act, qt, l_arr,
+                  touched, syncs)
+        seen.append((out.payload, act, l_arr.copy(), touched))
+        return out
+    srv._ensemble_run = keep
+    return seen
+
+
+def ensemble_check(cfg, seen, answers, D, lab_t, k, m, what):
+    """Each ensemble batch's (k, B, C) payload against a vote (or [sum,
+    count]) over an f64 brute-force top-kl of each shard's points
+    (``D``: (requests, k*m) f64 with dead slots +inf; ``lab_t``: (k*m,)
+    labels on the card); routed-away shards and padding rows all zero;
+    each label the host aggregate of the served payload; one round and
+    one message a touched shard.  Returns (mismatches, near-ties)."""
+    import numpy as np
+    import torch
+    from repro_torch import predict as pm
+    bad = ties = row0 = 0
+    vote = cfg.predict == "vote"
+    for payload, act, l_arr, touched in seen:
+        act = np.ones(k, bool) if act is None else act
+        kl = pm.local_k_for(l_arr, touched, cfg.local_k, cfg.l_max)
+        n = int((l_arr > 0).sum())
+        got = (pm.aggregate_vote(payload, act) if vote
+               else pm.aggregate_regress(payload, act))
+        for row in range(len(l_arr)):
+            if row >= n or not kl[row]:
+                bad += int(np.any(payload[:, row] != 0))
+                continue
+            r = answers[row0 + row]
+            if r.messages != r.shards_touched or r.rounds != 1 or (
+                    r.shards_touched != touched):
+                raise PhaseError(f"{what}: bill {r.rounds} rounds, "
+                                 f"{r.messages} messages for {touched} "
+                                 f"touched shards")
+            if np.float32(r.label).tobytes() != got[0][row].tobytes() or (
+                    np.float32(r.confidence).tobytes()
+                    != got[1][row].tobytes()):
+                bad += 1
+            d = D[row0 + row].view(k, m)
+            bv, bi = torch.topk(d, int(kl[row]) + 1, dim=-1, largest=False)
+            lab = lab_t.view(k, m).gather(1, bi).cpu().numpy()
+            bv = bv.cpu().numpy()
+            for j in range(k):
+                if not act[j]:
+                    bad += int(np.any(payload[j, row] != 0))
+                    continue
+                c = int(kl[row])
+                fin = np.isfinite(bv[j, :c])
+                tol = F32_TOL["atol"] + F32_TOL["rtol"] * abs(
+                    float(bv[j, c - 1]))
+                if fin.all() and bv[j, c] - bv[j, c - 1] <= tol:
+                    ties += 1
+                    continue
+                lj = lab[j, :c][fin]
+                if vote:
+                    want = np.bincount(lj.astype(np.int64),
+                                       minlength=NUM_CLASSES)
+                    bad += int(not np.array_equal(payload[j, row], want))
+                else:
+                    s, cnt = payload[j, row]
+                    bad += int(cnt != len(lj) or abs(
+                        s - lj.astype(np.float64).sum()) > 1e-5 * max(
+                            1.0, abs(s)))
+        row0 += n
+    return bad, ties
+
+
+def run_and_count(srv, groups_q, groups_l, needs, name):
+    """Serve the groups with each launch counter at 0 before and read
+    after; fail if a kernel the path needs was never launched."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    res = []
+    for qg, lg in zip(groups_q, groups_l):
+        res += srv.query_batch(qg, [int(x) for x in lg])
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    for kname in needs:
+        if counts[kname] < 1:
+            raise PhaseError(f"{name}: {kname} was never launched")
+    return res, counts
+
+
+def device_total_ms(fn, iters=20):
+    """Mean device time of every kernel one call of ``fn`` launches, from
+    torch.profiler (the aten:: rows repeat their kernels and are left
+    out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in prof.key_averages() if not e.key.startswith("aten::"))
+    return total / iters / 1e3
+
+
+def wall_p50_ms(fn, reps=5):
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    walls.sort()
+    return walls[len(walls) // 2] * 1e3, [w * 1e3 for w in walls]
+
+
+def phase_serve_predict(dev, gpu, results):
+    """Label prediction: the static labeled mixture at full width, then a
+    labeled store at a smaller depth (module docstring, phase 3e)."""
+    import numpy as np
+    import torch
+    from repro_torch import predict as pm
+    from repro_torch.configs import CONFIG
+    from repro_torch.core import knn as knn_mod
+    from repro_torch.data import bayes_labels, labeled_mixture
+    from repro_torch.runtime import KnnServer
+    from repro_torch.store import MutableStore
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    out = {"seed": PREDICT_SEED, "separation": PREDICT_SEPARATION,
+           "num_classes": NUM_CLASSES}
+    pts_np, cls, centers = labeled_mixture(
+        N_POINTS, DIM, NUM_CLASSES, separation=PREDICT_SEPARATION,
+        seed=PREDICT_SEED)
+    rng = np.random.default_rng(PREDICT_SEED + 1)
+    labels = cls.astype(np.float32)
+    # regression targets: the class id plus U(0, 1), so sums round
+    targets = (labels + rng.random(N_POINTS)).astype(np.float32)
+    points = torch.as_tensor(pts_np, device=dev)
+    del pts_np
+    groups = [32, 5, 2, 1]                  # buckets 32, 8, 2, 1
+    n_req = sum(groups)
+    qcls = rng.integers(0, NUM_CLASSES, n_req)
+    queries = (centers[qcls] + rng.normal(size=(n_req, DIM))).astype(
+        np.float32)
+    ls = rng.integers(1, L + 1, n_req)
+    ls[0], ls[1] = 1, L
+    cuts = np.cumsum([0] + groups)
+    gq = [queries[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    gl = [ls[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    out["data_s"] = time.perf_counter() - t_phase
+    D = f64_dists(points, queries)                      # (40, n) f64
+    lab_t = {"vote": torch.as_tensor(labels, device=dev),
+             "regress": torch.as_tensor(targets, device=dev)}
+    bayes = bayes_labels(queries, centers)
+
+    launches, answers, servers, checks = {}, {}, {}, {}
+    for name, kw, needs in PREDICT_RUNS:
+        cfg = CONFIG.replace(num_classes=NUM_CLASSES, **kw)
+        mode = cfg.predict
+        srv = KnnServer(points, labels=labels if mode == "vote" else targets,
+                        cfg=cfg, shards=K, device=dev, seed=0)
+        srv.warmup()
+        seen = capture_ensemble(srv) if cfg.predict_mode == "ensemble" else None
+        res, counts = run_and_count(srv, gq, gl, needs, name)
+        want = (len(groups) if cfg.route == "pruned"
+                and cfg.route_compute == "device" else 0)
+        if counts["route_index_mask"] != want:
+            raise PhaseError(f"{name}: {counts['route_index_mask']} routing "
+                             f"launches for {len(groups)} batches, want "
+                             f"{want}")
+        launches[name], answers[name], servers[name] = counts, res, srv
+        host = labels if mode == "vote" else targets
+        bad = ties = 0
+        if cfg.predict_mode == "exact":
+            for q, l, r, row in zip(queries, ls, res, range(n_req)):
+                if r.predict_mode != "exact":
+                    raise PhaseError(f"{name}: predict_mode {r.predict_mode}")
+                if cfg.search == "exact":
+                    brute_check(points, torch.as_tensor(q, device=dev),
+                                int(l), r)
+                n = int(np.isfinite(r.dists).sum())
+                bad += label_check(r, host[r.ids[:n]], mode)
+                if cfg.search == "exact":
+                    b, t = brute_vote_check(r, D[row], lambda i: i,
+                                            lambda i: host[i], mode)
+                    bad, ties = bad + b, ties + t
+            if cfg.search == "approx":
+                rec = [len(set(r.ids.tolist()) & set(torch.topk(
+                    D[row], int(l), largest=False)[1].cpu().numpy().tolist()))
+                    / int(l) for row, (l, r) in enumerate(zip(ls, res))]
+                checks.setdefault("approx_recall", {})[name] = dict(
+                    min=min(rec), mean=float(np.mean(rec)))
+        else:
+            bad, ties = ensemble_check(cfg, seen, res, D, lab_t[mode], K, M,
+                                       name)
+            if any(not (np.isinf(r.dists).all()
+                        and (r.ids == INT32_MAX).all()) for r in res):
+                raise PhaseError(f"{name}: an ensemble answer carries ids")
+        if bad:
+            raise PhaseError(f"{name}: {bad} label mismatches")
+        if srv.obs_snapshot()["audit"]["contract"]["violations"]:
+            raise PhaseError(f"{name}: contract audit violations")
+        checks[name] = dict(mismatches=bad, near_ties=ties,
+                            touched=sorted({r.shards_touched for r in res}),
+                            rounds=sorted({r.rounds for r in res}),
+                            messages=sorted({r.messages for r in res}))
+        log(f"  [{gpu}] {name}: {n_req} requests, 0 label mismatches "
+            f"({ties} near-ties reported), touched "
+            f"{checks[name]['touched']}, rounds {checks[name]['rounds']}, "
+            f"messages {checks[name]['messages']}; launches {counts}")
+    exact = np.array([r.label for r in answers["predict_exact_vote"]])
+    ens = np.array([r.label for r in answers["predict_ensemble_vote"]])
+    agreement = float((exact == ens).mean())
+    floor = CONFIG.accuracy_floor
+    acc = {name: float((np.array([r.label for r in answers[name]])
+                        == bayes).mean())
+           for name in ("predict_exact_vote", "predict_ensemble_vote")}
+    out.update(launches=launches, checks=checks, agreement=agreement,
+               accuracy_floor=floor, bayes_accuracy=acc)
+    log(f"  [{gpu}] ensemble-vs-exact label agreement {agreement:.4f} "
+        f"(floor {floor}); accuracy against bayes_labels: {acc}")
+    if agreement < floor:
+        raise PhaseError(f"ensemble agreement {agreement} < {floor}")
+
+    # timing: the batch of 32 with and without the fold, the fold's device
+    # time (label gather + histogram), the ensemble's batch
+    q32, l32 = gq[0], [int(x) for x in gl[0]]
+    nopred = KnnServer(points, cfg=CONFIG, shards=K, device=dev, seed=0)
+    nopred.warmup()
+    tim = {}
+    for name, srv in (("predict_none", nopred),
+                      ("exact_vote", servers["predict_exact_vote"]),
+                      ("ensemble_vote", servers["predict_ensemble_vote"])):
+        tim[name + "_wall_ms"] = wall_p50_ms(lambda: srv.query_batch(q32,
+                                                                    l32))
+    kept = []
+    real = knn_mod.knn_query_batched
+
+    def keep(*a, **kw):
+        kept.append(real(*a, **kw))
+        return kept[-1]
+    knn_mod.knn_query_batched = keep
+    try:
+        servers["predict_exact_vote"].query_batch(q32, l32)
+    finally:
+        knn_mod.knn_query_batched = real
+    res = kept[-1]
+    lt = torch.as_tensor(np.asarray(l32, np.int32), device=dev)
+    base = (torch.arange(K, device=dev) * M).view(K, 1, 1).int()
+    slots = torch.where(res.local_ids == INT32_MAX, INT32_MAX,
+                        res.local_ids - base)
+    lab_km = lab_t["vote"].view(K, M)
+    tim["fold_device_ms"] = device_total_ms(lambda: pm.exact_predict(
+        res, lt, predict="vote", num_classes=NUM_CLASSES))
+    tim["label_gather_device_ms"] = device_total_ms(
+        lambda: knn_mod._gather_at(lab_km, slots, 0.0))
+    out["timing"] = tim
+    log(f"  [{gpu}] batch of {B} wall p50 (ms): predict='none' "
+        f"{tim['predict_none_wall_ms'][0]:.3f}, exact vote "
+        f"{tim['exact_vote_wall_ms'][0]:.3f}, ensemble vote "
+        f"{tim['ensemble_vote_wall_ms'][0]:.3f}; device time of the fold "
+        f"(vote + histogram) {tim['fold_device_ms']:.4f} ms and of the "
+        f"label gather {tim['label_gather_device_ms']:.4f} ms")
+    del servers, nopred, srv, res, kept, D, points, lab_t, lab_km
+    torch.cuda.empty_cache()
+
+    # the labeled store, at 2^20 slots
+    t_store = time.perf_counter()
+    scfg = CONFIG.replace(predict="vote", num_classes=NUM_CLASSES,
+                          store_capacity_per_shard=PREDICT_STORE_CAP,
+                          store_staging_size=1 << 30)
+    spts, scls, scent = labeled_mixture(
+        PREDICT_STORE_LIVE + 8192, DIM, NUM_CLASSES,
+        separation=PREDICT_SEPARATION, seed=PREDICT_SEED + 2)
+    slab = scls.astype(np.float32)
+    st = MutableStore(DIM, device=dev, track_history=True,
+                      **scfg.store_kwargs())
+    step = 1 << 16
+    for a in range(0, PREDICT_STORE_LIVE, step):
+        b = min(a + step, PREDICT_STORE_LIVE)
+        st.insert(spts[a:b], labels=slab[a:b])
+        st.flush()
+    prefill_s = time.perf_counter() - t_store
+    srng = np.random.default_rng(PREDICT_SEED + 3)
+    sq = (scent[srng.integers(0, NUM_CLASSES, n_req)]
+          + srng.normal(size=(n_req, DIM))).astype(np.float32)
+    sl = srng.integers(1, L + 1, n_req)
+    sl[0], sl[1] = 1, L
+    sl_big = srng.integers(1, PREDICT_STORE_L_MAX + 1, n_req)
+    sl_big[:3] = 1, 257, PREDICT_STORE_L_MAX
+    sgq = [sq[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    store_runs = (
+        ("store_exact_vote", scfg, sl, ["distance_topk", "local_topk"]),
+        ("store_ensemble_vote", scfg.replace(predict_mode="ensemble"), sl,
+         ["distance_topk", "local_topk"]),
+        ("store_exact_vote_large_l",
+         scfg.replace(l_max=PREDICT_STORE_L_MAX), sl_big,
+         ["l2_distance", "local_topk"]))
+    sservers = {name: KnnServer(store=st, cfg=c, device=dev, seed=0)
+                for name, c, _, _ in store_runs}
+    seen = capture_ensemble(sservers["store_ensemble_vote"])
+    for srv in sservers.values():
+        srv.warmup()
+    expect = dict(zip(range(len(slab)), slab.tolist()))  # id -> label
+    stages, prev = [], None
+    slaunch = {name: {c: 0 for c in COUNTERS} for name, *_ in store_runs}
+
+    def serve_stage(stage):
+        gen = st.generation
+        lid, lpts = st.history(gen)             # the generation's live set
+        snap = st.snapshot()
+        lp = torch.as_tensor(lpts, device=dev)
+        Dl = f64_dists(lp, sq)
+        Ds = f64_dists(snap.points, sq)
+        Ds = torch.where(snap.valid[None], Ds, float("inf"))
+        slab_t = torch.as_tensor(st._labels, device=dev)
+        entry = dict(stage=stage, generation=gen, live=st.live_count)
+        for name, c, lss, needs in store_runs:
+            seen.clear()
+            res, counts = run_and_count(
+                sservers[name], sgq,
+                [lss[a:b] for a, b in zip(cuts[:-1], cuts[1:])], needs, name)
+            for cname, v in counts.items():
+                slaunch[name][cname] += v
+            if name.endswith("large_l") and counts["distance_topk"]:
+                raise PhaseError(f"{name}: distance_topk launched above "
+                                 f"one pass")
+            bad = ties = 0
+            if c.predict_mode == "ensemble":
+                bad, ties = ensemble_check(c, seen, res, Ds, slab_t, K,
+                                           PREDICT_STORE_CAP, name)
+            else:
+                for row, (q, l, r) in enumerate(zip(sq, lss, res)):
+                    store_check(r, truth_on_card(
+                        lid, lp, torch.as_tensor(q, device=dev), int(l)),
+                        int(l), gen, name)
+                    n = int(np.isfinite(r.dists).sum())
+                    bad += label_check(r, st.labels_for(r.ids[:n]), "vote")
+                    b, t = brute_vote_check(r, Dl[row], lambda i: lid[i],
+                                            st.labels_for, "vote")
+                    bad, ties = bad + b, ties + t
+            if bad:
+                raise PhaseError(f"{name} at {stage}: {bad} label "
+                                 f"mismatches")
+            entry[name] = dict(near_ties=ties, labels=[r.label for r in res])
+        return entry
+
+    stages.append(serve_stage("prefill"))
+
+    def nearest():
+        """Each query's nearest live neighbour's id, in f64."""
+        snap = st.snapshot()
+        d = torch.where(snap.valid[None], f64_dists(snap.points, sq),
+                        float("inf"))
+        return np.unique(snap.ids[d.argmin(-1)].cpu().numpy())
+
+    def changed(a, b):
+        return sum(x != y for x, y in zip(
+            stages[a]["store_exact_vote"]["labels"],
+            stages[b]["store_exact_vote"]["labels"]))
+    # give each query's nearest neighbour another label (points kept), so
+    # the votes at small l move; then delete those neighbours
+    near = nearest()
+    lid_all, lpts = st.live_arrays()
+    new = (st.labels_for(near) + 1) % NUM_CLASSES
+    st.update(near, lpts[np.searchsorted(lid_all, near)], labels=new)
+    st.flush()
+    expect.update(zip(near.tolist(), new.tolist()))
+    stages.append(serve_stage("relabelled_nearest"))
+    st.delete(near)
+    st.flush()
+    stages.append(serve_stage("deleted_nearest"))
+    moved = (changed(0, 1), changed(1, 2))
+    # more labeled points, then an explicit compact()
+    a = PREDICT_STORE_LIVE
+    st.insert(spts[a:], labels=slab[a:])
+    st.flush()
+    t1 = time.perf_counter()
+    st.compact()
+    compact_s = time.perf_counter() - t1
+    stages.append(serve_stage("compacted"))
+    # labels_for against the phase's own id -> label map and the host
+    # mirror; the device labels against the mirror
+    ids_all = np.arange(len(slab))
+    want = np.array([expect[i] for i in ids_all], np.float32)
+    if not np.array_equal(st.labels_for(ids_all), want):
+        raise PhaseError("labels_for differs from the labels written")
+    lid, llab = st.live_labels()
+    if not np.array_equal(llab, want[lid]) or not np.array_equal(
+            st.snapshot().labels.cpu().numpy(), st._labels):
+        raise PhaseError("the live labels or the device labels differ from "
+                         "the host mirror")
+    for name, srv in sservers.items():
+        if srv.obs_snapshot()["audit"]["contract"]["violations"]:
+            raise PhaseError(f"{name}: contract audit violations")
+    out["store"] = dict(
+        capacity_slots=K * PREDICT_STORE_CAP, prefill_s=prefill_s,
+        prefill_rate=PREDICT_STORE_LIVE / prefill_s, compact_s=compact_s,
+        relabelled_then_deleted=int(len(near)),
+        exact_labels_changed=dict(relabel=int(moved[0]),
+                                  delete=int(moved[1])), launches=slaunch,
+        stages=[{k: (v if k in ("stage", "generation", "live") else
+                     {"near_ties": v["near_ties"]})
+                 for k, v in e.items()} for e in stages],
+        s=time.perf_counter() - t_store)
+    log(f"  [{gpu}] labeled store ({K * PREDICT_STORE_CAP} slots): prefill "
+        f"{PREDICT_STORE_LIVE} in {prefill_s:.1f} s; stages "
+        f"{[(e['stage'], e['generation'], e['live']) for e in stages]}, "
+        f"every answer's label equal to the f64 vote over its generation "
+        f"(exact, ensemble, l_max={PREDICT_STORE_L_MAX}); relabelling the "
+        f"{len(near)} queries' nearest neighbours changed {moved[0]} exact "
+        f"labels, deleting them {moved[1]}; compact() "
+        f"{compact_s:.2f} s; labels_for and the device labels equal the "
+        f"host mirror; launches {slaunch}")
+    launches.update(slaunch)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{gpu}] serve_predict phase_s {out['phase_s']:.1f}, "
+        f"max_memory_allocated {out['max_memory_allocated']} bytes")
+    results["serve_predict"] = out
+    del sservers, st
+    torch.cuda.empty_cache()
+
+
 def phase_profile(dev, gpu, results):
     """Where one full bucket's time goes: torch.profiler over one
     query_batch of 32 requests per sampler, after warm-up, beside the
@@ -2006,6 +2549,7 @@ def main(argv=None) -> int:
               ("serve", phase_serve), ("serve_routed", phase_serve_routed),
               ("serve_large_l", phase_serve_large_l),
               ("serve_store", phase_serve_store),
+              ("serve_predict", phase_serve_predict),
               ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
@@ -2035,7 +2579,7 @@ def main(argv=None) -> int:
                         ("f32_ids", 0, True))}
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "serve_large_l",
-                          "serve_store", "profile"):
+                          "serve_store", "serve_predict", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -2058,6 +2602,7 @@ def main(argv=None) -> int:
     counts.update({run: e["launches"] for run, e in
                    results["serve_large_l"].items()})
     counts.update(results["serve_store"]["launches"])
+    counts.update(results["serve_predict"]["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]

@@ -17,13 +17,16 @@ import numpy as np
 import torch
 
 
-def shards_from_numpy(points, k: int, values=None, *, device="cpu"):
+def shards_from_numpy(points, k: int, values=None, labels=None, *,
+                      device="cpu"):
     """``(n, dim)`` numpy points -> ``((k, m, dim) f32, (k, m) int32 ids,
-    values)`` tensors on ``device``, by the reference's row -> shard rule.
+    values, labels)`` on ``device``, by the reference's row -> shard rule.
 
     ``values`` (optional ``(n,)`` int payload) is returned as an int32
-    numpy array, since the server looks it up on the host.  Raises when
-    ``n`` is not a multiple of ``k``, as the reference server does.
+    numpy array, since the server looks it up on the host; ``labels``
+    (optional ``(n,)`` label payload) as a ``(k, m)`` f32 tensor on
+    ``device``, split like the points.  Raises when ``n`` is not a
+    multiple of ``k``, as the reference server does.
     """
     points = np.ascontiguousarray(points, np.float32)
     if values is not None:
@@ -32,7 +35,19 @@ def shards_from_numpy(points, k: int, values=None, *, device="cpu"):
             raise ValueError(f"values shape {values.shape} != "
                              f"({points.shape[0]},)")
     pts, ids = shards_from_tensor(torch.from_numpy(points).to(device), k)
-    return pts, ids, values
+    if labels is not None:
+        labels = labels_from_numpy(labels, pts.shape[0] * pts.shape[1], k,
+                                   device)
+    return pts, ids, values, labels
+
+
+def labels_from_numpy(labels, n: int, k: int, device) -> torch.Tensor:
+    """An ``(n,)`` label payload -> ``(k, n / k)`` f32 on ``device``, split
+    like the points (the reference server's ``labels=``)."""
+    labels = np.ascontiguousarray(labels, np.float32)
+    if labels.shape != (n,):
+        raise ValueError(f"labels shape {labels.shape} != ({n},)")
+    return torch.from_numpy(labels).to(device).reshape(k, -1)
 
 
 def shards_from_tensor(points: torch.Tensor, k: int):
@@ -50,14 +65,17 @@ def shards_from_tensor(points: torch.Tensor, k: int):
 
 def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
                        used, next_id: int, used_ids, values=None,
-                       generation: int = 0, device=None, **store_kwargs):
+                       labels=None, generation: int = 0, device=None,
+                       **store_kwargs):
     """The port's :class:`~repro_torch.store.MutableStore` holding a
     reference store's applied state.
 
     ``points`` (k*cap, dim) f32, ``ids`` (k*cap,) int32 and ``valid``
     (k*cap,) bool are the reference's mirrors (``_pts`` / ``_ids`` /
     ``_valid``) as numpy arrays; ``values`` an optional id -> int payload
-    mapping.  The slot map and live counts follow from them.  What the
+    mapping; ``labels`` the optional (k*cap,) f32 label mirror
+    (``_labels``), which makes the store ``with_labels`` (its id -> label
+    map then holds the live ids; a deleted id's label is not carried).  The slot map and live counts follow from them.  What the
     mirrors do not hold comes from the reference store as it is: ``used``
     (its ``_used``, each shard's high-water mark), ``next_id`` (its
     ``_next_id``) and ``used_ids`` (its ``_used_ids``, every id ever
@@ -75,9 +93,17 @@ def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
             valid.shape != (total,)):
         raise ValueError(f"mirrors {points.shape}, {ids.shape}, "
                          f"{valid.shape} do not hold {shards} x {cap} slots")
+    with_labels = bool(store_kwargs.pop("with_labels", False)) or (
+        labels is not None)
+    if labels is not None:
+        labels = np.ascontiguousarray(labels, np.float32)
+        if labels.shape != (total,):
+            raise ValueError(f"labels {labels.shape} do not hold {shards} x "
+                             f"{cap} slots")
     st = MutableStore(points.shape[1], capacity_per_shard=cap,
                       shards=shards, device=device,
-                      with_values=values is not None, **store_kwargs)
+                      with_values=values is not None,
+                      with_labels=with_labels, **store_kwargs)
     with st._lock:
         st._pts, st._ids, st._valid = points.copy(), ids.copy(), valid.copy()
         slots = np.flatnonzero(valid)
@@ -90,6 +116,10 @@ def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
         st._next_id = int(next_id)
         if values is not None:
             st._values = {int(i): int(v) for i, v in dict(values).items()}
+        if labels is not None:
+            st._labels = labels.copy()
+            st._label_of = {int(i): float(v) for i, v in zip(
+                live_ids, labels[slots])}
         st._projected_live = int(st._live.sum())
         st._summ.rebuild(st._pts, st._valid, cap)
         if st._index is not None:

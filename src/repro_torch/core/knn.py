@@ -22,6 +22,13 @@ point: ``point_valid`` (live slots), ``shard_active`` (``(k,)``, the
 pruned-routing flag per shard) and ``point_candidates`` (the approx
 index's kept slots).  The mask reaches ``kops.distance_topk(valid=)`` on
 the fused path and ``kops.l2_distance(valid=)`` elsewhere.
+
+``point_labels`` (``(k, m)`` f32, optional) is the prediction plane's
+per-slot payload: gathered at the slot indices the top-l step returns
+(the counterpart of the reference's ``take_along_axis``), it reaches
+``KnnResult.local_labels`` aligned with the winner mask, so
+:func:`knn_classify` / :func:`knn_regress` vote over exactly the
+selected winners.  No kernel carries it.
 """
 
 from __future__ import annotations
@@ -42,7 +49,9 @@ INT32_MAX = 2**31 - 1
 class KnnResult(NamedTuple):
     """Distributed l-NN answer.  ``mask``/``local_dists``/``local_ids``
     are per-shard ``(k, B, L)``; ``dists``/``ids`` are the replicated
-    ``(B, L)`` winners when gathered, else None."""
+    ``(B, L)`` winners when gathered, else None; ``local_labels`` the
+    ``(k, B, L)`` label payload aligned with ``mask``, when one was
+    given."""
 
     mask: torch.Tensor
     local_dists: torch.Tensor
@@ -51,6 +60,7 @@ class KnnResult(NamedTuple):
     prune: sampling.PruneResult
     dists: Optional[torch.Tensor]
     ids: Optional[torch.Tensor]
+    local_labels: Optional[torch.Tensor] = None   # (k, B, L), with mask
 
 
 def squared_l2_distances(queries, points):
@@ -58,46 +68,63 @@ def squared_l2_distances(queries, points):
     return kops.l2_distance(queries, points)
 
 
-def _gather_ids(ids, idx):
-    """Global ids behind local indices ``idx`` (``(..., B, l)``) from
-    ``ids`` (``(..., m)`` or ``(..., B, m)``); the sentinel index maps to
-    the sentinel id."""
-    m = ids.shape[-1]
-    if ids.dim() == idx.dim() - 1:
-        ids = ids.unsqueeze(-2).expand(idx.shape[:-1] + (m,))
-    out = ids.gather(-1, idx.clamp(max=m - 1).long())
-    return torch.where(idx == INT32_MAX, INT32_MAX, out)
+def _gather_at(values, idx, fill):
+    """The per-slot ``values`` (``(..., m)`` or ``(..., B, m)``: global
+    ids, or the label payload) behind local indices ``idx`` (``(..., B,
+    l)``); the sentinel index maps to ``fill`` (the sentinel id; label 0,
+    which never votes, since its slot is +inf)."""
+    m = values.shape[-1]
+    if values.dim() == idx.dim() - 1:
+        values = values.unsqueeze(-2).expand(idx.shape[:-1] + (m,))
+    out = values.gather(-1, idx.clamp(max=m - 1).long())
+    return torch.where(idx == INT32_MAX, fill, out)
 
 
-def local_top_l(d, ids, l: int):
+def local_top_l(d, ids, l: int, extra=None):
     """Per-shard top-l smallest of ``d`` (``(..., B, m)``), +inf padded.
 
     ``ids`` is ``(..., m)`` or ``(..., B, m)``.  A shard with ``m <= l``
     points is padded with the paper's fake +inf points (id 2**31-1) and
-    left in place, as the reference does.
+    left in place, as the reference does.  ``extra`` (shaped like
+    ``ids``, optional) is a per-slot payload reordered with the ids; with
+    it the return is a 3-tuple, pad slots carrying 0.
     """
     m = d.shape[-1]
     if ids.dim() == d.dim() - 1:
         ids = ids.unsqueeze(-2).expand(d.shape)
     if m <= l:
         pad = d.shape[:-1] + (l - m,)
-        return (torch.cat([d, torch.full(pad, float("inf"), dtype=d.dtype,
-                                         device=d.device)], -1),
-                torch.cat([ids, torch.full(pad, INT32_MAX, dtype=ids.dtype,
-                                           device=d.device)], -1))
+        out = (torch.cat([d, torch.full(pad, float("inf"), dtype=d.dtype,
+                                        device=d.device)], -1),
+               torch.cat([ids, torch.full(pad, INT32_MAX, dtype=ids.dtype,
+                                          device=d.device)], -1))
+        if extra is None:
+            return out
+        if extra.dim() == d.dim() - 1:
+            extra = extra.unsqueeze(-2).expand(d.shape)
+        return out + (torch.cat([extra, torch.zeros(
+            pad, dtype=extra.dtype, device=d.device)], -1),)
     v, idx = kops.local_topk(d, l)
-    return v, _gather_ids(ids, idx)
+    if extra is None:
+        return v, _gather_at(ids, idx, INT32_MAX)
+    return v, _gather_at(ids, idx, INT32_MAX), _gather_at(extra, idx, 0.0)
 
 
-def local_distance_top_l(queries, points, point_ids, l: int, valid=None):
+def local_distance_top_l(queries, points, point_ids, l: int, valid=None,
+                         extra=None):
     """Steps 8 and 2 fused: ``(B, d) x (k, m, d) -> (k, B, l)`` distances
     and global ids, without the ``(k, B, m)`` matrix (distance_topk).
-    ``valid`` (``(k, m)`` bool) puts masked points at +inf."""
+    ``valid`` (``(k, m)`` bool) puts masked points at +inf; ``extra``
+    (``(k, m)``, optional) adds the payload behind each slot as a third
+    output (:func:`local_top_l`)."""
     if points.shape[-2] <= l:
         return local_top_l(kops.l2_distance(queries, points, valid=valid),
-                           point_ids, l)
+                           point_ids, l, extra=extra)
     v, idx = kops.distance_topk(queries, points, l, valid=valid)
-    return v, _gather_ids(point_ids, idx)
+    if extra is None:
+        return v, _gather_at(point_ids, idx, INT32_MAX)
+    return (v, _gather_at(point_ids, idx, INT32_MAX),
+            _gather_at(extra, idx, 0.0))
 
 
 def _apply_shard_routing(point_valid, shard_active, k: int, m: int):
@@ -158,13 +185,20 @@ def gather_selected(d, gid, mask, l: int):
 
 def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
                   use_sampling, num_pivots, gather_results, point_valid=None,
-                  shard_active=None, point_candidates=None) -> KnnResult:
+                  shard_active=None, point_candidates=None,
+                  point_labels=None) -> KnnResult:
     """Shared Algorithm 2 body: ``l_buf`` is the static per-shard buffer
     width, ``l_run`` the selection rank (an int or a ``(B,)`` tensor);
-    the masks as in the module docstring."""
+    the masks and ``point_labels`` as in the module docstring."""
     valid = _point_mask(points, point_valid, shard_active, point_candidates)
-    d, gid = local_distance_top_l(queries, points, point_ids, l_buf,
-                                  valid=valid)
+    labels_top = None
+    if point_labels is None:
+        d, gid = local_distance_top_l(queries, points, point_ids, l_buf,
+                                      valid=valid)
+    else:
+        d, gid, labels_top = local_distance_top_l(
+            queries, points, point_ids, l_buf, valid=valid,
+            extra=point_labels)
     if use_sampling:
         prune = sampling.sample_prune(d, gen, l_run)
     else:
@@ -182,36 +216,40 @@ def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
     if gather_results:
         dists, ids = gather_selected(d, gid, mask, l_buf)
     return KnnResult(mask=mask, local_dists=d, local_ids=gid, selection=sel,
-                     prune=prune, dists=dists, ids=ids)
+                     prune=prune, dists=dists, ids=ids,
+                     local_labels=labels_top)
 
 
 def knn_query(points, point_ids, queries, l: int, gen: torch.Generator, *,
               use_sampling: bool = True, num_pivots: int = 1,
               gather_results: bool = True, point_valid=None,
-              shard_active=None, point_candidates=None) -> KnnResult:
+              shard_active=None, point_candidates=None,
+              point_labels=None) -> KnnResult:
     """Full Algorithm 2: ``points`` ``(k, m, dim)``, ``point_ids``
     ``(k, m)`` int32 globally unique, ``queries`` ``(B, dim)``.
-    ``point_valid`` / ``point_candidates`` are ``(k, m)`` bool and
-    ``shard_active`` ``(k,)`` bool (module docstring)."""
+    ``point_valid`` / ``point_candidates`` are ``(k, m)`` bool,
+    ``shard_active`` ``(k,)`` bool and ``point_labels`` ``(k, m)`` f32
+    (module docstring)."""
     return _knn_pipeline(points, point_ids, queries, l, l, gen,
                          use_sampling=use_sampling, num_pivots=num_pivots,
                          gather_results=gather_results,
                          point_valid=point_valid, shard_active=shard_active,
-                         point_candidates=point_candidates)
+                         point_candidates=point_candidates,
+                         point_labels=point_labels)
 
 
 def knn_query_batched(points, point_ids, queries, l_max: int, l,
                       gen: torch.Generator, *, use_sampling: bool = True,
                       num_pivots: int = 1, gather_results: bool = True,
                       point_valid=None, shard_active=None,
-                      point_candidates=None) -> KnnResult:
+                      point_candidates=None, point_labels=None) -> KnnResult:
     """Algorithm 2 with a per-request neighbor count, the serving form.
 
     Buffers are sized by ``l_max``; ``l`` is a ``(B,)`` int tensor with
     ``0 <= l[b] <= l_max``.  All rows run in lockstep through the same
     Algorithm 1 loop.  Rows with ``l[b] == 0`` (bucket padding) select
-    nothing and come back all +inf / 2**31-1.  Masks as in
-    :func:`knn_query`.
+    nothing and come back all +inf / 2**31-1.  Masks and
+    ``point_labels`` as in :func:`knn_query`.
     """
     B = queries.shape[0]
     l = torch.as_tensor(l, dtype=torch.int32, device=queries.device)
@@ -220,7 +258,8 @@ def knn_query_batched(points, point_ids, queries, l_max: int, l,
                          use_sampling=use_sampling, num_pivots=num_pivots,
                          gather_results=gather_results,
                          point_valid=point_valid, shard_active=shard_active,
-                         point_candidates=point_candidates)
+                         point_candidates=point_candidates,
+                         point_labels=point_labels)
 
 
 def knn_simple(points, point_ids, queries, l: int, *, point_valid=None,

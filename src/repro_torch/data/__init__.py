@@ -1,3 +1,5 @@
-from repro_torch.data.synthetic import drifting_clusters, sharded_clusters
+from repro_torch.data.synthetic import (bayes_labels, drifting_clusters,
+                                       labeled_mixture, sharded_clusters)
 
-__all__ = ["drifting_clusters", "sharded_clusters"]
+__all__ = ["bayes_labels", "drifting_clusters", "labeled_mixture",
+           "sharded_clusters"]

@@ -9,7 +9,9 @@ device from a ``torch.Generator``, so a full-width set (2^22 x 64) never
 passes through host memory, and its numbers differ from the numpy
 path's, as the two generators do.  ``drifting_clusters``: the clustered
 stream the store's tests and the chip run ingest, numpy only, the
-reference's seeded output exactly.
+reference's seeded output exactly.  ``labeled_mixture`` and
+``bayes_labels``: the prediction plane's labeled workload and its
+Bayes-optimal labels, numpy only, the reference's output exactly.
 """
 
 from __future__ import annotations
@@ -71,3 +73,30 @@ def drifting_clusters(k: int, per_step: int, dim: int, *, steps: int,
         step = rng.normal(size=(k, dim))
         centers = centers + drift * step / np.maximum(
             np.linalg.norm(step, axis=1, keepdims=True), 1e-30)
+
+
+def labeled_mixture(n: int, dim: int, num_classes: int, *,
+                    separation: float = 6.0, seed: int = 0):
+    """Equal-prior isotropic Gaussian mixture with known Bayes-optimal
+    labels: ``num_classes`` unit-variance components whose centres lie
+    ``separation`` from their centroid.  Returns ``(points (n, dim) f32,
+    labels (n,) int32, centers (num_classes, dim) f64)``; the labels are
+    the component assignments.  Seeded: the same arguments replay the
+    same instance."""
+    rng = np.random.default_rng(seed)
+    raw = rng.normal(size=(num_classes, dim))
+    raw = raw - raw.mean(axis=0)
+    centers = raw / np.maximum(
+        np.linalg.norm(raw, axis=1, keepdims=True), 1e-30) * separation
+    labels = rng.integers(0, num_classes, n)
+    pts = centers[labels] + rng.normal(size=(n, dim))
+    return pts.astype(np.float32), labels.astype(np.int32), centers
+
+
+def bayes_labels(points, centers) -> np.ndarray:
+    """The Bayes-optimal label of each point under
+    :func:`labeled_mixture`: the nearest component centre (equal priors
+    and covariances), in f64, ties to the lowest class."""
+    pts = np.asarray(points, np.float64)
+    d = ((pts[:, None, :] - np.asarray(centers)[None]) ** 2).sum(-1)
+    return d.argmin(axis=1).astype(np.int32)

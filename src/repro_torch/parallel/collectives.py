@@ -59,7 +59,8 @@ def axis_size(x: torch.Tensor) -> int:
 
 
 def accounting(*, sampler: str, iterations: int, touched: int, l_max: int,
-               use_sampling: bool) -> tuple[int, int]:
+               use_sampling: bool, predict: str = "none",
+               predict_mode: str = "exact") -> tuple[int, int]:
     """k-machine ``(rounds, messages)`` for one dispatched batch.
 
     ``touched`` shards take part (k for exact routing).  The gather
@@ -68,11 +69,22 @@ def accounting(*, sampler: str, iterations: int, touched: int, l_max: int,
     iteration (pivot all-gather + count psum), 2 for the Lemma 2.3
     sample and its verification, and 2 for the result gather (count +
     pack); each round carries ``touched - 1`` O(1)-word messages.
+    Prediction (``predict`` other than ``"none"``): the ensemble replaces
+    all of it with one local pass and one O(C) answer a touched shard (1
+    round, ``touched`` messages); the exact fold adds the histogram or
+    value-sum psum (+1 round, +``touched - 1`` messages).
     """
     t = max(int(touched), 1)
+    predicting = predict != "none"
+    if predicting and predict_mode == "ensemble":
+        return 1, t
     if sampler == "gather":
         return 1, (t - 1) * int(l_max)
     rounds = 2 * int(iterations)
     rounds += 2 if use_sampling else 0
     rounds += 2
-    return rounds, (t - 1) * rounds
+    messages = (t - 1) * rounds
+    if predicting:
+        rounds += 1
+        messages += t - 1
+    return rounds, messages

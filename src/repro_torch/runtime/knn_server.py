@@ -29,7 +29,19 @@ device (``"device"``), whose per-row mask equals the host one.
 the only candidates, under a measured recall (``recall_mode="approx"``).
 On the device one launch of the route_index_mask kernel gives the
 batch's routing and bucket unions; its operands and the slot decode are
-packed again for each generation, into the same device buffers.
+built fresh for each generation.
+
+**Prediction** (``cfg.predict="vote"|"regress"``, ``repro_torch.predict``)
+answers a label for the query over a labeled backing (the static
+``labels=`` argument, or a ``MutableStore(with_labels=True)``, whose
+labels are frozen with each generation).  ``predict_mode="exact"`` folds
+Algorithm 2's winner mask into a vote or a mean over the labels gathered
+with the top-l slots (one more sum over the shards): the label equals a
+single-machine vote over the true l nearest.  ``predict_mode="ensemble"``
+skips the selection: each shard votes over its own first ``kl``
+candidates, the ``(k, B, C)`` answers come back in one readback and the
+host aggregates them; the bill is 1 round and one message a touched
+shard, and ``dists``/``ids`` are all sentinels.
 
 The entry point runs on the card: ``device=None`` means ``"cuda"`` and
 raises when there is none.  Tests pass ``device="cpu"``, which takes
@@ -39,9 +51,8 @@ batch's random stream is a ``torch.Generator`` seeded from
 ``(seed, batch_id)``, so two fresh servers give byte-identical answers
 and iteration counts.
 
-Knobs of later slices of the port (prediction, tracing, shadow audits,
-SLOs and the HTTP endpoint) raise ``NotImplementedError`` naming their
-ROADMAP item.
+Knobs of later slices of the port (tracing, shadow audits, SLOs and the
+HTTP endpoint) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -56,6 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
+from repro_torch import predict as predict_mod
 from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
 from repro_torch.core import knn as knn_mod
 from repro_torch.device import later_slice, resolve_device
@@ -85,7 +97,12 @@ class QueryResult(NamedTuple):
     computed against (0 for a static point set).
     ``shards_touched``: k under ``route="exact"``, else the batch's union
     of routed shards.  ``recall_mode``: ``"approx"`` when the answer went
-    through the bucket index, else ``"exact"``.
+    through the bucket index, else ``"exact"``.  ``label`` /
+    ``confidence``: the prediction (None when ``cfg.predict="none"``): the
+    majority class id as a float (-1 when no live neighbour voted) and
+    its vote share, or the mean label and the share of l found (exact)
+    or of the routed shards that answered (ensemble); ``predict_mode``:
+    ``"none"``, ``"exact"`` or ``"ensemble"``.
     """
 
     dists: np.ndarray
@@ -103,6 +120,9 @@ class QueryResult(NamedTuple):
     generation: int = 0
     shards_touched: int = -1
     recall_mode: str = "exact"
+    label: Optional[float] = None
+    confidence: Optional[float] = None
+    predict_mode: str = "none"
 
 
 class _Batch(NamedTuple):
@@ -115,6 +135,8 @@ class _Batch(NamedTuple):
     host_syncs: int
     touched: int
     candidate_fraction: Optional[float]
+    pred: Optional[tuple] = None          # (label (B,), confidence (B,))
+    payload: Optional[np.ndarray] = None  # ensemble: (k, B, C) answers
 
 
 @dataclasses.dataclass
@@ -192,8 +214,28 @@ def _check_config(cfg: KnnServiceConfig) -> None:
         raise ValueError(
             f"distance_impl={cfg.distance_impl!r}: the port picks the "
             f"kernel or its plain version by the device; only 'auto'")
-    if cfg.predict != "none":
-        later_slice(f"predict={cfg.predict!r}", 6, "prediction")
+    if cfg.predict != "none" and cfg.sampler != "selection":
+        raise ValueError(
+            f"predict={cfg.predict!r} needs sampler='selection' "
+            f"(the gather baseline has no winner mask to vote over), "
+            f"got sampler={cfg.sampler!r}")
+    if cfg.predict != "none" and cfg.predict_mode == "ensemble":
+        # one collective-free pass: the local-k split needs the touched
+        # count before the launch, and the local votes the true local top-l
+        if cfg.search != "exact":
+            raise ValueError(
+                "predict_mode='ensemble' requires search='exact' "
+                "(per-shard local votes need the true local top-l)")
+        if cfg.route == "pruned" and cfg.route_compute == "device":
+            raise ValueError(
+                "predict_mode='ensemble' requires route_compute="
+                "'host': the local-k split needs the touched-shard "
+                "count before the launch")
+        if cfg.obs_audit_every > 0 and cfg.predict != "vote":
+            raise ValueError(
+                "the accuracy shadow audit (obs_audit_every > 0 with "
+                "predict_mode='ensemble') needs predict='vote' — "
+                "label agreement is defined on class ids")
     for knob in ("obs_trace", "obs_audit_every", "obs_http_port",
                  "slo_latency_p99_s", "slo_recall_floor",
                  "slo_staleness_generations", "slo_contract_violations",
@@ -211,14 +253,18 @@ class KnnServer:
     row -> shard rule, ``convert.shards_from_numpy``) or an ``(n, dim)``
     float32 tensor (viewed in place on its device when it is there).
     ``values``: optional ``(n,)`` int payload, looked up on the host.
+    ``labels``: optional ``(n,)`` label payload (class ids or regression
+    targets as f32), required when ``cfg.predict`` is set; it lives on
+    the device beside the points, split like them.
     ``shards``: k, the counterpart of the reference's mesh axis size (8
     when omitted).  ``cfg.route="pruned"`` builds the routing summaries
     and ``cfg.search="approx"`` the bucket index from the construction
     points, on their device; both are generation 0 forever.
 
     ``store``: a :class:`repro_torch.store.MutableStore` instead of
-    points (module docstring).  Its device must be the server's, and its
-    summary sketch and index must match ``cfg``, as in the reference.
+    points (module docstring).  Its device must be the server's, its
+    summary sketch and index must match ``cfg``, as in the reference, and
+    it must be ``with_labels`` when ``cfg.predict`` is set.
 
     Synchronous use: ``submit(...)`` then ``flush()``, or ``query_batch``.
     Server use: ``with server.serving(): ...`` runs the micro-batcher
@@ -230,9 +276,9 @@ class KnnServer:
                  store=None, cfg: KnnServiceConfig = CONFIG,
                  shards: Optional[int] = None, device=None, seed: int = 0):
         _check_config(cfg)
-        if labels is not None:
-            later_slice("labels=", 6, "prediction")
         self.cfg = cfg
+        self._predict = cfg.predict != "none"
+        self._ensemble = self._predict and cfg.predict_mode == "ensemble"
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # the port's numerics are f32 throughout (no TF32 anywhere)
@@ -241,11 +287,13 @@ class KnnServer:
         self._store = store
         self._summaries = self._index = None
         self._points = self._ids = self._values = None
+        # the label operand on the device (k, m) and its host copy (n,)
+        self._labels = self._labels_host = None
         if store is not None:
-            self._init_store(store, points, values, shards)
+            self._init_store(store, points, values, labels, shards)
         else:
-            self._init_static(points, values, 8 if shards is None
-                              else shards)
+            self._init_static(points, values, labels,
+                              8 if shards is None else shards)
         self.seed = int(seed)
         self.envelopes = [
             kops.service_envelope(b, self.m_local, self.dim, cfg.l_max,
@@ -276,22 +324,32 @@ class KnnServer:
         if store is not None:
             store.attach_metrics(reg)
 
-    def _init_static(self, points, values, shards: int) -> None:
+    def _init_static(self, points, values, labels, shards: int) -> None:
         cfg = self.cfg
         if points is None:
             raise ValueError("points or store= required")
         self.k = int(shards)
+        if labels is not None:
+            labels = np.asarray(labels, np.float32)
         if isinstance(points, torch.Tensor):
             pts = points.to(device=self.device, dtype=torch.float32)
             self._points, self._ids = convert.shards_from_tensor(pts, self.k)
             n = pts.shape[0]
             if values is not None:
                 values = np.asarray(values, np.int32)
+            if labels is not None:
+                self._labels = convert.labels_from_numpy(labels, n, self.k,
+                                                         self.device)
         else:
             pts = np.ascontiguousarray(points, np.float32)
-            self._points, self._ids, values = convert.shards_from_numpy(
-                pts, self.k, values, device=self.device)
+            (self._points, self._ids, values,
+             self._labels) = convert.shards_from_numpy(
+                pts, self.k, values, labels, device=self.device)
             n = self._ids.numel()
+        if self._predict and self._labels is None:
+            raise ValueError(f"predict={cfg.predict!r} on a static server "
+                             f"needs the labels= constructor argument")
+        self._labels_host = labels
         self._points = self._points.contiguous()
         self._values = values
         self.m_local = n // self.k
@@ -306,10 +364,16 @@ class KnnServer:
             idx.rebuild(pts)
             self._index = idx.freeze(0)
 
-    def _init_store(self, store, points, values, shards) -> None:
+    def _init_store(self, store, points, values, labels, shards) -> None:
         cfg = self.cfg
-        if points is not None or values is not None:
-            raise ValueError("pass either points/values or store=, not both")
+        if points is not None or values is not None or labels is not None:
+            raise ValueError(
+                "pass either points/values/labels or store=, not both")
+        if self._predict and not store.with_labels:
+            raise ValueError(
+                f"predict={cfg.predict!r} needs a labeled store: "
+                f"construct it with with_labels=True "
+                f"(cfg.store_kwargs() does when predict != 'none')")
         if shards is not None and int(shards) != store.k:
             raise ValueError(f"store-backed server uses the store's "
                              f"{store.k} shards, got shards={shards}")
@@ -350,20 +414,23 @@ class KnnServer:
 
     def _capture(self):
         """The batch's backing: ``(points (k, m, dim), ids (k, m), valid
-        (k, m) or None, generation, live count, summaries, index)``.  A
-        store-backed server captures the store's serving triple under one
-        lock here, the epoch-swap point; the summaries and the index are
-        None where the config does not read them."""
+        (k, m) or None, generation, live count, summaries, index, labels
+        (k, m) or None)``.  A store-backed server captures the store's
+        serving triple under one lock here, the epoch-swap point, so the
+        labels are the generation's own; the summaries, the index and the
+        labels are None where the config does not read them."""
         cfg = self.cfg
         if self._store is None:
             return (self._points, self._ids, None, 0, self.m_local * self.k,
-                    self._summaries, self._index)
+                    self._summaries, self._index,
+                    self._labels if self._predict else None)
         snap, summ, idx = self._store.serving_snapshot()
         k, m = self.k, self.m_local
         return (snap.points.view(k, m, self.dim), snap.ids.view(k, m),
                 snap.valid.view(k, m), snap.generation, snap.live,
                 summ if cfg.route == "pruned" else None,
-                idx if cfg.search == "approx" else None)
+                idx if cfg.search == "approx" else None,
+                snap.labels.view(k, m) if self._predict else None)
 
     def _operands(self, summ, idx):
         """The device router's operands for (summaries, index) (None
@@ -396,8 +463,9 @@ class KnnServer:
                   summ=None, idx=None):
         """The batch's masks ahead of Algorithm 2: ``(shard_active (k,)
         bool or None, point_candidates (k, m) bool or None, touched,
-        candidate fraction or None, host_syncs)``, from ``summ`` and
-        ``idx`` (a static server's own when omitted).
+        candidate fraction or None, host_syncs, the (k,) bool numpy union
+        of routed shards or None)``, from ``summ`` and ``idx`` (a static
+        server's own when omitted).
 
         Device routing is one ``route_index`` call (one launch on the card:
         the routing rows and, under ``search="approx"``, the bucket rows
@@ -437,7 +505,7 @@ class KnnServer:
             cand = keep_t[colidx] & has
             frac = index_mod.candidate_fraction(idx, keep_any)
         touched = self.k if act is None else int(act.sum())
-        return active, cand, touched, frac, syncs
+        return active, cand, touched, frac, syncs, act
 
     def _run(self, q: np.ndarray, l_arr: np.ndarray, gen,
              backing=None) -> _Batch:
@@ -445,24 +513,35 @@ class KnnServer:
         :meth:`_capture`, taken now when omitted), read back to the
         host; ``d``/``i`` of shape ``(B, l_max)``."""
         cfg = self.cfg
-        points, ids, valid, _, _, summ, idx = (self._capture()
-                                               if backing is None
-                                               else backing)
+        points, ids, valid, _, _, summ, idx, labels = (
+            self._capture() if backing is None else backing)
         qt = torch.from_numpy(q).to(self.device)
         lt = torch.from_numpy(l_arr).to(self.device)
-        active, cand, touched, frac, syncs = self._prologue(
+        active, cand, touched, frac, syncs, act = self._prologue(
             q, l_arr, qt, lt, summ, idx)
+        if self._ensemble:
+            return self._ensemble_run(points, ids, valid, labels, active,
+                                      act, qt, l_arr, touched, syncs)
         masks = dict(point_valid=valid, shard_active=active,
                      point_candidates=cand)
         if cfg.sampler == "selection":
             res = knn_mod.knn_query_batched(
                 points, ids, qt, cfg.l_max, lt, gen,
                 use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots,
-                **masks)
+                point_labels=labels, **masks)
             d, i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
             surv = res.prune.survivors.cpu().numpy()
-            return _Batch(d, i, res.selection.iterations, surv,
-                          res.selection.host_syncs + 3 + syncs, touched, frac)
+            syncs += res.selection.host_syncs + 3
+            pred = None
+            if labels is not None:
+                # the fold and one readback of (label, confidence)
+                label, conf, _ = predict_mod.exact_predict(
+                    res, lt, predict=cfg.predict,
+                    num_classes=cfg.num_classes)
+                lc = torch.stack([label, conf]).cpu().numpy()
+                pred, syncs = (lc[0], lc[1]), syncs + 1
+            return _Batch(d, i, res.selection.iterations, surv, syncs,
+                          touched, frac, pred)
         sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max, **masks)
         # per-request l: ranks >= l[b] become sentinels
         keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
@@ -472,11 +551,40 @@ class KnnServer:
         return _Batch(d, i, 0, np.zeros(len(q), np.int32), 2 + syncs,
                       touched, frac)
 
+    def _ensemble_run(self, points, ids, valid, labels, active, act, qt,
+                      l_arr, touched, syncs) -> _Batch:
+        """One ensemble batch: the local-k split on the host, each shard's
+        masked local top-l and its vote or (sum, count) on the device with
+        no sum over the shards, one readback of the ``(k, B, C)`` answers,
+        and the host aggregation.  ``dists``/``ids`` are all sentinels: no
+        point leaves its shard."""
+        cfg = self.cfg
+        kl = predict_mod.local_k_for(l_arr, touched, cfg.local_k, cfg.l_max)
+        mask = knn_mod._point_mask(points, valid, active, None)
+        d, _, labels_top = knn_mod.local_distance_top_l(
+            qt, points, ids, cfg.l_max, valid=mask, extra=labels)
+        klt = torch.from_numpy(kl).to(self.device)
+        act = np.ones(self.k, bool) if act is None else act
+        if cfg.predict == "vote":
+            payload = predict_mod.local_vote(d, labels_top, klt,
+                                             cfg.num_classes).cpu().numpy()
+            label, conf, _ = predict_mod.aggregate_vote(payload, act)
+        else:
+            payload = predict_mod.local_mean(d, labels_top,
+                                             klt).cpu().numpy()
+            label, conf = predict_mod.aggregate_regress(payload, act)
+        b = len(l_arr)
+        return _Batch(np.full((b, cfg.l_max), np.inf, np.float32),
+                      np.full((b, cfg.l_max), _ID_SENTINEL, np.int32), 0,
+                      np.zeros(b, np.int32), syncs + 1, touched, None,
+                      (label, conf), payload)
+
     def warmup(self):
         """Run every bucket shape once, at rank ``cfg.l`` so the Algorithm
-        1 loop and the routing prologue run too: on the card this builds
-        the kernels and loads every CUDA module the path uses before the
-        first request.  Works on an empty store (every answer sentinels)."""
+        1 loop, the routing prologue and the prediction fold or ensemble
+        run too: on the card this builds the kernels and loads every CUDA
+        module the path uses before the first request.  Works on an empty
+        store (every answer sentinels)."""
         for b in self.cfg.bucket_sizes:
             self._run(np.zeros((b, self.dim), np.float32),
                       np.full(b, min(self.cfg.l, self.cfg.l_max), np.int32),
@@ -518,6 +626,24 @@ class KnnServer:
         ``with_values``, or the static ``values=`` argument)."""
         return (self._store.with_values if self._store is not None
                 else self._values is not None)
+
+    @property
+    def with_labels(self) -> bool:
+        """Whether a label payload is attached (the store's
+        ``with_labels``, or the static ``labels=`` argument)."""
+        return (self._store.with_labels if self._store is not None
+                else self._labels is not None)
+
+    def labels_for(self, ids):
+        """Map global ids to label payloads, NaN where absent."""
+        if self._store is not None:
+            return self._store.labels_for(ids)
+        if self._labels_host is None:
+            raise RuntimeError("server has no label payload")
+        ids = np.asarray(ids)
+        safe = np.clip(ids, 0, len(self._labels_host) - 1)
+        return np.where(ids == _ID_SENTINEL, np.nan,
+                        self._labels_host[safe]).astype(np.float32)
 
     def values_for(self, ids):
         """Map global ids to int payload values, -1 where absent."""
@@ -602,7 +728,8 @@ class KnnServer:
         d, i, iters, surv, syncs = out[:5]
         rounds, messages = accounting(
             sampler=cfg.sampler, iterations=iters, touched=out.touched,
-            l_max=cfg.l_max, use_sampling=cfg.use_sampling)
+            l_max=cfg.l_max, use_sampling=cfg.use_sampling,
+            predict=cfg.predict, predict_mode=cfg.predict_mode)
         self.stats.observe(
             bucket, n,
             touched=out.touched if cfg.route == "pruned" else None)
@@ -615,6 +742,9 @@ class KnnServer:
             messages=messages, use_sampling=cfg.use_sampling,
             sampler=cfg.sampler, generation=generation)
 
+        pmode = ("none" if not self._predict
+                 else "ensemble" if self._ensemble else "exact")
+        pred = out.pred
         t_res0 = time.perf_counter()
         for row, rec in enumerate(chunk):
             # ascending by distance: gather_selected packs by shard rank,
@@ -631,7 +761,10 @@ class KnnServer:
                 latency_s=t_done - rec.t_enqueue, host_syncs=syncs,
                 generation=generation, shards_touched=out.touched,
                 recall_mode="approx" if cfg.search == "approx"
-                else "exact"))
+                else "exact",
+                label=None if pred is None else float(pred[0][row]),
+                confidence=None if pred is None else float(pred[1][row]),
+                predict_mode=pmode))
             self._m["queued_s"].observe(t_dispatch - rec.t_enqueue)
             self._m["latency_s"].observe(time.perf_counter() - rec.t_enqueue)
         t_res1 = time.perf_counter()

@@ -30,8 +30,15 @@ Port of ``repro.store.mutable`` with the inline maintenance plane.
 
 Op replay, placement, compaction decisions, summaries and slot order are
 the reference's, op by op, so the mirrors are bit-equal to a reference
-store driven by the same stream.  Left for later slices:
-``maintenance="background"`` and the label payload (``with_labels``).
+store driven by the same stream.
+
+* **Label payload** (``with_labels=True``, the prediction plane): an f32
+  per-slot mirror rides the same replay, repack (remapped by id,
+  ``compaction.remap_payload``) and clone + scatter as the points, so a
+  generation's labels never tear from its points; the id -> label map is
+  monotone like the id -> value map.
+
+Left for a later slice: ``maintenance="background"``.
 """
 
 from __future__ import annotations
@@ -63,8 +70,9 @@ class StoreSnapshot(NamedTuple):
 
     ``points``: (k*cap, dim) f32; ``ids``: (k*cap,) int32 global ids
     (ID_SENTINEL in dead and free slots); ``valid``: (k*cap,) bool live
-    mask; ``live``: the live count at this generation.  ``labels`` is
-    always None here (the label payload comes with prediction).
+    mask; ``live``: the live count at this generation; ``labels``:
+    (k*cap,) f32 per-slot label payload, frozen with the generation (None
+    unless the store was built ``with_labels=True``).
     """
 
     generation: int
@@ -94,6 +102,7 @@ class _Op:
     id: int
     point: Optional[np.ndarray] = None
     value: Optional[int] = None
+    label: Optional[float] = None  # None on update = keep current label
 
 
 class MutableStore:
@@ -132,8 +141,6 @@ class MutableStore:
         if maintenance == "background":
             later_slice("maintenance='background'", 10,
                         "background maintenance")
-        if with_labels:
-            later_slice("with_labels=True", 6, "prediction")
         self.device = resolve_device(device)
         self.dim = int(dim)
         self.k = int(shards)
@@ -144,6 +151,7 @@ class MutableStore:
         self.compact_imbalance_frac = float(compact_imbalance_frac)
         self.auto_compact = bool(auto_compact)
         self.with_values = bool(with_values)
+        self.with_labels = bool(with_labels)
         self.maintenance = str(maintenance)
         self._placement = placement_mod.make_placement(
             placement, guard_slack=placement_guard_slack)
@@ -163,6 +171,11 @@ class MutableStore:
         self._live = np.zeros(self.k, np.int64)   # live points per shard
         self._used = np.zeros(self.k, np.int64)   # high-water mark per shard
         self._values: dict[int, int] = {}
+        # the per-slot label mirror (f32: class ids are exact below 2^24)
+        # and the monotone id -> label map
+        self._labels = (np.zeros(self.total, np.float32)
+                        if self.with_labels else None)
+        self._label_of: dict[int, float] = {}
         self._next_id = 0
 
         # write-ahead staging
@@ -298,6 +311,25 @@ class MutableStore:
             return np.array([self._values.get(int(i), -1) for i in ids],
                             np.int32)
 
+    def labels_for(self, ids: np.ndarray) -> np.ndarray:
+        """Global ids -> label payloads, NaN where absent; monotone like
+        :meth:`values_for` (needs ``with_labels``)."""
+        if not self.with_labels:
+            raise RuntimeError("store built with with_labels=False")
+        with self._lock:
+            return np.array([self._label_of.get(int(i), np.nan) for i in ids],
+                            np.float32)
+
+    def live_labels(self) -> tuple[np.ndarray, np.ndarray]:
+        """(ids, labels) of the applied live set, ascending by id, aligned
+        with :meth:`live_arrays` (needs ``with_labels``)."""
+        if not self.with_labels:
+            raise RuntimeError("store built with with_labels=False")
+        with self._lock:
+            slots = np.flatnonzero(self._valid)
+            order = slots[np.argsort(self._ids[slots], kind="stable")]
+            return self._ids[order].copy(), self._labels[order].copy()
+
     # ---- write side (staging) -------------------------------------------
 
     def insert(self, points, ids=None, values=None, labels=None) -> np.ndarray:
@@ -305,8 +337,9 @@ class MutableStore:
 
         ``ids`` (optional) must never have been used, not even by a
         deleted point; omitted ids come from a monotone counter.
-        ``values`` needs ``with_values``.  Atomic: on any validation error
-        nothing is staged."""
+        ``values`` needs ``with_values``; ``labels`` (f32 class ids or
+        regression targets, 0.0 when omitted) needs ``with_labels``.
+        Atomic: on any validation error nothing is staged."""
         points = np.atleast_2d(np.asarray(points, np.float32))
         n = points.shape[0]
         if points.shape != (n, self.dim):
@@ -315,8 +348,10 @@ class MutableStore:
             raise ValueError("store built with with_values=False")
         if values is not None:
             values = np.broadcast_to(np.asarray(values, np.int32), (n,))
-        if labels is not None:
+        if labels is not None and not self.with_labels:
             raise ValueError("store built with with_labels=False")
+        if labels is not None:
+            labels = np.broadcast_to(np.asarray(labels, np.float32), (n,))
         with self._lock:
             if ids is None:
                 ids = np.arange(self._next_id, self._next_id + n,
@@ -340,7 +375,9 @@ class MutableStore:
                 pid = int(ids[t])
                 self._pending.append(_Op(
                     "insert", pid, point=points[t].copy(),
-                    value=None if values is None else int(values[t])))
+                    value=None if values is None else int(values[t]),
+                    label=(0.0 if labels is None else float(labels[t]))
+                    if self.with_labels else None))
                 self._staged_state[pid] = True
                 self._used_ids.add(pid)
                 self._next_id = max(self._next_id, pid + 1)
@@ -367,21 +404,28 @@ class MutableStore:
             self._maybe_autoflush_locked()
 
     def update(self, ids, points, labels=None) -> None:
-        """Stage in-place overwrites (same id, same slot).  Atomic: one
-        unknown id rejects the whole batch."""
+        """Stage in-place overwrites (same id, same slot); ``labels``
+        (needs ``with_labels``) overwrites the label payload too, and
+        omitted labels stay.  Atomic: one unknown id rejects the whole
+        batch."""
         ids = np.atleast_1d(np.asarray(ids, np.int64))
         points = np.atleast_2d(np.asarray(points, np.float32))
         if points.shape != (len(ids), self.dim):
             raise ValueError(
                 f"points shape {points.shape} != ({len(ids)}, {self.dim})")
-        if labels is not None:
+        if labels is not None and not self.with_labels:
             raise ValueError("store built with with_labels=False")
+        if labels is not None:
+            labels = np.broadcast_to(np.asarray(labels, np.float32),
+                                     (len(ids),))
         with self._lock:
             for pid in ids:
                 if not self._would_be_live(int(pid)):
                     raise KeyError(f"id {int(pid)} is not live")
-            for pid, pt in zip(ids, points):
-                self._pending.append(_Op("update", int(pid), point=pt.copy()))
+            for t, (pid, pt) in enumerate(zip(ids, points)):
+                self._pending.append(_Op(
+                    "update", int(pid), point=pt.copy(),
+                    label=None if labels is None else float(labels[t])))
             self._maybe_autoflush_locked()
 
     def _would_be_live(self, pid: int) -> bool:
@@ -442,6 +486,9 @@ class MutableStore:
                 self._slot_of[op.id] = slot
                 if op.value is not None:
                     self._values[op.id] = op.value
+                if self.with_labels:
+                    self._labels[slot] = op.label
+                    self._label_of[op.id] = float(op.label)
                 touched.add(slot)
                 self.stats.inserted += 1
             elif op.kind == "delete":
@@ -461,6 +508,9 @@ class MutableStore:
                 if self._index is not None:
                     self._index.update(slot, op.point)
                 self._pts[slot] = op.point
+                if self.with_labels and op.label is not None:
+                    self._labels[slot] = op.label
+                    self._label_of[op.id] = float(op.label)
                 touched.add(slot)
                 self.stats.updated += 1
 
@@ -526,27 +576,37 @@ class MutableStore:
         return StoreSnapshot(
             generation=generation, points=self._to_device(self._pts),
             ids=self._to_device(self._ids),
-            valid=self._to_device(self._valid), live=int(self._live.sum()))
+            valid=self._to_device(self._valid), live=int(self._live.sum()),
+            labels=(self._to_device(self._labels) if self.with_labels
+                    else None))
 
     def _scatter_locked(self, slots: list[int], generation: int):
         """The new generation: the current snapshot with the final mirror
-        value of each touched slot scattered into copies of its buffers.
-        The operands are the reference's (``compaction.scatter_operands``)
-        without their padding rows."""
+        value of each touched slot scattered into copies of its buffers,
+        the label buffer in the same scatter.  The operands are the
+        reference's (``compaction.scatter_operands`` and
+        ``payload_operand``) without their padding rows."""
         idx, upd_pts, upd_ids, upd_valid = compaction.scatter_operands(
             slots, self._pts, self._ids, self._valid, self.total,
             self.dim, id_sentinel=ID_SENTINEL)
         n = len(slots)
         dev = self.device
         snap = self._snap
-        pts, ids, valid = scatter_apply(
+        labels = upd_labels = None
+        if self.with_labels:
+            labels = snap.labels
+            upd_labels = torch.from_numpy(compaction.payload_operand(
+                slots, self._labels, n)).to(dev)
+        out = scatter_apply(
             snap.points, snap.ids, snap.valid,
             torch.from_numpy(idx[:n].astype(np.int64)).to(dev),
             torch.from_numpy(upd_pts[:n]).to(dev),
             torch.from_numpy(upd_ids[:n]).to(dev),
-            torch.from_numpy(upd_valid[:n]).to(dev))
-        return StoreSnapshot(generation=generation, points=pts, ids=ids,
-                             valid=valid, live=self._projected_live)
+            torch.from_numpy(upd_valid[:n]).to(dev), labels, upd_labels)
+        return StoreSnapshot(generation=generation, points=out[0],
+                             ids=out[1], valid=out[2],
+                             live=self._projected_live,
+                             labels=out[3] if self.with_labels else None)
 
     def _pick_shard_locked(self, point=None) -> int:
         """The placement policy's shard for ``point``, -1 when no shard
@@ -586,6 +646,10 @@ class MutableStore:
             res = compaction.repack(self._pts, self._ids, self._valid,
                                     self.k, self.cap,
                                     id_sentinel=ID_SENTINEL)
+        if self.with_labels:
+            # labels follow their points to their new slots, by id
+            self._labels = compaction.remap_payload(
+                self._labels, self._ids, self._valid, res.ids, res.valid)
         self._pts, self._ids, self._valid = res.points, res.ids, res.valid
         self._slot_of = res.slot_of
         self._live, self._used = res.live, res.used
@@ -604,13 +668,16 @@ class MutableStore:
             self._history[self._snap.generation] = (ids, pts)
 
 
-def scatter_apply(points, ids, valid, slots, upd_points, upd_ids, upd_valid):
-    """One generation's device update: copies of the three buffers with
-    rows ``slots`` (int64, unique) set to the update rows.  The inputs are
-    never written, so readers of the older generation are undisturbed;
-    every op is on the current stream."""
-    out = (points.clone(), ids.clone(), valid.clone())
-    out[0].index_copy_(0, slots, upd_points)
-    out[1].index_copy_(0, slots, upd_ids)
-    out[2].index_copy_(0, slots, upd_valid)
+def scatter_apply(points, ids, valid, slots, upd_points, upd_ids, upd_valid,
+                  labels=None, upd_labels=None):
+    """One generation's device update: copies of the three buffers (four
+    with ``labels``) with rows ``slots`` (int64, unique) set to the update
+    rows.  The inputs are never written, so readers of the older
+    generation are undisturbed; every op is on the current stream."""
+    bufs = (points, ids, valid) + (() if labels is None else (labels,))
+    upds = (upd_points, upd_ids, upd_valid) + (
+        () if labels is None else (upd_labels,))
+    out = tuple(b.clone() for b in bufs)
+    for o, u in zip(out, upds):
+        o.index_copy_(0, slots, u)
     return out

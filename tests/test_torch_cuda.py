@@ -674,3 +674,133 @@ def test_store_server_on_the_card(card):
                     want == got), name
             assert answers["pruned"][j].dists.tobytes() == \
                 answers["exact"][j].dists.tobytes()
+
+
+@pytest.mark.parametrize("l", [128, 300])
+@pytest.mark.parametrize("mode", ["tail", "scattered", "few"])
+def test_label_gather_under_store_masks(card, mode, l):
+    """The label payload behind the card's top-l (distance_topk at l =
+    128, l2_distance + local_topk's passes at l = 300) under a store's
+    masks: each finite slot carries the label of the point its id names,
+    each +inf slot label 0 and the sentinel id, and the labels equal the
+    plain version's wherever the ids do."""
+    from repro_torch.core import knn as tknn
+    k, m, d = 8, 8192, 64
+    q, p = _randn(card, 32, d, seed=31), _randn(card, k, m, d, seed=32)
+    valid = _store_mask(card, k, m, mode, l)
+    ids = torch.arange(k * m, dtype=torch.int32, device=card).view(k, m)
+    g = torch.Generator(device=card)
+    g.manual_seed(33)
+    labels = torch.randint(0, 16, (k, m), generator=g, device=card).float()
+    before = dict(ops.launch_counts())
+    v, i, lab = tknn.local_distance_top_l(q, p, ids, l, valid=valid,
+                                          extra=labels)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    fused = "distance_topk" if l <= 256 else "l2_distance"
+    assert after[fused] > before[fused]
+    rv, ri, rlab = (t.to(card) for t in tknn.local_distance_top_l(
+        q.cpu(), p.cpu(), ids.cpu(), l, valid=valid.cpu(),
+        extra=labels.cpu()))
+    full = torch.where(valid.unsqueeze(1), l2.l2_distance_plain(q, p),
+                       torch.full((k, 32, m), float("inf"), device=card))
+    # the ids are global (shard * m + slot); _topk_close reads slots
+    base = (torch.arange(k, device=card) * m).view(k, 1, 1).int()
+    _topk_close(v, torch.where(torch.isfinite(v), i - base, i), rv,
+                torch.where(torch.isfinite(rv), ri - base, ri), full)
+    for vv, ii, ll in ((v, i, lab), (rv, ri, rlab)):
+        fin = torch.isfinite(vv)
+        want = labels.view(-1)[torch.where(fin, ii, 0).long()]
+        assert torch.equal(torch.where(fin, ll, 0.0), torch.where(
+            fin, want, 0.0))
+        assert bool((ll[~fin] == 0).all()) and bool(
+            (ii[~fin] == INT32_MAX).all())
+    same = i == ri
+    assert torch.equal(lab[same], rlab[same])
+
+
+def _boundary_clear(d, r):
+    """Whether ascending f64 distances ``d`` have their r-th and
+    (r+1)-th apart by more than f32 rounding could close."""
+    return len(d) <= r or d[r] - d[r - 1] > 1e-5 * d[r] + 1e-6
+
+
+def test_predict_on_the_card_matches_the_cpu(card):
+    """Exact vote (exact and device-pruned routes), exact regress and the
+    ensemble (vote and regress, exact and host-pruned routes), static and
+    over a labeled store under churn: the card's labels and confidences
+    equal the CPU's byte for byte on every row whose deciding rank (l for
+    the exact fold, kl in every shard for the ensemble) is clear of a
+    near-tie; the bill of the ensemble is one message a touched shard."""
+    from repro_torch.data import labeled_mixture
+    from repro_torch.store import MutableStore
+    n, dim, c, l_max = 8 * 1024, 16, 8, 64
+    pts, labels, centers = labeled_mixture(n, dim, c, separation=6.0,
+                                           seed=0)
+    labels = labels.astype(np.float32)
+    rng = np.random.default_rng(1)
+    qs = (centers[rng.integers(0, c, 8)]
+          + rng.normal(size=(8, dim))).astype(np.float32)
+    ls = [1, 64, 7, 30, 2, 64, 13, 40]
+    cfg = CONFIG.replace(dim=dim, l_max=l_max, bucket_sizes=(4, 8),
+                         num_classes=c, predict="vote",
+                         store_capacity_per_shard=1024,
+                         store_staging_size=10**9)
+    runs = (dict(), dict(route="pruned", route_compute="device"),
+            dict(predict="regress"),
+            dict(predict_mode="ensemble"),
+            dict(predict_mode="ensemble", route="pruned",
+                 route_compute="host"),
+            dict(predict_mode="ensemble", predict="regress"))
+
+    def live_f64(st):
+        lid, lpts = st.live_arrays()
+        return lid, lpts.astype(np.float64), st._slot_of
+
+    compared = 0
+    for backing in ("static", "store"):
+        stores = {}
+        if backing == "store":
+            for dev in (card, "cpu"):
+                st = MutableStore(dim, device=dev, **cfg.store_kwargs())
+                ids = st.insert(pts[:6000], labels=labels[:6000])
+                st.flush()
+                st.delete(ids[::7])
+                st.update(ids[1:500:7], pts[1:500:7] + 0.3,
+                          labels=np.zeros(72, np.float32))
+                st.insert(pts[6000:7000], labels=labels[6000:7000])
+                st.flush()
+                stores[dev if dev == "cpu" else "card"] = st
+            lid, lp, slot_of = live_f64(stores["cpu"])
+            shard_of = np.array([slot_of[int(i)] // 1024 for i in lid])
+        else:
+            lid, lp = np.arange(n), pts.astype(np.float64)
+            shard_of = lid // 1024
+        for kw in runs:
+            k_cfg = cfg.replace(**kw)
+            if backing == "static":
+                gpu = KnnServer(pts, labels=labels, cfg=k_cfg, device=card)
+                cpu = KnnServer(pts, labels=labels, cfg=k_cfg, device="cpu")
+            else:
+                gpu = KnnServer(store=stores["card"], cfg=k_cfg,
+                                device=card)
+                cpu = KnnServer(store=stores["cpu"], cfg=k_cfg,
+                                device="cpu")
+            for q, l, a, b in zip(qs, ls, gpu.query_batch(qs, ls),
+                                  cpu.query_batch(qs, ls)):
+                assert a.predict_mode == b.predict_mode != "none"
+                d = ((lp - q.astype(np.float64)) ** 2).sum(-1)
+                if a.predict_mode == "exact":
+                    clear = _boundary_clear(np.sort(d), l)
+                else:
+                    assert a.messages == a.shards_touched == b.shards_touched
+                    kl = -(-l // a.shards_touched)
+                    clear = all(_boundary_clear(np.sort(d[shard_of == j]), kl)
+                                for j in range(8))
+                if clear:
+                    compared += 1
+                    assert np.float32(a.label).tobytes() == np.float32(
+                        b.label).tobytes(), (backing, kw, l)
+                    assert np.float32(a.confidence).tobytes() == np.float32(
+                        b.confidence).tobytes(), (backing, kw, l)
+    assert compared >= 0.75 * 2 * len(runs) * len(qs)

@@ -191,35 +191,69 @@ def test_rejects_bad_requests(pts):
     srv.flush()
 
 
-@pytest.mark.parametrize("knob", [
-    dict(predict="regress"), dict(slo_recall_floor=0.9), dict(predict="vote"),
-    dict(obs_trace=True), dict(obs_audit_every=4), dict(obs_http_port=-1),
-    dict(slo_latency_p99_s=0.5), dict(slo_contract_violations=True)])
-def test_out_of_slice_knobs_raise(pts, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("knob,error,match", [
+    (dict(predict="regress", sampler="gather"), ValueError,
+     "needs sampler='selection'"),
+    (dict(slo_recall_floor=0.9), NotImplementedError, "ROADMAP"),
+    (dict(predict="vote", predict_mode="ensemble", search="approx"),
+     ValueError, "requires search='exact'"),
+    (dict(predict="vote", predict_mode="ensemble", route="pruned",
+          route_compute="device"), ValueError, "route_compute='host'"),
+    (dict(obs_trace=True), NotImplementedError, "ROADMAP"),
+    (dict(obs_audit_every=4), NotImplementedError, "ROADMAP"),
+    (dict(obs_http_port=-1), NotImplementedError, "ROADMAP"),
+    (dict(slo_latency_p99_s=0.5), NotImplementedError, "ROADMAP"),
+    (dict(slo_contract_violations=True), NotImplementedError, "ROADMAP")])
+def test_out_of_slice_knobs_raise(mesh8, pts, knob, error, match):
+    """Knobs of later slices raise naming their ROADMAP item; prediction
+    is ported, and its invalid combinations raise the reference's
+    ValueErrors, as the JAX server does."""
+    with pytest.raises(error, match=match):
         _port(pts, **knob)
+    if error is ValueError:
+        with pytest.raises(ValueError, match=match):
+            _jax(pts, mesh8, **knob)
 
 
 @pytest.mark.parametrize("case", ["points_and_store", "later_items"])
 def test_out_of_slice_arguments_raise(pts, case):
-    """points with store= is an error, as in the reference; the store's
-    background maintenance and label payload, and labels=, raise naming
-    their ROADMAP item."""
+    """points or labels with store= is an error, as in the reference; the
+    store's background maintenance raises naming its ROADMAP item; the
+    label payload (a store's with_labels, a static server's labels=) is
+    served, and predicting without it is the reference's ValueError."""
     if case == "points_and_store":
         st = MutableStore(DIM, capacity_per_shard=N // K, device="cpu")
         with pytest.raises(ValueError, match="not both"):
             KnnServer(pts, store=st, cfg=CONFIG.replace(**KW), device="cpu")
+        with pytest.raises(ValueError, match="not both"):
+            KnnServer(labels=np.zeros(N, np.float32), store=st,
+                      cfg=CONFIG.replace(**KW), device="cpu")
+        with pytest.raises(ValueError, match="labeled store"):
+            KnnServer(store=st, cfg=CONFIG.replace(predict="vote", **KW),
+                      device="cpu")
         return
     with pytest.raises(NotImplementedError,
                        match="item 10: background maintenance"):
         MutableStore(DIM, capacity_per_shard=8, device="cpu",
                      maintenance="background")
-    with pytest.raises(NotImplementedError, match="item 6: prediction"):
-        MutableStore(DIM, capacity_per_shard=8, device="cpu",
-                     with_labels=True)
-    with pytest.raises(NotImplementedError, match="item 6: prediction"):
-        KnnServer(pts, labels=np.zeros(N, np.float32),
-                  cfg=CONFIG.replace(**KW), device="cpu")
+    st = MutableStore(DIM, capacity_per_shard=8, device="cpu",
+                      with_labels=True)
+    st.insert(pts[:4], labels=[1.0, 2.0, 3.0, 4.0])
+    st.flush()
+    assert st.with_labels and st.labels_for([2, 9]).tolist()[0] == 3.0
+    with pytest.raises(ValueError, match="labels= constructor"):
+        KnnServer(pts, cfg=CONFIG.replace(predict="vote", **KW),
+                  device="cpu")
+    labels = np.arange(N, dtype=np.float32) % 4
+    srv = KnnServer(pts, labels=labels,
+                    cfg=CONFIG.replace(predict="vote", num_classes=4, **KW),
+                    device="cpu")
+    assert srv.with_labels
+    res = srv.query_batch(pts[7][None], [1])[0]
+    assert res.ids[0] == 7 and res.label == labels[7]
+    assert res.predict_mode == "exact" and res.confidence == 1.0
+    np.testing.assert_array_equal(srv.labels_for([7, INT32_MAX]),
+                                  [labels[7], np.nan])
 
 
 def test_device_none_means_the_card(monkeypatch, pts):

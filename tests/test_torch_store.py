@@ -541,8 +541,15 @@ def test_server_store_conflicts_rejected():
 def test_out_of_slice_store_knobs_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 10"):
         _mk_store(maintenance="background")
-    with pytest.raises(NotImplementedError, match="item 6: prediction"):
-        _mk_store(with_labels=True)
+    # the label payload is ported: labeled ops are taken, and refused
+    # without with_labels, as in the reference
+    st = _mk_store(with_labels=True)
+    st.update(st.insert(np.ones((2, DIM), np.float32), labels=[1.0, 2.0])[:1],
+              np.zeros((1, DIM), np.float32), labels=[5.0])
+    st.flush()
+    assert st.live_labels()[1].tolist() == [5.0, 2.0]
+    with pytest.raises(ValueError, match="with_labels=False"):
+        _mk_store().insert(np.ones((1, DIM), np.float32), labels=[1.0])
     with pytest.raises(ValueError):
         _mk_store(maintenance="sometimes")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
