@@ -56,6 +56,28 @@ Phases:
      its parts, and epoch swaps under load (a store with history carried
      over by convert.store_from_mirrors, served by the micro-batcher
      while an ingest thread flushes);
+  3f. serve_maintained: serve_store's final state carried over
+     (convert.store_from_mirrors) into a MutableStore(maintenance=
+     "background", track_history=True) with the same knobs; four churn
+     rounds from two writer threads while the micro-batcher serves 40
+     requests a round to four servers (exact selection traced; pruned
+     device routing with the bytes shadow audit on every batch; the
+     same with search="approx" and the recall audit; gather with an SLO
+     and the metrics endpoint on an ephemeral port), and a fifth server
+     times batches of 32 throughout; then the worker is waited idle.
+     Every answer equal to an f64 brute force over history() of its
+     generation, pruned answers byte-identical to the exact route's at
+     the same generation, approx recall@l >= 0.95, 0 contract violations
+     and 0 shadow divergences, worker errors 0 with a background repack
+     and a re-tightening committed (and counted by the commit clock),
+     the exported span forest well formed with every maint.cycle's
+     plan, prepare and commit, a repeated request's explain report
+     byte-identical, /metrics parsed and stopped by close(), device
+     memory within one generation of its level after round 1, each
+     path's kernels launched; reported: flush walls, each cycle's plan /
+     prepare / upload / commit and lock hold, the largest snapshot
+     during a commit, batch walls during a repack and quiet, the upload
+     with pageable and pinned staging, peak memory;
   3e. serve_predict: label prediction at the serve phases' widths on
      labeled_mixture(2^22, 64, 16 classes, separation 8): exact vote
      (exact route; pruned device routing, also with search="approx"),
@@ -135,13 +157,15 @@ KERNELS = {
         counter="route_index_mask",
         runs=("a_device_selection", "c_device_gather", "d_device_approx",
               "store_a_device_selection", "store_d_device_approx",
-              "predict_exact_vote_routed", "predict_exact_vote_approx")),
+              "predict_exact_vote_routed", "predict_exact_vote_approx",
+              "maintained_race", "maintained_device_bytes",
+              "maintained_approx_recall")),
     "index_mask": dict(
         source="src/repro_torch/kernels/csrc/route_index_mask.cu",
         replaces="src/repro/kernels/routing.py:339",
         counter="route_index_mask",
         runs=("d_device_approx", "store_d_device_approx",
-              "predict_exact_vote_approx")),
+              "predict_exact_vote_approx", "maintained_approx_recall")),
 }
 # every launch counter of the port (kernels/ops.py COUNTERS)
 COUNTERS = ("l2_distance", "distance_topk", "local_topk", "route_index_mask")
@@ -1552,7 +1576,463 @@ def phase_serve_store(dev, gpu, results):
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"  [{gpu}] max_memory_allocated {out['max_memory_allocated']} bytes")
     results["serve_store"] = out
+    # phase serve_maintained carries this state over
+    MAINTAINED.update(
+        points=st2._pts, ids=st2._ids, valid=st2._valid,
+        used=st2._used.copy(), next_id=st2._next_id,
+        used_ids=set(st2._used_ids), generation=st2.generation,
+        centers=centers,
+        tombstone_frac=1.5 * CHURN["deletes"] / st2.live_count)
     del srv, st2
+    torch.cuda.empty_cache()
+
+
+# ---- phase 3f: background maintenance and the operator plane ----------------
+
+MAINT_ROUNDS = 4
+MAINT_REQUESTS = 40           # a round, to each of the four servers
+# The reference's plan puts compaction debt before a due re-tightening,
+# and the 1.5-round tombstone trigger arms before a shard has absorbed
+# retighten_every ops, so mixed rounds end on a repack.  An update-only
+# tail (points moved within their cluster: no tombstones) follows until
+# a re-tightening commits, at most MAINT_TAIL_MAX flushes.
+MAINT_TAIL_UPDATES = 8192
+MAINT_TAIL_MAX = 8
+# the servers over the background store: name, config changes, kernels
+# the path must launch.  The traced server is the store's obs plane: its
+# ring holds the maintenance cycles beside its own requests
+MAINT_RUNS = (
+    ("maintained_device_bytes",
+     dict(route="pruned", route_compute="device", obs_audit_every=1),
+     ["route_index_mask", "distance_topk", "local_topk"]),
+    ("maintained_approx_recall",
+     dict(route="pruned", route_compute="device", search="approx",
+          obs_audit_every=1),
+     ["route_index_mask", "distance_topk", "local_topk"]),
+    ("maintained_gather_slo",
+     dict(sampler="gather", slo_latency_p99_s=0.5,
+          slo_contract_violations=True, obs_http_port=-1),
+     ["l2_distance", "local_topk"]),
+    ("maintained_exact_traced", dict(obs_trace=True,
+                                     obs_trace_capacity=1 << 16),
+     ["distance_topk", "local_topk"]),
+)
+# serve_store's final state (mirrors, counts, the last centres)
+MAINTAINED = {}
+
+
+def maintained_state():
+    """serve_store's final state, which this phase carries over."""
+    if not MAINTAINED:
+        raise PhaseError("serve_store left no state to carry over")
+    return MAINTAINED
+
+
+def quantile_ms(walls, q):
+    """Nearest-rank q-quantile of ``walls`` (s) in ms, None when empty."""
+    import math
+    if not walls:
+        return None
+    w = sorted(walls)
+    return w[min(max(math.ceil(q * len(w)), 1), len(w)) - 1] * 1e3
+
+
+def maint_cycles(recs):
+    """Each maintenance cycle of a span export: its kind and its plan,
+    prepare, upload and commit times (plan and commit include the wait
+    for the store lock), the plan's and the commit's lock holds and the
+    ops it replayed; fails unless every cycle has its plan, prepare and
+    commit (or discard) children."""
+    kids = {}
+    for r in recs:
+        if r["parent"] is not None:
+            kids.setdefault(r["parent"], []).append(r)
+    cycles = []
+    for c in (r for r in recs if r["name"] == "maint.cycle"):
+        by = {k["name"]: k for k in kids.get(c["span"], [])}
+        end = by.get("maint.commit") or by.get("maint.discard")
+        if "maint.plan" not in by or "maint.prepare" not in by or not end:
+            raise PhaseError(f"maint.cycle {c['attrs']} lacks its plan, "
+                             f"prepare or commit: {sorted(by)}")
+        up = [k for k in kids.get(by["maint.prepare"]["span"], [])
+              if k["name"] == "maint.upload"]
+        span = lambda r: r["t1"] - r["t0"]  # noqa: E731
+        cycles.append(dict(
+            kind=c["attrs"]["kind"], t0=c["t0"],
+            committed=end["name"] == "maint.commit",
+            plan_s=span(by["maint.plan"]),
+            plan_held_s=by["maint.plan"]["attrs"]["held_s"],
+            prepare_s=span(by["maint.prepare"]),
+            upload_s=span(up[0]) if up else None,
+            upload_bytes=up[0]["attrs"]["bytes"] if up else None,
+            commit_s=span(end), commit_t=(end["t0"], end["t1"]),
+            held_s=end.get("attrs", {}).get("held_s"),
+            replayed=end.get("attrs", {}).get("replayed")))
+    return cycles
+
+
+def phase_serve_maintained(dev, gpu, results):
+    """Background maintenance and the operator plane at full width
+    (module docstring, phase 3f)."""
+    import contextlib
+    import io
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.data import drifting_clusters
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import build_trees
+    from repro_torch.obs.explain import deterministic_json
+    from repro_torch.obs.export import parse_prometheus_text
+    from repro_torch.runtime import KnnServer
+    from repro_torch.store import maintenance
+
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    state = maintained_state()
+    cfg = store_config()
+    store_kw = {k: v for k, v in cfg.replace(search="approx")
+                .store_kwargs().items() if k != "capacity_per_shard"}
+    store_kw.update(maintenance="background",
+                    compact_tombstone_frac=state["tombstone_frac"])
+    t1 = time.perf_counter()
+    st = convert.store_from_mirrors(
+        state["points"], state["ids"], state["valid"], cap=STORE_CAP,
+        shards=K, generation=state["generation"], device=dev,
+        used=state["used"], next_id=state["next_id"],
+        used_ids=state["used_ids"], track_history=True, **store_kw)
+    centers = state["centers"]
+    MAINTAINED.clear()
+    worker = st._worker
+    out = {"carry_s": time.perf_counter() - t1, "live": st.live_count,
+           "generation": st.generation,
+           "compact_tombstone_frac": st.compact_tombstone_frac}
+    gen_bytes = K * STORE_CAP * (DIM * 4 + 4 + 1)
+    servers = {}
+    for name, kw, _ in MAINT_RUNS:
+        srv = KnnServer(store=st, cfg=cfg.replace(max_wait_ms=5.0, **kw),
+                        device=dev, seed=0)
+        srv.warmup()
+        servers[name] = srv
+    traced = servers["maintained_exact_traced"]
+    # batch-of-32 walls on a server of its own, beside the race, traced
+    # so its snapshot stages can be set against the commits
+    walls_srv = KnnServer(store=st, cfg=cfg.replace(
+        obs_trace=True, obs_trace_capacity=1 << 18), device=dev, seed=1)
+    walls_srv.warmup()
+    st.attach_obs(traced.obs)
+    log(f"  [{gpu}] carried {st.live_count} live (generation "
+        f"{st.generation}) into a background store in {out['carry_s']:.1f} "
+        f"s; tombstone trigger {st.compact_tombstone_frac:.5f}")
+
+    stream = drifting_clusters(K, STORE_STEP // K, DIM, steps=1 << 10,
+                               drift=4.0, scale=12.0, seed=29)
+    rng = np.random.default_rng(191)
+    q32 = (centers[int(rng.integers(0, K))]
+           + rng.normal(size=(32, DIM))).astype(np.float32)
+    l32 = rng.integers(1, L + 1, 32).tolist()
+    flushes, errors, walls = [], [], []
+    writing = threading.Event()
+    stop_walls = threading.Event()
+
+    def sample_walls():
+        while not stop_walls.is_set():
+            k0, w0 = worker.current, writing.is_set()
+            t = time.perf_counter()
+            walls_srv.query_batch(q32, l32)
+            walls.append((time.perf_counter() - t, k0, worker.current,
+                          w0 or writing.is_set(), t))
+
+    def writer(w, rnd, ins, gone, moved, new):
+        try:
+            st.insert(ins)
+            st.delete(gone)
+            st.update(moved, new)
+            t = time.perf_counter()
+            gen = st.flush()
+            flushes.append(dict(round=rnd, writer=w, generation=gen,
+                                flush_s=time.perf_counter() - t))
+        except Exception:
+            errors.append(traceback.format_exc())
+
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    pending = {name: [] for name in servers}
+    sampler = threading.Thread(target=sample_walls, daemon=True)
+    with contextlib.ExitStack() as serving:
+        for srv in servers.values():
+            serving.enter_context(srv.serving())
+        sampler.start()
+        for rnd in range(1, MAINT_ROUNDS + 1):
+            pts, centers = next(stream)
+            live_ids, live_pts = st.live_arrays()
+            gone = rng.choice(live_ids, CHURN["deletes"], replace=False)
+            moved = rng.choice(np.setdiff1d(live_ids, gone),
+                               CHURN["updates"], replace=False)
+            new = (live_pts[np.searchsorted(live_ids, moved)]
+                   + rng.normal(scale=0.5, size=(len(moved), DIM))
+                   ).astype(np.float32)
+            ins = interleaved(pts)[:CHURN["inserts"]]
+            qs = (centers[rng.integers(0, K, MAINT_REQUESTS)]
+                  + rng.normal(size=(MAINT_REQUESTS, DIM))).astype(np.float32)
+            ls = rng.integers(1, L + 1, MAINT_REQUESTS)
+            ls[0], ls[1] = 1, L
+            writing.set()
+            threads = [threading.Thread(target=writer, args=(
+                w, rnd, ins[w::2], gone[w::2], moved[w::2], new[w::2]))
+                for w in (0, 1)]
+            for t in threads:
+                t.start()
+            for name, srv in servers.items():
+                pending[name] += [(rnd, j, q, int(l), srv.submit(q, int(l)))
+                                  for j, (q, l) in enumerate(zip(qs, ls))]
+            for t in threads:
+                t.join()
+            writing.clear()
+            for name in servers:
+                for *_, f in pending[name]:
+                    f.result(timeout=600)
+            if rnd == 1:
+                torch.cuda.synchronize()
+                mem_round1 = torch.cuda.memory_allocated()
+            log(f"  [{gpu}] round {rnd}: generation {st.generation}, "
+                f"{st.live_count} live, flushes "
+                f"{[round(f['flush_s'], 3) for f in flushes[-2:]]} s; worker "
+                f"{ {k: v for k, v in worker.stats_dict().items() if v} }")
+        if errors:
+            raise PhaseError(f"a writer failed: {errors[0]}")
+        t1 = time.perf_counter()
+        if not worker.wait_idle(timeout=400):
+            raise PhaseError("the worker did not go idle in 400 s")
+        out["idle_wait_s"] = time.perf_counter() - t1
+        tail = []
+        while not worker.stats.retightens:
+            if len(tail) == MAINT_TAIL_MAX:
+                raise PhaseError(f"no re-tightening after {len(tail)} "
+                                 f"update-only flushes: {worker.stats}")
+            live_ids, live_pts = st.live_arrays()
+            moved = rng.choice(live_ids, MAINT_TAIL_UPDATES, replace=False)
+            st.update(moved, (live_pts[np.searchsorted(live_ids, moved)]
+                              + rng.normal(scale=0.5, size=(
+                                  len(moved), DIM))).astype(np.float32))
+            t1 = time.perf_counter()
+            writing.set()
+            gen = st.flush()
+            writing.clear()
+            tail.append(dict(generation=gen,
+                             flush_s=time.perf_counter() - t1))
+            if not worker.wait_idle(timeout=400):
+                raise PhaseError("the worker did not go idle in 400 s")
+        out["tail_flushes"] = tail
+        log(f"  [{gpu}] worker idle {out['idle_wait_s']:.1f} s after the "
+            f"last round; {len(tail)} update-only flushes of "
+            f"{MAINT_TAIL_UPDATES} to a re-tightening")
+        stop_walls.set()
+        sampler.join()
+    torch.cuda.synchronize()
+    race_counts = kops.launch_counts()
+    quiet = []
+    for _ in range(10):
+        t = time.perf_counter()
+        walls_srv.query_batch(q32, l32)
+        quiet.append(time.perf_counter() - t)
+    ws = worker.stats_dict()
+    clock = st.maint_commit_clock()
+    log(f"  [{gpu}] worker stats {ws}; clock {clock}")
+    if ws["errors"]:
+        raise PhaseError(f"maintenance worker errors: {ws['error']}")
+    if clock[0] != ws["commits"]:
+        raise PhaseError(f"commit clock {clock[0]} != {ws['commits']} "
+                         f"commits")
+
+    # the trace: a well-formed forest, every cycle complete
+    buf = io.StringIO()
+    traced.export_trace_jsonl(buf)
+    recs = [json.loads(x) for x in buf.getvalue().splitlines()]
+    build_trees(recs)
+    cycles = maint_cycles(recs)
+    for c in cycles:
+        log(f"  [{gpu}] cycle " + json.dumps(
+            {k: v for k, v in c.items() if k not in ("t0", "commit_t")}))
+    kinds = [c["kind"] for c in cycles if c["committed"]]
+    if not any(k in ("repack", "split") for k in kinds) or (
+            "retighten" not in kinds):
+        raise PhaseError(f"want a background repack and a re-tightening "
+                         f"commit, got {kinds}")
+    if len(kinds) != ws["commits"]:
+        raise PhaseError(f"{len(kinds)} commit spans, {ws['commits']} "
+                         f"commits")
+    commits = [c["commit_t"] for c in cycles if c["committed"]]
+    snaps = [(r["t0"], r["t1"]) for r in recs + walls_srv.obs.tracer.spans()
+             if r["name"] == "snapshot"]
+    raced = [b - a for a, b in snaps
+             if any(a < c1 and b > c0 for c0, c1 in commits)]
+    # a dispatch also reads the store lock after its kernel (the commit
+    # clock), where a commit's wait usually lands: the batch walls that
+    # overlap a commit
+    raced_walls = [w for w, *_, t in walls
+                   if any(t < c1 and t + w > c0 for c0, c1 in commits)]
+
+    # every answer against an f64 brute force over its generation
+    answers = {name: {(rnd, j): (q, l, f.result()) for rnd, j, q, l, f in p}
+               for name, p in pending.items()}
+    by_gen = {}
+    for name, ans in answers.items():
+        for key, (q, l, r) in ans.items():
+            by_gen.setdefault(r.generation, []).append((name, key, q, l, r))
+    errs, recalls = [], []
+    for g, items in sorted(by_gen.items()):
+        hid, hpts = st.history(g)
+        lp = torch.as_tensor(hpts, device=dev)
+        for name, key, q, l, r in items:
+            truth = truth_on_card(hid, lp, torch.as_tensor(q, device=dev), l)
+            if name == "maintained_approx_recall":
+                bv, bid, _ = truth
+                n = min(l, len(bv))
+                recalls.append(len(set(bid[:n].tolist())
+                                   & set(r.ids.tolist())) / n)
+            else:
+                errs.append(store_check(r, truth, l, g, f"{name} {key}"))
+        del lp
+    if min(recalls) < 0.95:
+        raise PhaseError(f"approx recall@l min {min(recalls)} < 0.95")
+    same_gen = 0
+    for key, (_, _, r) in answers["maintained_device_bytes"].items():
+        w = answers["maintained_exact_traced"][key][2]
+        if r.generation == w.generation:
+            same_gen += 1
+            if (r.dists.tobytes() != w.dists.tobytes()
+                    or not np.array_equal(r.ids, w.ids)):
+                raise PhaseError(f"pruned answer {key} differs from the "
+                                 f"exact route's at generation "
+                                 f"{r.generation}")
+    audits = {}
+    audited = {n for n, kw, _ in MAINT_RUNS if kw.get("obs_audit_every")}
+    for name, srv in servers.items():
+        snap = srv.obs_snapshot()
+        sh = snap["audit"]["shadow"]
+        audits[name] = dict(contract=snap["audit"]["contract"]["checks"],
+                            shadow_checks=sh["checks"],
+                            shadow_divergences=sh["divergences"])
+        if snap["audit"]["contract"]["violations"]:
+            raise PhaseError(f"{name}: contract audit violations")
+        if sh["divergences"]:
+            raise PhaseError(f"{name}: shadow divergences {sh['details']}")
+        if name in audited and not sh["checks"]:
+            raise PhaseError(f"{name}: the shadow audit never ran")
+    shadow_launches = {}
+    for name in ("maintained_device_bytes", "maintained_approx_recall"):
+        for k, v in servers[name].metrics.snapshot().items():
+            if k.startswith("audit.shadow.launches."):
+                c = k.rsplit(".", 1)[1]
+                shadow_launches[c] = shadow_launches.get(c, 0) + v
+    log(f"  [{gpu}] {sum(len(a) for a in answers.values())} answers over "
+        f"{len(by_gen)} generations equal brute force (largest distance "
+        f"error {max(errs):.4g}); approx recall@l min {min(recalls):.4f}; "
+        f"{same_gen} pruned answers byte-identical to the exact route's at "
+        f"the same generation; audits {audits}")
+
+    # explain: a repeated request gives the same stable report
+    rep = [deterministic_json(r.explain()) for r in
+           servers["maintained_approx_recall"].query_batch(q32[:4], l32[:4])]
+    again = [deterministic_json(r.explain()) for r in
+             servers["maintained_approx_recall"].query_batch(q32[:4],
+                                                             l32[:4])]
+    if rep != again:
+        raise PhaseError("explain: a repeated request's stable report "
+                         "differs")
+    # the metrics endpoint, then close() stops it
+    gsrv = servers["maintained_gather_slo"]
+    url = f"http://127.0.0.1:{gsrv._http.port}/metrics"
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        prom = parse_prometheus_text(resp.read().decode())
+    if prom["knn_serve_latency_s"]["count"] < MAINT_ROUNDS * MAINT_REQUESTS:
+        raise PhaseError(f"/metrics: {prom['knn_serve_latency_s']}")
+    slo = gsrv.obs_snapshot()["slo"]
+    gsrv.close()
+    if gsrv._http._thread.is_alive():
+        raise PhaseError("close() left the metrics endpoint running")
+
+    # each path's kernels, counts at 0 before and read after its pass
+    launches = {"maintained_race": race_counts}
+    for name, _, needs in MAINT_RUNS:
+        _, counts = run_and_count(servers[name], [q32], [l32], needs, name)
+        launches[name] = counts
+    launches["maintained_shadow"] = {c: shadow_launches.get(c, 0)
+                                     for c in COUNTERS}
+
+    # the memory check: the explain rings and the allocator pin nothing
+    for srv in servers.values():
+        srv.close()
+    torch.cuda.synchronize()
+    mem_end = torch.cuda.memory_allocated()
+    if mem_end > mem_round1 + gen_bytes:
+        raise PhaseError(f"device memory {mem_end} after the rounds > "
+                         f"{mem_round1} after round 1 + one generation "
+                         f"{gen_bytes}")
+
+    # the upload alone: pageable against pinned staging, same buffers
+    host = [st._pts, st._ids, st._valid]
+    side = torch.cuda.Stream(dev)
+    upload_s = {}
+    for pinned in (False, True, False, True):
+        t = time.perf_counter()
+        src = ([torch.from_numpy(a).pin_memory().numpy() for a in host]
+               if pinned else host)
+        bufs = maintenance.upload(src, dev, stream=side)
+        upload_s.setdefault("pinned" if pinned else "pageable", []).append(
+            time.perf_counter() - t)
+        del bufs
+    st.close()
+
+    def wall_stats(sel):
+        w = [x[0] for x in walls if sel(x)]
+        return dict(n=len(w), p50_ms=quantile_ms(w, 0.5),
+                    p99_ms=quantile_ms(w, 0.99))
+    repack = ("repack", "split")
+    out.update(
+        rounds=MAINT_ROUNDS, flushes=flushes,
+        cycles=[{k: v for k, v in c.items() if k not in ("t0", "commit_t")}
+                for c in cycles],
+        max_snapshot_s_during_commit=max(raced) if raced else None,
+        snapshots_during_commit=len(raced),
+        max_batch32_wall_during_commit_s=(max(raced_walls) if raced_walls
+                                          else None),
+        batch32_during_commit=len(raced_walls),
+        batch32_wall=dict(
+            repack_quiet_writers=wall_stats(lambda x: not x[3] and (
+                x[1] in repack or x[2] in repack)),
+            repack_with_writers=wall_stats(lambda x: x[3] and (
+                x[1] in repack or x[2] in repack)),
+            retighten=wall_stats(lambda x: "retighten" in (x[1], x[2])),
+            writers_no_cycle=wall_stats(lambda x: x[3] and x[1] is None
+                                        and x[2] is None),
+            quiet=dict(n=len(quiet), p50_ms=quantile_ms(quiet, 0.5),
+                       p99_ms=quantile_ms(quiet, 0.99))),
+        worker=ws, clock=clock[0], audits=audits, launches=launches,
+        shadow_launches=shadow_launches, max_dist_err=max(errs),
+        approx_recall_min=min(recalls), pruned_same_generation=same_gen,
+        generations_served=len(by_gen), slo=slo,
+        memory=dict(round1=mem_round1, end=mem_end, generation=gen_bytes),
+        upload_probe_s=upload_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  [{gpu}] flushes (s): "
+        f"{[round(f['flush_s'], 3) for f in flushes]}")
+    log(f"  [{gpu}] largest serve.snapshot_s during a commit: "
+        f"{out['max_snapshot_s_during_commit']} ({len(raced)} snapshots "
+        f"raced a commit); largest batch-of-32 wall overlapping a commit "
+        f"{out['max_batch32_wall_during_commit_s']} ({len(raced_walls)} "
+        f"batches); batch-of-32 walls {out['batch32_wall']}")
+    log(f"  [{gpu}] memory {out['memory']}, peak "
+        f"{out['max_memory_allocated']} bytes; upload probe (s) "
+        f"{ {k: [round(x, 3) for x in v] for k, v in upload_s.items()} }; "
+        f"slo firing {slo['firing']} fired {slo['alerts_fired']}; "
+        f"phase_s {out['phase_s']:.1f}")
+    results["serve_maintained"] = out
+    del servers, walls_srv, traced, gsrv, st
     torch.cuda.empty_cache()
 
 
@@ -2549,6 +3029,7 @@ def main(argv=None) -> int:
               ("serve", phase_serve), ("serve_routed", phase_serve_routed),
               ("serve_large_l", phase_serve_large_l),
               ("serve_store", phase_serve_store),
+              ("serve_maintained", phase_serve_maintained),
               ("serve_predict", phase_serve_predict),
               ("timing", phase_timing)]
     if args.profile:
@@ -2579,7 +3060,8 @@ def main(argv=None) -> int:
                         ("f32_ids", 0, True))}
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "serve_large_l",
-                          "serve_store", "serve_predict", "profile"):
+                          "serve_store", "serve_maintained", "serve_predict",
+                          "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -2592,7 +3074,8 @@ def main(argv=None) -> int:
         log(f"== phase {name} ok ({time.perf_counter() - t0:.1f} s)")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(results, indent=1))
+        Path(args.out).write_text(json.dumps(results, indent=1,
+                                             default=str))
     # each main path's counts, read right after its run (the routed
     # phase's exact twins repeat phase 3 and are left out)
     counts = dict(results["launches_by_sampler"])
@@ -2603,6 +3086,7 @@ def main(argv=None) -> int:
                    results["serve_large_l"].items()})
     counts.update(results["serve_store"]["launches"])
     counts.update(results["serve_predict"]["launches"])
+    counts.update(results["serve_maintained"]["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]

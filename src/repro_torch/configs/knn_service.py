@@ -5,17 +5,11 @@ defaults), so that ``repro_torch`` imports nothing of the JAX package.
 Mirrors the paper's experimental setup (Section 3): synthetic points
 split over k shards, query broadcast, answer = l nearest.  The port's
 micro-batched query service (``repro_torch/runtime/knn_server.py``)
-takes every tuning knob from here.  Live in the port on the static
-backing: the service and algorithm knobs, ``route`` with
-``route_compute``, ``route_slack``, ``route_num_projections``,
-``route_proj_seed`` and ``summary_pivots``, and ``search`` with
-``index_buckets`` and ``index_oversample``.  Knobs that belong to a
-later slice of the port (the mutable store and its maintenance,
-prediction, tracing, shadow audits, SLOs, the HTTP endpoint) keep their
-fields so configs stay interchangeable; the port's server raises
-``NotImplementedError`` when one of prediction, tracing, the audits,
-SLOs or the endpoint is set away from its default, and ignores the
-store's knobs, which only a store would read.
+takes every tuning knob from here, and ``store_kwargs()`` builds a
+``MutableStore`` from the store's knobs (both maintenance planes).
+Every knob is live in the port; ``distance_impl`` takes only
+``"auto"`` (the port picks the kernel or its plain version by the
+device).
 """
 
 import dataclasses

@@ -82,7 +82,10 @@ def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
     inserted, deleted ones included, so an id stays single-use across the
     conversion).  The summaries and the index are rebuilt exactly, and
     the snapshot uploaded as generation ``generation``.
-    ``store_kwargs`` are the store's other knobs.
+    ``store_kwargs`` are the store's other knobs.  Under
+    ``maintenance="background"`` the worker starts with the store, empty,
+    where it plans nothing; the mirrors are installed under the store
+    lock, so its first plan sees them whole, and it is poked after.
     """
     from repro_torch.store.mutable import MutableStore
     points = np.ascontiguousarray(points, np.float32)
@@ -130,4 +133,6 @@ def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
             st._frozen_index = st._index.freeze(int(generation))
         st._history.clear()
         st._record_history()
+        if st._worker is not None:
+            st._worker.notify()
     return st

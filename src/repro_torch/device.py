@@ -1,5 +1,4 @@
-"""Where the port's entry points run, and how a knob of a later slice
-of the port is refused."""
+"""Where the port's entry points run."""
 
 from __future__ import annotations
 
@@ -15,9 +14,3 @@ def resolve_device(device) -> torch.device:
                            "plain versions on the CPU")
     return dev
 
-
-def later_slice(what: str, item: int, name: str):
-    """Refuse a knob that a later slice of the port brings."""
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1, item {item}: "
-        f"{name})")

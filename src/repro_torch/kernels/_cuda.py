@@ -11,8 +11,14 @@ MAX_L = 256                         # the top-l kernels' largest l
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# per thread: the tally that launches are counted apart into, or None
+_APART = threading.local()
+
+
 class LaunchCounter:
-    """Plain integer count of a wrapper's kernel launches."""
+    """Plain integer count of a wrapper's kernel launches.  A launch made
+    inside ``ops.counted_apart()`` on the same thread lands in that
+    block's tally instead."""
 
     def __init__(self, name: str):
         self.name = name
@@ -20,6 +26,10 @@ class LaunchCounter:
         self._lock = threading.Lock()
 
     def add(self) -> None:
+        tally = getattr(_APART, "tally", None)
+        if tally is not None:
+            tally[self.name] = tally.get(self.name, 0) + 1
+            return
         with self._lock:
             self.n += 1
 

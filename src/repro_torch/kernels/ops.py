@@ -12,13 +12,17 @@ sends ``l > 256`` to its jnp oracle, the card runs kernels too:
 ``distance_topk`` becomes l2_distance then the multi-pass local_topk
 (:func:`fused_topk` decides, by l alone).  Each wrapper's counter
 counts its kernel's launches where it launches it; the plain versions
-count nothing.
+count nothing.  A thread's launches inside :func:`counted_apart` are
+counted in that block's tally instead.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import distance_topk as _dtk
 from repro_torch.kernels import l2_distance as _l2
 from repro_torch.kernels import local_topk as _ltk
@@ -122,6 +126,21 @@ def index_mask(queries, ls, rows, packed, *, oversample: float = 2.0):
     _, out, _ = route_index(queries.to(torch.float32).contiguous(),
                             _rows_i32(ls, dev), pr, r)
     return out != 0
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Count this thread's launches inside the block apart from
+    :func:`launch_counts`: yields a ``{kernel: launches}`` dict that fills
+    as the block runs (the shadow audit's replay, which is not part of
+    the served path)."""
+    prev = getattr(_cuda._APART, "tally", None)
+    tally = {}
+    _cuda._APART.tally = tally
+    try:
+        yield tally
+    finally:
+        _cuda._APART.tally = prev
 
 
 def launch_counts() -> dict:

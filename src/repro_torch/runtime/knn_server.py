@@ -51,8 +51,25 @@ batch's random stream is a ``torch.Generator`` seeded from
 ``(seed, batch_id)``, so two fresh servers give byte-identical answers
 and iteration counts.
 
-Knobs of later slices of the port (tracing, shadow audits, SLOs and the
-HTTP endpoint) raise ``NotImplementedError`` naming their ROADMAP item.
+**The operator layer** (``repro_torch.obs``): each server owns an
+:class:`~repro_torch.obs.ObsPlane` (a span tracer under
+``cfg.obs_trace``, its metrics registry), which a store-backed server
+hands to the store, so applies and maintenance cycles land beside the
+queries.  Each dispatch is one ``dispatch`` trace (``snapshot``,
+``route``, ``kernel``, ``shadow_audit``, ``resolve``) and each request
+one ``request`` trace (``queued``, ``serve``); the spans are stamped
+from clocks the dispatch reads anyway, and add no device sync.  The
+Theorem-1 contract audit runs on every batch; ``cfg.obs_audit_every``
+replays every Nth routed, indexed or ensemble batch on the operands it
+captured, with every shard active and every slot a candidate, and
+audits byte identity, recall@l or label agreement (the replay's kernel
+launches are counted apart, in ``audit.shadow.launches.*``).  Every
+answer carries an explain report (``QueryResult.explain()``,
+:meth:`KnnServer.explain_last`), assembled lazily from a capture of
+host arrays; the ``slo_*`` knobs declare burn-rate objectives, and
+``cfg.obs_http_port`` serves the registry (``/metrics``,
+``/metrics.json``, ``/obs``).  A store-backed dispatch reads the
+store's maintenance-commit clock before and after, for the report.
 """
 
 from __future__ import annotations
@@ -60,6 +77,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from typing import NamedTuple, Optional
 
@@ -70,10 +88,12 @@ from repro_torch import convert
 from repro_torch import predict as predict_mod
 from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
 from repro_torch.core import knn as knn_mod
-from repro_torch.device import later_slice, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import routing as routing_mod
-from repro_torch.obs import ContractAuditor, MetricsRegistry
+from repro_torch.obs import (BatchCapture, ContractAuditor, ExplainRecord,
+                             ObsPlane, ShadowAuditor, SloEngine)
+from repro_torch.obs.export import ObsHttpServer
 from repro_torch.parallel.collectives import accounting
 from repro_torch.store import index as index_mod
 from repro_torch.store import summaries as summaries_mod
@@ -102,7 +122,8 @@ class QueryResult(NamedTuple):
     majority class id as a float (-1 when no live neighbour voted) and
     its vote share, or the mean label and the share of l found (exact)
     or of the routed shards that answered (ensemble); ``predict_mode``:
-    ``"none"``, ``"exact"`` or ``"ensemble"``.
+    ``"none"``, ``"exact"`` or ``"ensemble"``.  ``explain_ref``: the
+    handle :meth:`explain` builds the request's report from.
     """
 
     dists: np.ndarray
@@ -123,6 +144,15 @@ class QueryResult(NamedTuple):
     label: Optional[float] = None
     confidence: Optional[float] = None
     predict_mode: str = "none"
+    explain_ref: object = None
+
+    def explain(self) -> Optional[dict]:
+        """The request's explain report (``repro_torch.obs.explain``
+        SCHEMA): per-shard routing bounds and threshold, per-bucket keep,
+        the prediction's working, stage timings and any maintenance
+        commit that raced it; built on the first call, then cached.
+        None for a result made without a capture."""
+        return None if self.explain_ref is None else self.explain_ref.build()
 
 
 class _Batch(NamedTuple):
@@ -137,6 +167,10 @@ class _Batch(NamedTuple):
     candidate_fraction: Optional[float]
     pred: Optional[tuple] = None          # (label (B,), confidence (B,))
     payload: Optional[np.ndarray] = None  # ensemble: (k, B, C) answers
+    active: Optional[np.ndarray] = None   # (k,) routed-shard union
+    keep_any: Optional[np.ndarray] = None  # (k, b) kept-bucket union
+    local_k: Optional[np.ndarray] = None  # ensemble: (B,) local k
+    votes: Optional[np.ndarray] = None    # ensemble vote: (B, C) tally
 
 
 @dataclasses.dataclass
@@ -181,11 +215,14 @@ class _Pending:
     l: int
     t_enqueue: float
     future: Future
+    # the request's root span, begun in submit() at t_enqueue and ended
+    # when the batch resolves (the shared no-op span when tracing is off)
+    span: object = None
 
 
 def _check_config(cfg: KnnServiceConfig) -> None:
-    """Reject bad values like the reference, and every knob of a later
-    slice of the port; no knob is silently ignored."""
+    """Reject bad values like the reference; no knob is silently
+    ignored."""
     if not cfg.bucket_sizes or list(cfg.bucket_sizes) != sorted(
             set(cfg.bucket_sizes)):
         raise ValueError(f"bucket_sizes must be ascending and unique, "
@@ -236,13 +273,6 @@ def _check_config(cfg: KnnServiceConfig) -> None:
                 "the accuracy shadow audit (obs_audit_every > 0 with "
                 "predict_mode='ensemble') needs predict='vote' — "
                 "label agreement is defined on class ids")
-    for knob in ("obs_trace", "obs_audit_every", "obs_http_port",
-                 "slo_latency_p99_s", "slo_recall_floor",
-                 "slo_staleness_generations", "slo_contract_violations",
-                 "slo_label_agreement_floor"):
-        if getattr(cfg, knob):
-            later_slice(f"{knob}={getattr(cfg, knob)!r}", 7,
-                        "rest of obs and the operator layer")
 
 
 class KnnServer:
@@ -313,16 +343,38 @@ class KnnServer:
         self._thread: Optional[threading.Thread] = None
         self._running = False
         self.stats = ServerStats()
-        self.metrics = MetricsRegistry()
-        reg = self.metrics
+        # the observability plane: the tracer per cfg.obs_trace and this
+        # server's registry, handed to the store too
+        self.obs = ObsPlane.from_config(cfg)
+        self.metrics = reg = self.obs.metrics
+        if store is not None:
+            store.attach_obs(self.obs)
         self._m = {name: reg.histogram(f"serve.{name}") for name in (
-            "queued_s", "snapshot_s", "kernel_s", "resolve_s", "dispatch_s",
-            "latency_s", "rounds", "messages", "host_syncs",
+            "queued_s", "snapshot_s", "route_s", "kernel_s", "resolve_s",
+            "dispatch_s", "latency_s", "rounds", "messages", "host_syncs",
             "touched_shards", "candidate_fraction")}
         self._errors = reg.counter("serve.dispatch_errors")
         self._contract = ContractAuditor(reg, k=self.k)
-        if store is not None:
-            store.attach_metrics(reg)
+        # the shadow replay audits the contract this server serves:
+        # byte identity for pruned routing, recall@l for the approx tier,
+        # label agreement for the ensemble
+        if self._ensemble:
+            mode, floor = "accuracy", cfg.accuracy_floor
+        elif cfg.search == "approx":
+            mode, floor = "recall", cfg.recall_floor
+        else:
+            mode, floor = "bytes", cfg.recall_floor
+        self._shadow = (ShadowAuditor(reg, every=cfg.obs_audit_every,
+                                      mode=mode, floor=floor)
+                        if cfg.obs_audit_every > 0 else None)
+        # the newest explain records; each holds host arrays only
+        self._explains: deque = deque(maxlen=256)
+        self._slo = SloEngine.from_config(cfg, reg, self.obs.tracer)
+        # the exposition endpoint: > 0 that localhost port, -1 ephemeral
+        self._http = None
+        if cfg.obs_http_port != 0:
+            self._http = ObsHttpServer(reg, port=max(cfg.obs_http_port, 0),
+                                       snapshot_fn=self.obs_snapshot)
 
     def _init_static(self, points, values, labels, shards: int) -> None:
         cfg = self.cfg
@@ -464,8 +516,9 @@ class KnnServer:
         """The batch's masks ahead of Algorithm 2: ``(shard_active (k,)
         bool or None, point_candidates (k, m) bool or None, touched,
         candidate fraction or None, host_syncs, the (k,) bool numpy union
-        of routed shards or None)``, from ``summ`` and ``idx`` (a static
-        server's own when omitted).
+        of routed shards or None, the (k, b) bool numpy union of kept
+        buckets or None)``, from ``summ`` and ``idx`` (a static server's
+        own when omitted).
 
         Device routing is one ``route_index`` call (one launch on the card:
         the routing rows and, under ``search="approx"``, the bucket rows
@@ -505,21 +558,33 @@ class KnnServer:
             cand = keep_t[colidx] & has
             frac = index_mod.candidate_fraction(idx, keep_any)
         touched = self.k if act is None else int(act.sum())
-        return active, cand, touched, frac, syncs, act
+        return active, cand, touched, frac, syncs, act, keep_any
 
     def _run(self, q: np.ndarray, l_arr: np.ndarray, gen,
-             backing=None) -> _Batch:
+             backing=None, *, exact: bool = False,
+             marks: Optional[dict] = None) -> _Batch:
         """One batch on the device against ``backing`` (a
         :meth:`_capture`, taken now when omitted), read back to the
-        host; ``d``/``i`` of shape ``(B, l_max)``."""
+        host; ``d``/``i`` of shape ``(B, l_max)``.  ``exact``: no
+        routing prologue, every shard active and every slot a candidate,
+        and the exact fold for a predicting server (the shadow audit's
+        replay).  ``marks`` receives ``"route"``: the prologue's
+        (start, end) clock stamps."""
         cfg = self.cfg
         points, ids, valid, _, _, summ, idx, labels = (
             self._capture() if backing is None else backing)
         qt = torch.from_numpy(q).to(self.device)
         lt = torch.from_numpy(l_arr).to(self.device)
-        active, cand, touched, frac, syncs, act = self._prologue(
-            q, l_arr, qt, lt, summ, idx)
-        if self._ensemble:
+        t0 = time.perf_counter()
+        if exact:
+            active = cand = frac = act = keep_any = None
+            touched, syncs = self.k, 0
+        else:
+            active, cand, touched, frac, syncs, act, keep_any = (
+                self._prologue(q, l_arr, qt, lt, summ, idx))
+        if marks is not None:
+            marks["route"] = (t0, time.perf_counter())
+        if self._ensemble and not exact:
             return self._ensemble_run(points, ids, valid, labels, active,
                                       act, qt, l_arr, touched, syncs)
         masks = dict(point_valid=valid, shard_active=active,
@@ -541,7 +606,8 @@ class KnnServer:
                 lc = torch.stack([label, conf]).cpu().numpy()
                 pred, syncs = (lc[0], lc[1]), syncs + 1
             return _Batch(d, i, res.selection.iterations, surv, syncs,
-                          touched, frac, pred)
+                          touched, frac, pred, active=act,
+                          keep_any=keep_any)
         sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max, **masks)
         # per-request l: ranks >= l[b] become sentinels
         keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
@@ -549,7 +615,7 @@ class KnnServer:
         d = torch.where(keep, sd, float("inf")).cpu().numpy()
         i = torch.where(keep, si, _ID_SENTINEL).cpu().numpy()
         return _Batch(d, i, 0, np.zeros(len(q), np.int32), 2 + syncs,
-                      touched, frac)
+                      touched, frac, active=act, keep_any=keep_any)
 
     def _ensemble_run(self, points, ids, valid, labels, active, act, qt,
                       l_arr, touched, syncs) -> _Batch:
@@ -568,16 +634,18 @@ class KnnServer:
         if cfg.predict == "vote":
             payload = predict_mod.local_vote(d, labels_top, klt,
                                              cfg.num_classes).cpu().numpy()
-            label, conf, _ = predict_mod.aggregate_vote(payload, act)
+            label, conf, votes = predict_mod.aggregate_vote(payload, act)
         else:
             payload = predict_mod.local_mean(d, labels_top,
                                              klt).cpu().numpy()
             label, conf = predict_mod.aggregate_regress(payload, act)
+            votes = None
         b = len(l_arr)
         return _Batch(np.full((b, cfg.l_max), np.inf, np.float32),
                       np.full((b, cfg.l_max), _ID_SENTINEL, np.int32), 0,
                       np.zeros(b, np.int32), syncs + 1, touched, None,
-                      (label, conf), payload)
+                      (label, conf), payload, active=act, local_k=kl,
+                      votes=votes)
 
     def warmup(self):
         """Run every bucket shape once, at rank ``cfg.l`` so the Algorithm
@@ -663,7 +731,9 @@ class KnnServer:
         query = np.asarray(query, np.float32)
         if query.shape != (self.dim,):
             raise ValueError(f"query shape {query.shape} != ({self.dim},)")
-        rec = _Pending(query, l, time.perf_counter(), Future())
+        t_enq = time.perf_counter()
+        rec = _Pending(query, l, t_enq, Future(),
+                       self.obs.tracer.begin("request", t0=t_enq, l=l))
         with self._cv:
             self._pending.append(rec)
             self._cv.notify()
@@ -710,20 +780,45 @@ class KnnServer:
         with self._cv:
             batch_id = self._batch_counter
             self._batch_counter += 1
+        tracer = self.obs.tracer
         t_dispatch = time.perf_counter()
+        # the batch's trace root; a request's "serve" span names it by
+        # attribute, so every tree keeps one root
+        dspan = tracer.begin("dispatch", t0=t_dispatch, batch=batch_id,
+                             bucket=bucket, n_real=n)
+        routed = cfg.route == "pruned" or cfg.search == "approx"
+        marks = {}
         try:
             backing = self._capture()
-            t_snap = time.perf_counter()
             generation, n_live = backing[3], backing[4]
-            out = self._run(q, l_arr, self._generator(batch_id), backing)
+            maint0 = (self._store.maint_commit_clock()
+                      if self._store is not None else (0, None))
+            t_snap = time.perf_counter()
+            out = self._run(q, l_arr, self._generator(batch_id), backing,
+                            marks=marks)
         except Exception as exc:
             # a failed dispatch must never strand its futures (the chunk
-            # already left the queue) or kill the micro-batcher thread
+            # already left the queue), kill the micro-batcher thread or
+            # leave a span open
             self._errors.inc()
             for rec in chunk:
                 _resolve(rec.future, error=exc)
+                rec.span.end(error=type(exc).__name__)
+            dspan.end(error=type(exc).__name__)
             return
         t_done = time.perf_counter()
+        t_route0, t_route1 = marks["route"]
+        tracer.record("snapshot", t_dispatch, t_snap, parent=dspan,
+                      generation=generation, n_live=n_live)
+        if routed:
+            tracer.record("route", t_route0, t_route1, parent=dspan,
+                          compute=cfg.route_compute
+                          if cfg.route == "pruned" else "host",
+                          touched=out.touched, slack=cfg.route_slack)
+        tracer.record("kernel", t_route1 if routed else t_snap, t_done,
+                      parent=dspan, sampler=cfg.sampler,
+                      route_compute=cfg.route_compute,
+                      host_syncs=out.host_syncs)
 
         d, i, iters, surv, syncs = out[:5]
         rounds, messages = accounting(
@@ -737,15 +832,50 @@ class KnnServer:
         # so its envelope is checked against that width
         audit_l = (cfg.l_max if cfg.sampler == "gather"
                    else max(rec.l for rec in chunk))
-        self._contract.check(
+        contract_ok = self._contract.check(
             l_max=audit_l, n_live=n_live, rounds=rounds,
             messages=messages, use_sampling=cfg.use_sampling,
             sampler=cfg.sampler, generation=generation)
+        if self._store is not None:
+            maint1 = self._store.maint_commit_clock()
+            head = self._store.generation
+        else:
+            maint1, head = (0, None), generation
+        if self._slo is not None:
+            self._slo.measure("contract", 0.0 if contract_ok else 1.0)
 
         pmode = ("none" if not self._predict
                  else "ensemble" if self._ensemble else "exact")
         pred = out.pred
+        # one capture a dispatch, of host arrays the dispatch holds
+        # anyway; the reports assemble lazily from it
+        capture = BatchCapture(
+            batch_id=batch_id, bucket=bucket, n_real=n,
+            generation=generation, route=cfg.route,
+            route_compute=cfg.route_compute, search=cfg.search,
+            slack=cfg.route_slack, oversample=cfg.index_oversample,
+            queries=q, ls=l_arr, summaries=backing[5], index=backing[6],
+            active=out.active, keep_any=out.keep_any, touched=out.touched,
+            candidate_fraction=out.candidate_fraction,
+            predict=cfg.predict, predict_mode=pmode,
+            labels=None if pred is None else pred[0],
+            confidences=None if pred is None else pred[1],
+            local_k=out.local_k, shard_answers=out.payload,
+            votes=out.votes,
+            timings={"snapshot_s": t_snap - t_dispatch,
+                     "route_s": t_route1 - t_route0 if routed else None,
+                     "kernel_s": t_done - (t_route1 if routed else t_snap)},
+            maint_before=maint0[0], maint_after=maint1[0],
+            maint_last=maint1[1], contract_ok=contract_ok)
+        if (self._shadow is not None
+                and (cfg.route == "pruned" or cfg.search == "approx"
+                     or self._ensemble)
+                and self._shadow.due()):
+            self._shadow_audit(out, backing, q, l_arr, batch_id, generation,
+                               dspan)
+
         t_res0 = time.perf_counter()
+        vspan = tracer.begin("resolve", parent=dspan, t0=t_res0)
         for row, rec in enumerate(chunk):
             # ascending by distance: gather_selected packs by shard rank,
             # and l is small, so sort on the host
@@ -753,6 +883,10 @@ class KnnServer:
             dists = d[row, order]
             ids = i[row, order]
             values = self.values_for(ids) if self.with_values else None
+            xrec = ExplainRecord(capture, row, l=rec.l, dists=dists,
+                                 ids=ids, queued_s=t_dispatch - rec.t_enqueue,
+                                 latency_s=t_done - rec.t_enqueue)
+            self._explains.append(xrec)
             _resolve(rec.future, result=QueryResult(
                 dists=dists, ids=ids, values=values, l=rec.l,
                 iterations=iters, rounds=rounds, messages=messages,
@@ -764,13 +898,28 @@ class KnnServer:
                 else "exact",
                 label=None if pred is None else float(pred[0][row]),
                 confidence=None if pred is None else float(pred[1][row]),
-                predict_mode=pmode))
+                predict_mode=pmode, explain_ref=xrec))
+            tracer.record("queued", rec.t_enqueue, t_dispatch,
+                          parent=rec.span)
+            tracer.record("serve", t_dispatch, t_done, parent=rec.span,
+                          batch=batch_id)
+            rec.span.end(bucket=bucket, generation=generation,
+                         route=cfg.route, touched=out.touched,
+                         rounds=rounds)
+            latency = time.perf_counter() - rec.t_enqueue
             self._m["queued_s"].observe(t_dispatch - rec.t_enqueue)
-            self._m["latency_s"].observe(time.perf_counter() - rec.t_enqueue)
+            self._m["latency_s"].observe(latency)
+            if self._slo is not None:
+                self._slo.measure("latency_p99", latency)
+                self._slo.measure("staleness", head - generation)
+        vspan.end()
+        dspan.end(touched=out.touched, generation=generation)
         t_res1 = time.perf_counter()
         m = self._m
         m["snapshot_s"].observe(t_snap - t_dispatch)
-        m["kernel_s"].observe(t_done - t_snap)
+        if routed:
+            m["route_s"].observe(t_route1 - t_route0)
+        m["kernel_s"].observe(t_done - (t_route1 if routed else t_snap))
         m["resolve_s"].observe(t_res1 - t_res0)
         m["dispatch_s"].observe(t_res1 - t_dispatch)
         m["rounds"].observe(rounds)
@@ -779,6 +928,52 @@ class KnnServer:
         m["touched_shards"].observe(out.touched)
         if out.candidate_fraction is not None:
             m["candidate_fraction"].observe(out.candidate_fraction)
+        # reports build only after the dispatch, so this late fill shows
+        capture.timings["resolve_s"] = t_res1 - t_res0
+        if self._slo is not None:
+            self._slo.evaluate()
+
+    def _shadow_audit(self, out: _Batch, backing, q, l_arr, batch_id: int,
+                      generation: int, dspan) -> None:
+        """Replay the batch exactly on the operands it captured (never a
+        new capture: under churn that is a newer generation) with the
+        same random stream, and audit the served answer against it.  The
+        replay's launches are counted apart, in
+        ``audit.shadow.launches.<kernel>``."""
+        reg = self.obs.metrics
+        with self.obs.tracer.span("shadow_audit", parent=dspan,
+                                  generation=generation) as aspan:
+            with kops.counted_apart() as tally:
+                if self._ensemble:
+                    ok = self._shadow.check_labels(
+                        out.pred[0], l_arr,
+                        lambda: self._exact_replay(backing, q, l_arr,
+                                                   batch_id).pred[0],
+                        generation=generation, batch_id=batch_id,
+                        touched=out.touched)
+                    measured = ("label_agreement",
+                                self._shadow.last_agreement)
+                else:
+                    ok = self._shadow.check(
+                        out.dists, out.ids,
+                        lambda: self._exact_replay(backing, q, l_arr,
+                                                   batch_id)[:2],
+                        generation=generation, batch_id=batch_id,
+                        touched=out.touched)
+                    measured = ("recall_min", self._shadow.last_min_recall
+                                if self._shadow.mode == "recall" else None)
+            for name, launches in tally.items():
+                reg.counter(f"audit.shadow.launches.{name}").inc(launches)
+            if self._slo is not None and measured[1] is not None:
+                self._slo.measure(*measured)
+            aspan.annotate(diverged=not ok)
+
+    def _exact_replay(self, backing, q, l_arr, batch_id: int) -> _Batch:
+        """The exact collective for one dispatched batch: the captured
+        operands and the batch's random stream, every shard active and
+        every slot a candidate; the exact fold for a predicting server."""
+        return self._run(q, l_arr, self._generator(batch_id), backing,
+                         exact=True)
 
     def placement_stats(self) -> dict:
         """Locality and bound fidelity of the layout being served.
@@ -816,14 +1011,34 @@ class KnnServer:
                 "maintenance": maintenance}
 
     def obs_snapshot(self) -> dict:
-        """Serving counters, this server's metrics, the process-wide
-        kernel launch counts, the contract audit and the routing
-        effectiveness."""
+        """The unified observability view: serving counters, this
+        server's metrics, the process-wide kernel launch counts, the
+        tracer's ring stats, both auditors' verdicts, the SLO state and
+        the routing effectiveness."""
+        shadow = (self._shadow.snapshot() if self._shadow is not None
+                  else {"every": 0, "checks": 0, "divergences": 0,
+                        "details": []})
         return {"server": self.stats.snapshot(),
                 "metrics": self.metrics.snapshot(),
                 "launches": kops.launch_counts(),
-                "audit": {"contract": self._contract.snapshot()},
+                "trace": self.obs.tracer.stats(),
+                "audit": {"contract": self._contract.snapshot(),
+                          "shadow": shadow},
+                "slo": (self._slo.snapshot() if self._slo is not None
+                        else {"objectives": {}, "firing": [],
+                              "alerts_fired": 0, "alerts_cleared": 0}),
                 "placement": self.placement_stats()}
+
+    def explain_last(self, n: int = 1) -> list[dict]:
+        """Built explain reports of the newest ``n`` resolved requests,
+        oldest first."""
+        if n < 1:
+            return []
+        return [r.build() for r in list(self._explains)[-n:]]
+
+    def export_trace_jsonl(self, path_or_file) -> int:
+        """Dump the tracer's ring as JSONL (0 spans when tracing is off)."""
+        return self.obs.tracer.export_jsonl(path_or_file)
 
     # ---- background micro-batcher ----------------------------------------
 
@@ -849,9 +1064,11 @@ class KnnServer:
         self.flush()
 
     def close(self) -> None:
-        """Quiesce the micro-batcher (idempotent; there is no exposition
-        endpoint to release, so this is stop())."""
+        """Quiesce the micro-batcher and release the exposition endpoint
+        (idempotent)."""
         self.stop()
+        if self._http is not None:
+            self._http.close()
 
     def serving(self):
         return _Serving(self)

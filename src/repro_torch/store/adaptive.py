@@ -192,6 +192,25 @@ class AdaptiveMaintainer(summaries_mod.SummaryMaintainer):
             return
         self._rebuild_shard(j, pj)
 
+    def copy_shard_from(self, j: int, other: "AdaptiveMaintainer",
+                        oj: int) -> None:
+        """Transplant shard ``oj``'s whole summary state from ``other``
+        into shard ``j``: the background worker's re-tightening commit
+        (``store/maintenance.py``), whose exact recompute ran off the
+        lock on a k=1 scratch maintainer."""
+        j, oj = int(j), int(oj)
+        self._sum[j] = other._sum[oj]
+        self._n[j] = other._n[oj]
+        self._radius[j] = other._radius[oj]
+        self._lo[j] = other._lo[oj]
+        self._hi[j] = other._hi[oj]
+        self._piv[j] = other._piv[oj]
+        self._piv_r[j] = other._piv_r[oj]
+        self._piv_n[j] = other._piv_n[oj]
+        self._piv_live[j] = other._piv_live[oj]
+        self._ops_since[j] = other._ops_since[oj]
+        self._radius_at_rebuild[j] = other._radius_at_rebuild[oj]
+
     # ---- scheduling (store lock held) ------------------------------------
 
     def retighten_due(self) -> int | None:

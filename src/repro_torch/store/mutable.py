@@ -1,6 +1,6 @@
 """Mutable, sharded point store with epoch-swapped snapshots.
 
-Port of ``repro.store.mutable`` with the inline maintenance plane.
+Port of ``repro.store.mutable``, with both maintenance planes.
 
 * **Capacity-padded shard buffers.**  Each of the k shards owns ``cap``
   slots of a ``(k*cap, dim)`` point buffer on the device, with parallel
@@ -38,7 +38,18 @@ store driven by the same stream.
   generation's labels never tear from its points; the id -> label map is
   monotone like the id -> value map.
 
-Left for a later slice: ``maintenance="background"``.
+* **Background maintenance** (``maintenance="background"``,
+  ``store/maintenance.py``): the flush publishes at once and skips the
+  maintenance tail (auto-compaction, split, re-tightening); a worker
+  thread plans, prepares off the lock and commits that work.  While a
+  worker's capture is outstanding, every applied op is journaled so
+  the commit can replay what raced it; an inline repack (forced, or
+  :meth:`compact`) invalidates the capture instead.
+  :meth:`maint_commit_clock` counts committed maintenance cycles, which
+  the server brackets each dispatch with.
+* **Observability**: :meth:`attach_obs` takes the server's
+  :class:`repro_torch.obs.ObsPlane`; applies, repacks and maintenance
+  cycles record spans into its tracer and timings into its registry.
 """
 
 from __future__ import annotations
@@ -51,10 +62,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import later_slice, resolve_device
+from repro_torch.device import resolve_device
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.store import adaptive as adaptive_mod
 from repro_torch.store import compaction
 from repro_torch.store import index as index_mod
+from repro_torch.store import maintenance as maintenance_mod
 from repro_torch.store import placement as placement_mod
 from repro_torch.store import summaries as summaries_mod
 
@@ -127,6 +140,7 @@ class MutableStore:
                  summary_pivots: int = 1, retighten_every: int = 0,
                  split_radius_factor: float = 0.0,
                  split_cooldown: int = 2, maintenance: str = "inline",
+                 maintenance_probe_sample: int = 64,
                  index_buckets: int = 0):
         if capacity_per_shard < 1:
             raise ValueError("capacity_per_shard must be >= 1")
@@ -138,9 +152,6 @@ class MutableStore:
         if maintenance not in ("inline", "background"):
             raise ValueError(f"maintenance must be 'inline' or 'background', "
                              f"got {maintenance!r}")
-        if maintenance == "background":
-            later_slice("maintenance='background'", 10,
-                        "background maintenance")
         self.device = resolve_device(device)
         self.dim = int(dim)
         self.k = int(shards)
@@ -194,7 +205,6 @@ class MutableStore:
             self.k, self.cap, self.dim, index_buckets)
             if index_buckets > 0 else None)
 
-        self._metrics = None                  # attach_metrics
         self._history: dict[int, tuple[np.ndarray, np.ndarray]] = {}
         self._track_history = bool(track_history)
         self._snap = self._upload_snapshot_locked(generation=0)
@@ -203,17 +213,54 @@ class MutableStore:
                               if self._index is not None else None)
         self._record_history()
 
-    def attach_metrics(self, registry) -> None:
-        """Record applies and repacks into ``registry`` (a
-        :class:`repro_torch.obs.MetricsRegistry`; the server hands the
-        store its own): ``store.apply_s``, ``store.applies``,
-        ``store.live``, ``store.repack_s``, ``store.repacks`` and the
-        compaction trigger's gauges and counters."""
-        self._metrics = registry
+        # the maintenance plane: the journal exists only while the worker
+        # holds a capture (module docstring); the commit clock counts the
+        # worker's committed cycles
+        self._journal: Optional[list] = None
+        self._journal_invalid = False
+        self._obs = None                      # attach_obs
+        self._maint_commits = 0
+        self._last_maint_commit: Optional[dict] = None
+        self._worker: Optional[maintenance_mod.MaintenanceWorker] = None
+        if self.maintenance == "background":
+            self._worker = maintenance_mod.MaintenanceWorker(
+                self, probe_sample=maintenance_probe_sample)
+
+    def attach_obs(self, plane) -> None:
+        """Attach a :class:`repro_torch.obs.ObsPlane` (the server hands
+        the store its own): applies, repacks and maintenance cycles
+        record spans into its tracer and ``store.*`` / ``maint.*``
+        timings, counters and the compaction trigger's gauges into its
+        registry.  Attaching replaces any earlier plane; the worker
+        re-reads it every cycle."""
+        self._obs = plane
+
+    def _obs_tracer(self):
+        return self._obs.tracer if self._obs is not None else NULL_TRACER
+
+    def _obs_registry(self):
+        return self._obs.metrics if self._obs is not None else None
+
+    def _note_maint_commit(self, info: dict) -> None:
+        """Advance the maintenance-commit clock; the caller holds the
+        store lock."""
+        self._maint_commits += 1
+        self._last_maint_commit = dict(info, seq=self._maint_commits)
+
+    def maint_commit_clock(self) -> tuple:
+        """(commit count, last commit's info or None), under one lock, so
+        a before/after pair brackets a dispatch consistently."""
+        with self._lock:
+            return self._maint_commits, self._last_maint_commit
 
     def close(self) -> None:
-        """No-op: the inline plane runs no thread (the reference's stops
-        the background worker)."""
+        """Stop the background worker (a no-op when inline or closed): a
+        cycle in flight commits or discards first.  The store stays
+        usable, unmaintained; the worker's counters stay readable."""
+        worker, self._worker = self._worker, None
+        if worker is not None:
+            worker.stop()
+            self._worker_final = worker
 
     # ---- read side -------------------------------------------------------
 
@@ -262,13 +309,19 @@ class MutableStore:
                 self._summaries, self._pts, self._valid, self.cap)
 
     def maintenance_stats(self) -> dict:
+        """The adaptive knobs and counters; with a background worker
+        (running or closed) also its ``worker`` counters."""
         with self._lock:
-            return {"summary_pivots": self._summ.num_pivots,
-                    "retighten_every": self._summ.retighten_every,
-                    "split_radius_factor": self._summ.split_radius_factor,
-                    "retightens": self.stats.retightens,
-                    "splits": self.stats.splits,
-                    "maintenance": self.maintenance}
+            out = {"summary_pivots": self._summ.num_pivots,
+                   "retighten_every": self._summ.retighten_every,
+                   "split_radius_factor": self._summ.split_radius_factor,
+                   "retightens": self.stats.retightens,
+                   "splits": self.stats.splits,
+                   "maintenance": self.maintenance}
+            worker = self._worker or getattr(self, "_worker_final", None)
+            if worker is not None:
+                out["worker"] = worker.stats_dict()
+            return out
 
     @property
     def generation(self) -> int:
@@ -491,12 +544,19 @@ class MutableStore:
                     self._label_of[op.id] = float(op.label)
                 touched.add(slot)
                 self.stats.inserted += 1
+                if self._journal is not None:
+                    self._journal.append(("insert", op.id, j, op.point,
+                                          None, op.label))
             elif op.kind == "delete":
                 slot = self._slot_of.pop(op.id)
                 self._live[slot // self.cap] -= 1
                 self._summ.delete(slot // self.cap, self._pts[slot])
                 if self._index is not None:
                     self._index.delete(slot)
+                if self._journal is not None:
+                    self._journal.append(("delete", op.id,
+                                          slot // self.cap, None,
+                                          self._pts[slot].copy(), None))
                 self._valid[slot] = False
                 self._ids[slot] = ID_SENTINEL
                 touched.add(slot)
@@ -507,6 +567,10 @@ class MutableStore:
                                   op.point)
                 if self._index is not None:
                     self._index.update(slot, op.point)
+                if self._journal is not None:
+                    self._journal.append(("update", op.id,
+                                          slot // self.cap, op.point,
+                                          self._pts[slot].copy(), op.label))
                 self._pts[slot] = op.point
                 if self.with_labels and op.label is not None:
                     self._labels[slot] = op.label
@@ -518,12 +582,13 @@ class MutableStore:
             self._repack_locked()
             repacked = True
             self.stats.last_compact_reason = "forced: explicit compact()"
-        elif self.auto_compact and not repacked:
+        elif (self.auto_compact and self.maintenance == "inline"
+              and not repacked):
             decision = compaction.evaluate(
                 self._live, self._used, self.cap,
                 tombstone_frac=self.compact_tombstone_frac,
                 imbalance_frac=self.compact_imbalance_frac,
-                registry=self._metrics)
+                registry=self._obs_registry())
             if decision.compact:
                 self._repack_locked()
                 repacked = True
@@ -531,21 +596,25 @@ class MutableStore:
 
         # adaptive maintenance, only when no repack rebuilt everything: a
         # radius-triggered split re-deals by proximity, else at most one
-        # due shard is re-tightened
-        if not repacked:
-            j = self._split_due_locked()
-            if j is not None:
-                self._repack_locked(redeal="proximity")
-                repacked = True
-                self.stats.splits += 1
-                self._applies_at_split = self.stats.applies
-                self.stats.last_compact_reason = (
-                    f"split: shard {j} radius outgrew the centroid gap")
-        if not repacked:
-            j = self._summ.retighten_due()
-            if j is not None:
-                self._summ.retighten(j, self._pts, self._valid, self.cap)
-                self.stats.retightens += 1
+        # due shard is re-tightened.  maintenance="background" moves this
+        # tail and the auto-compaction above to the worker, poked after
+        # the swap
+        if self.maintenance == "inline":
+            if not repacked:
+                j = self._split_due_locked()
+                if j is not None:
+                    self._repack_locked(redeal="proximity")
+                    repacked = True
+                    self.stats.splits += 1
+                    self._applies_at_split = self.stats.applies
+                    self.stats.last_compact_reason = (
+                        f"split: shard {j} radius outgrew the centroid gap")
+            if not repacked:
+                j = self._summ.retighten_due()
+                if j is not None:
+                    self._summ.retighten(j, self._pts, self._valid,
+                                         self.cap)
+                    self.stats.retightens += 1
 
         self._projected_live = int(self._live.sum())
         gen = self._snap.generation + 1
@@ -558,10 +627,15 @@ class MutableStore:
         if self._index is not None:
             self._frozen_index = self._index.freeze(gen)
         self._record_history()
-        if self._metrics is not None:
-            reg = self._metrics
-            reg.histogram("store.apply_s").observe(
-                time.perf_counter() - t_apply)
+        if self._worker is not None:
+            self._worker.notify()
+        t_done = time.perf_counter()
+        self._obs_tracer().record("store.apply", t_apply, t_done,
+                                  generation=gen, ops=len(ops),
+                                  repacked=repacked)
+        if self._obs is not None:
+            reg = self._obs.metrics
+            reg.histogram("store.apply_s").observe(t_done - t_apply)
             reg.counter("store.applies").inc()
             reg.gauge("store.live").set(self._projected_live)
         return gen
@@ -583,26 +657,12 @@ class MutableStore:
     def _scatter_locked(self, slots: list[int], generation: int):
         """The new generation: the current snapshot with the final mirror
         value of each touched slot scattered into copies of its buffers,
-        the label buffer in the same scatter.  The operands are the
-        reference's (``compaction.scatter_operands`` and
-        ``payload_operand``) without their padding rows."""
-        idx, upd_pts, upd_ids, upd_valid = compaction.scatter_operands(
-            slots, self._pts, self._ids, self._valid, self.total,
-            self.dim, id_sentinel=ID_SENTINEL)
-        n = len(slots)
-        dev = self.device
+        the label buffer in the same scatter."""
         snap = self._snap
-        labels = upd_labels = None
-        if self.with_labels:
-            labels = snap.labels
-            upd_labels = torch.from_numpy(compaction.payload_operand(
-                slots, self._labels, n)).to(dev)
-        out = scatter_apply(
-            snap.points, snap.ids, snap.valid,
-            torch.from_numpy(idx[:n].astype(np.int64)).to(dev),
-            torch.from_numpy(upd_pts[:n]).to(dev),
-            torch.from_numpy(upd_ids[:n]).to(dev),
-            torch.from_numpy(upd_valid[:n]).to(dev), labels, upd_labels)
+        bufs = (snap.points, snap.ids, snap.valid) + (
+            (snap.labels,) if self.with_labels else ())
+        out = scatter_slots(bufs, slots, self._pts, self._ids, self._valid,
+                            self._labels, self.total, self.dim)
         return StoreSnapshot(generation=generation, points=out[0],
                              ids=out[1], valid=out[2],
                              live=self._projected_live,
@@ -632,6 +692,10 @@ class MutableStore:
         """Repack under ``redeal`` (default: the store's mode; splits pass
         "proximity"), then rebuild the summaries and the index exactly."""
         t_repack = time.perf_counter()
+        # a background capture of the pre-repack layout is now stale and
+        # its work done: invalidate it
+        if self._journal is not None:
+            self._journal_invalid = True
         if (redeal or self.redeal) == "proximity":
             centroids, _, occupied = self._summ.placement_view()
             slack = compaction.redeal_slack(
@@ -657,10 +721,14 @@ class MutableStore:
         if self._index is not None:
             self._index.rebuild(self._pts, self._valid)
         self.stats.compactions += 1
-        if self._metrics is not None:
-            self._metrics.histogram("store.repack_s").observe(
-                time.perf_counter() - t_repack)
-            self._metrics.counter("store.repacks").inc()
+        t_done = time.perf_counter()
+        self._obs_tracer().record("store.repack", t_repack, t_done,
+                                  redeal=redeal or self.redeal,
+                                  plane="inline")
+        if self._obs is not None:
+            self._obs.metrics.histogram("store.repack_s").observe(
+                t_done - t_repack)
+            self._obs.metrics.counter("store.repacks").inc()
 
     def _record_history(self):
         if self._track_history:
@@ -668,16 +736,42 @@ class MutableStore:
             self._history[self._snap.generation] = (ids, pts)
 
 
+def scatter_slots(bufs, slots: list[int], points: np.ndarray,
+                  ids: np.ndarray, valid: np.ndarray,
+                  labels: Optional[np.ndarray], total: int, dim: int, *,
+                  in_place: bool = False):
+    """Device buffers ``bufs`` (points, ids, valid[, labels]) with the
+    host mirrors' rows ``slots`` written in (:func:`scatter_apply`).  The
+    operands are the reference's (``compaction.scatter_operands`` and
+    ``payload_operand``) without their padding rows."""
+    idx, upd_pts, upd_ids, upd_valid = compaction.scatter_operands(
+        slots, points, ids, valid, total, dim, id_sentinel=ID_SENTINEL)
+    n = len(slots)
+    dev = bufs[0].device
+    upd_labels = None
+    if len(bufs) == 4:
+        upd_labels = torch.from_numpy(compaction.payload_operand(
+            slots, labels, n)).to(dev)
+    return scatter_apply(
+        *bufs[:3], torch.from_numpy(idx[:n].astype(np.int64)).to(dev),
+        torch.from_numpy(upd_pts[:n]).to(dev),
+        torch.from_numpy(upd_ids[:n]).to(dev),
+        torch.from_numpy(upd_valid[:n]).to(dev),
+        bufs[3] if len(bufs) == 4 else None, upd_labels, in_place=in_place)
+
+
 def scatter_apply(points, ids, valid, slots, upd_points, upd_ids, upd_valid,
-                  labels=None, upd_labels=None):
+                  labels=None, upd_labels=None, *, in_place: bool = False):
     """One generation's device update: copies of the three buffers (four
     with ``labels``) with rows ``slots`` (int64, unique) set to the update
     rows.  The inputs are never written, so readers of the older
-    generation are undisturbed; every op is on the current stream."""
+    generation are undisturbed; every op is on the current stream.
+    ``in_place=True`` writes the buffers themselves: only for buffers no
+    reader has seen (the maintenance worker's staged generation)."""
     bufs = (points, ids, valid) + (() if labels is None else (labels,))
     upds = (upd_points, upd_ids, upd_valid) + (
         () if labels is None else (upd_labels,))
-    out = tuple(b.clone() for b in bufs)
+    out = bufs if in_place else tuple(b.clone() for b in bufs)
     for o, u in zip(out, upds):
         o.index_copy_(0, slots, u)
     return out

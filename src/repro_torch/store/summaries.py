@@ -425,16 +425,20 @@ def summary_slack_sampled(s: ShardSummaries, points: np.ndarray,
                           sample: int = 64, rng=None) -> np.ndarray:
     """(k,) :func:`summary_slack` with the exact radius taken over at most
     ``sample`` live points drawn per shard: an over-estimate of the slack,
-    for ranking shards, never a bound."""
+    for ranking shards, never a bound.  The draw is the reference's (the
+    same rows for the same ``rng``); only the drawn rows are read in f64,
+    so the probe costs O(k*sample*dim), not a conversion of every shard."""
     if rng is None:
         rng = np.random.default_rng(0)
     out = np.zeros(s.live.shape[0])
     for j in range(s.live.shape[0]):
-        pj = _live_rows(points, valid, j, cap)
-        if not len(pj):
+        sl = slice(j * cap, (j + 1) * cap)
+        rows = np.flatnonzero(np.asarray(valid[sl], bool))
+        if not len(rows):
             continue
-        if len(pj) > sample:
-            pj = pj[rng.choice(len(pj), size=sample, replace=False)]
+        if len(rows) > sample:
+            rows = rows[rng.choice(len(rows), size=sample, replace=False)]
+        pj = np.asarray(points[sl][rows], np.float64)
         exact = float(np.sqrt(((pj - s.centroids[j]) ** 2).sum(-1)).max())
         out[j] = float(s.radii[j]) - exact
     return out

@@ -8,6 +8,8 @@ import.  Run on a card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -804,3 +806,212 @@ def test_predict_on_the_card_matches_the_cpu(card):
                     assert np.float32(a.confidence).tobytes() == np.float32(
                         b.confidence).tobytes(), (backing, kw, l)
     assert compared >= 0.75 * 2 * len(runs) * len(qs)
+
+
+# ---- background maintenance and the operator layer on the card ---------------
+
+def _brute_check(card, res, hid, hpts, q, l):
+    """One answer against an f64 brute force over the live set ``(hid,
+    hpts)`` of its generation, with the tolerance of
+    test_store_server_on_the_card."""
+    lp = torch.as_tensor(hpts, device=card).double()
+    q64 = torch.as_tensor(q, device=card).double()
+    d = ((lp - q64) ** 2).sum(-1)
+    n = min(l, len(hid))
+    bv, bi = (t.cpu().numpy() for t in torch.topk(
+        d, min(l + 1, len(hid)), largest=False))
+    mag = float((q64 * q64).sum() + (lp * lp).sum(-1).max())
+    tol = 1e-3 + 1e-4 * bv[n - 1] + 32 * 2.0 ** -23 * mag
+    np.testing.assert_allclose(res.dists[:n], bv[:n], rtol=0, atol=tol)
+    assert np.all(res.ids[n:] == INT32_MAX)
+    got = set(res.ids[:n].tolist())
+    if len(bv) == n or bv[n] - bv[n - 1] > tol:
+        assert got == set(hid[bi[:n]].tolist())
+    else:
+        assert set(hid[bi[:n][bv[:n] < bv[n - 1] - tol]].tolist()) <= got
+
+
+def _background_store(card, dim, cap, **kw):
+    from repro_torch.store import MutableStore
+    return MutableStore(dim, capacity_per_shard=cap, device=card,
+                        placement="affinity", redeal="proximity",
+                        summary_pivots=2, retighten_every=64,
+                        split_radius_factor=1.2, maintenance="background",
+                        track_history=True, staging_size=10**9, **kw)
+
+
+def test_background_store_races_a_batcher_on_the_card(card):
+    """A writer thread churns a small background store while the
+    micro-batcher serves pruned device routing and the worker maintains:
+    every answer equals brute force over its own generation, and the
+    worker committed work without an error."""
+    import threading
+    from repro_torch.data import drifting_clusters
+    dim, cap = 32, 1024
+    st = _background_store(card, dim, cap)
+    cfg = CONFIG.replace(dim=dim, l_max=32, bucket_sizes=(1, 4, 8),
+                         route="pruned", route_compute="device",
+                         summary_pivots=2, max_wait_ms=2.0)
+    srv = KnnServer(store=st, cfg=cfg, device=card)
+    stream = drifting_clusters(8, 200, dim, steps=64, drift=2.0, seed=5)
+    pts, centers = next(stream)
+    st.insert(pts)
+    st.flush()
+    srv.warmup()
+    errors = []
+
+    def writer():
+        rng = np.random.default_rng(6)
+        try:
+            for _ in range(8):
+                pts, _ = next(stream)
+                ids = st.insert(pts)
+                st.flush()
+                st.delete(rng.choice(ids, 900, replace=False))
+                st.flush()
+        except Exception as exc:
+            errors.append(exc)
+
+    rng = np.random.default_rng(7)
+    t = threading.Thread(target=writer, daemon=True)
+    pending = []
+    with srv.serving():
+        t.start()
+        while t.is_alive() or len(pending) < 32:
+            q = (centers[rng.integers(0, 8)] + rng.normal(size=dim)).astype(
+                np.float32)
+            l = int(rng.integers(1, 33))
+            pending.append((q, l, srv.submit(q, l)))
+            if len(pending) % 8 == 0:
+                time.sleep(0.01)
+        t.join()
+        results = [(q, l, f.result(timeout=120)) for q, l, f in pending]
+    time.sleep(0.2)
+    st.close()
+    assert not errors, errors
+    ws = st.maintenance_stats()["worker"]
+    assert ws["errors"] == 0 and ws["commits"] > 0, ws
+    for q, l, r in results:
+        hid, hpts = st.history(r.generation)
+        _brute_check(card, r, hid, hpts, q, l)
+    assert srv.obs_snapshot()["audit"]["contract"]["violations"] == 0
+
+
+@pytest.mark.parametrize("pinned", [False, True])
+def test_side_stream_upload_read_before_and_after_commit(card, pinned):
+    """The repack's upload runs on the worker's own stream while a batch
+    reads the old generation; after the commit the snapshot's buffers
+    equal the host mirrors, and a query before and one after the commit
+    each equal brute force at their generation.  The upload alone copies
+    pageable and page-locked host arrays alike."""
+    import threading
+    from repro_torch.store import maintenance
+    dim, cap = 16, 2048
+    st = _background_store(card, dim, cap, compact_tombstone_frac=0.2)
+    st.close()
+    cfg = CONFIG.replace(dim=dim, l_max=16, bucket_sizes=(4,))
+    srv = KnnServer(store=st, cfg=cfg, device=card)
+    rng = np.random.default_rng(8)
+    ids = st.insert(rng.normal(scale=4.0, size=(6000, dim)).astype(
+        np.float32))
+    st.flush()
+    st.delete(rng.choice(ids, 3000, replace=False))     # arms the trigger
+    st.flush()
+    q = rng.normal(scale=4.0, size=(4, dim)).astype(np.float32)
+    ls = [1, 5, 16, 9]
+    gen0 = st.generation
+    before = srv.query_batch(q, ls)
+    during = []
+    t = threading.Thread(target=lambda: during.append(
+        [srv.query_batch(q, ls) for _ in range(3)]))
+    t.start()
+    assert st._worker_final._cycle()                    # plan, upload, commit
+    t.join()
+    after = srv.query_batch(q, ls)
+    assert st.generation == gen0 + 1
+    assert st.maint_commit_clock()[1]["kind"] == "repack"
+    snap = st.snapshot()
+    torch.cuda.synchronize()
+    assert torch.equal(snap.points.cpu(), torch.from_numpy(st._pts))
+    assert torch.equal(snap.ids.cpu(), torch.from_numpy(st._ids))
+    assert torch.equal(snap.valid.cpu(), torch.from_numpy(st._valid))
+    for res in [before, after] + during[0]:
+        for r, qq, l in zip(res, q, ls):
+            hid, hpts = st.history(r.generation)
+            _brute_check(card, r, hid, hpts, qq, l)
+    assert {r.generation for r in before} == {gen0}
+    assert {r.generation for r in after} == {gen0 + 1}
+    host = [rng.normal(size=(1000, dim)).astype(np.float32),
+            np.arange(1000, dtype=np.int32), np.ones(1000, bool)]
+    if pinned:
+        host = [torch.from_numpy(a).pin_memory().numpy() for a in host]
+    side = torch.cuda.Stream(card)
+    for a, b in zip(host, maintenance.upload(host, card, stream=side)):
+        assert b.device.type == "cuda" and torch.equal(
+            b.cpu(), torch.from_numpy(a))
+
+
+def test_explain_capture_holds_no_cuda_tensor(card):
+    """Explain captures of device-routed, indexed and ensemble batches on
+    the card hold host arrays only, and build their reports."""
+    from repro_torch.store import MutableStore
+    dim, cap = 16, 512
+    rng = np.random.default_rng(9)
+    pts = rng.normal(scale=3.0, size=(2000, dim)).astype(np.float32)
+    labels = rng.integers(0, 4, 2000).astype(np.float32)
+    q = rng.normal(scale=3.0, size=(4, dim)).astype(np.float32)
+    for kw in (dict(route="pruned", route_compute="device", search="approx",
+                    index_buckets=4),
+               dict(route="pruned", predict="vote", predict_mode="ensemble",
+                    num_classes=4)):
+        cfg = CONFIG.replace(dim=dim, l_max=16, bucket_sizes=(4,),
+                             store_capacity_per_shard=cap, **kw)
+        st = MutableStore(dim, device=card, **cfg.store_kwargs())
+        st.insert(pts, labels=labels if st.with_labels else None)
+        st.flush()
+        srv = KnnServer(store=st, cfg=cfg, device=card)
+        res = srv.query_batch(q, [4, 8, 16, 1])
+        cap_ = res[0].explain_ref.capture
+        for name in cap_.__slots__:
+            v = getattr(cap_, name)
+            assert not isinstance(v, torch.Tensor), name
+        rep = res[1].explain()
+        assert rep["batch"]["generation"] == st.generation
+        assert rep["routing"]["kept_shards"]
+
+
+def test_obs_adds_no_launch_or_sync_on_the_card(card):
+    """Tracing, explain and an SLO on: the same kernel launches and host
+    syncs as with all off; the shadow replay's launches are counted
+    apart, in the server's audit.shadow.launches.* counters."""
+    from repro_torch.store import MutableStore
+    dim, cap = 32, 1024
+    rng = np.random.default_rng(10)
+    pts = rng.normal(scale=3.0, size=(4000, dim)).astype(np.float32)
+    q = rng.normal(scale=3.0, size=(8, dim)).astype(np.float32)
+    ls = [1, 8, 32, 4, 16, 2, 32, 7]
+    base = CONFIG.replace(dim=dim, l_max=32, bucket_sizes=(8,),
+                          route="pruned", route_compute="device",
+                          search="approx", index_buckets=4,
+                          store_capacity_per_shard=cap)
+    st = MutableStore(dim, device=card, **base.store_kwargs())
+    st.insert(pts)
+    st.flush()
+    runs = {}
+    for name, kw in (("off", {}),
+                     ("on", dict(obs_trace=True, slo_latency_p99_s=1.0)),
+                     ("audit", dict(obs_trace=True, obs_audit_every=1))):
+        srv = KnnServer(store=st, cfg=base.replace(**kw), device=card)
+        srv.warmup()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        res = srv.query_batch(q, ls)
+        torch.cuda.synchronize()
+        runs[name] = (ops.launch_counts(), [r.host_syncs for r in res],
+                      [r.ids.tobytes() for r in res])
+        shadow = srv.obs_snapshot()["metrics"]
+        apart = {k: v for k, v in shadow.items()
+                 if k.startswith("audit.shadow.launches.")}
+        assert bool(apart) == (name == "audit"), apart
+    assert runs["on"] == runs["off"] == runs["audit"]
+    assert runs["off"][0]["route_index_mask"] == 1

@@ -258,7 +258,7 @@ def test_bucket_rows_per_store_generation_equal_host():
             assert bool(g[r, c]) and abs(bound - thr) <= 4 * F32_EPS * abs(
                 thr), f"gen {st.generation} row {r} bucket {c}"
         keep_any = unions[K:].numpy().reshape(K, -1)
-        _, cand, _, frac, _, _ = srv._prologue(
+        _, cand, _, frac, _, _, _ = srv._prologue(
             q, la.astype(np.int32), qt, lt, summ, idx)
         assert np.array_equal(cand.reshape(-1).numpy(),
                               tindex.candidate_mask(idx, keep_any, M))

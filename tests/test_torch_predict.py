@@ -26,10 +26,9 @@ through ``repro`` and ``repro_torch``:
   JAX store and the port's, whose label mirror, id -> label map, live
   labels and snapshot labels are bit-equal to the JAX store's after
   every flush; ``convert.store_from_mirrors(labels=)`` carries it over;
-* racing ingest keeps the ensemble bill.  The reference also runs its
-  accuracy-mode shadow audit there (``obs_audit_every``); the port's
-  shadow auditor comes with ROADMAP queue 1 item 7, so that knob still
-  raises here and only the bill is checked.
+* racing ingest keeps the ensemble bill, and the accuracy-mode shadow
+  audit (``obs_audit_every``) holds the floor there, as in the
+  reference.
 """
 
 import threading
@@ -544,15 +543,14 @@ def test_store_predict_matches_jax_per_generation(mesh8, mode):
 
 def test_racing_ingest_keeps_the_ensemble_bill():
     """Ensemble answers under concurrent labeled inserts: every bill is 1
-    round and one message a touched shard, every label a class.  The
-    reference also audits the accuracy against the exact fold here
-    (obs_audit_every); that auditor is ROADMAP queue 1 item 7 and still
-    raises on the port."""
+    round and one message a touched shard, every label a class, and the
+    accuracy shadow audit (obs_audit_every=1, the reference's case; it
+    was refused until the audit was ported) replays every batch through
+    the exact fold at the batch's own generation and never dips below
+    the floor."""
     cfg = BASE.replace(predict_mode="ensemble", route="pruned",
-                       route_compute="host", store_capacity_per_shard=256)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        KnnServer(store=_store(cfg), device="cpu",
-                  cfg=cfg.replace(obs_audit_every=1))
+                       route_compute="host", store_capacity_per_shard=256,
+                       obs_audit_every=1, accuracy_floor=0.9)
     store = _store(cfg)
     pts, labels, centers = tsynth.labeled_mixture(512, DIM, NUM_CLASSES,
                                                   separation=8.0, seed=11)
@@ -586,3 +584,6 @@ def test_racing_ingest_keeps_the_ensemble_bill():
         stop.set()
         t.join()
     assert srv.obs_snapshot()["audit"]["contract"]["violations"] == 0
+    shadow = srv.obs_snapshot()["audit"]["shadow"]
+    assert shadow["mode"] == "accuracy" and shadow["checks"] == 12
+    assert shadow["divergences"] == 0, shadow["details"]

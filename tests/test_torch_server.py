@@ -14,6 +14,7 @@ import torch
 
 from repro.configs.knn_service import CONFIG as JCONFIG
 from repro.runtime import KnnServer as JaxServer
+from repro.store import MutableStore as JaxStore
 from repro_torch import convert
 from repro_torch.configs import CONFIG
 from repro_torch.runtime import KnnServer
@@ -194,33 +195,57 @@ def test_rejects_bad_requests(pts):
 @pytest.mark.parametrize("knob,error,match", [
     (dict(predict="regress", sampler="gather"), ValueError,
      "needs sampler='selection'"),
-    (dict(slo_recall_floor=0.9), NotImplementedError, "ROADMAP"),
+    (dict(slo_recall_floor=0.9), None, "recall_min"),
     (dict(predict="vote", predict_mode="ensemble", search="approx"),
      ValueError, "requires search='exact'"),
     (dict(predict="vote", predict_mode="ensemble", route="pruned",
           route_compute="device"), ValueError, "route_compute='host'"),
-    (dict(obs_trace=True), NotImplementedError, "ROADMAP"),
-    (dict(obs_audit_every=4), NotImplementedError, "ROADMAP"),
-    (dict(obs_http_port=-1), NotImplementedError, "ROADMAP"),
-    (dict(slo_latency_p99_s=0.5), NotImplementedError, "ROADMAP"),
-    (dict(slo_contract_violations=True), NotImplementedError, "ROADMAP")])
+    (dict(obs_trace=True), None, "trace"),
+    (dict(obs_audit_every=4), None, "shadow"),
+    (dict(obs_http_port=-1), None, "http"),
+    (dict(slo_latency_p99_s=0.5), None, "latency_p99"),
+    (dict(slo_contract_violations=True), None, "contract")])
 def test_out_of_slice_knobs_raise(mesh8, pts, knob, error, match):
-    """Knobs of later slices raise naming their ROADMAP item; prediction
-    is ported, and its invalid combinations raise the reference's
-    ValueErrors, as the JAX server does."""
-    with pytest.raises(error, match=match):
-        _port(pts, **knob)
-    if error is ValueError:
+    """Prediction's invalid combinations raise the reference's
+    ValueErrors, as the JAX server does.  The operator knobs (tracing,
+    the shadow audit, the endpoint, the SLOs) were refused until the
+    operator layer was ported; now each builds the same plane as the JAX
+    server's: both answer alike and report the same tracer state, audit
+    period, endpoint presence and declared objectives."""
+    if error is not None:
+        with pytest.raises(error, match=match):
+            _port(pts, **knob)
         with pytest.raises(ValueError, match=match):
             _jax(pts, mesh8, **knob)
+        return
+    tsrv, jsrv = _port(pts, **knob), _jax(pts, mesh8, **knob)
+    try:
+        qs = pts[:4] + np.float32(0.01)
+        for q, a, b in zip(qs, tsrv.query_batch(qs, [4] * 4),
+                           jsrv.query_batch(qs, [4] * 4)):
+            _same_answer(pts, q, a, b)
+        ts, js = tsrv.obs_snapshot(), jsrv.obs_snapshot()
+        assert ts["trace"]["enabled"] == js["trace"]["enabled"]
+        assert ts["audit"]["shadow"]["every"] == js["audit"]["shadow"][
+            "every"]
+        assert set(ts["slo"]["objectives"]) == set(js["slo"]["objectives"])
+        assert (tsrv._http is None) == (jsrv._http is None)
+        shown = {"trace": ts["trace"]["enabled"],
+                 "shadow": ts["audit"]["shadow"]["every"] == 4,
+                 "http": tsrv._http is not None and tsrv._http.port > 0}
+        assert shown.get(match, match in ts["slo"]["objectives"])
+    finally:
+        tsrv.close()
+        jsrv.close()
 
 
 @pytest.mark.parametrize("case", ["points_and_store", "later_items"])
-def test_out_of_slice_arguments_raise(pts, case):
+def test_out_of_slice_arguments_raise(mesh8, pts, case):
     """points or labels with store= is an error, as in the reference; the
-    store's background maintenance raises naming its ROADMAP item; the
-    label payload (a store's with_labels, a static server's labels=) is
-    served, and predicting without it is the reference's ValueError."""
+    store's background maintenance, refused until it was ported, runs
+    and holds the JAX background store's live set; the label payload (a
+    store's with_labels, a static server's labels=) is served, and
+    predicting without it is the reference's ValueError."""
     if case == "points_and_store":
         st = MutableStore(DIM, capacity_per_shard=N // K, device="cpu")
         with pytest.raises(ValueError, match="not both"):
@@ -232,10 +257,17 @@ def test_out_of_slice_arguments_raise(pts, case):
             KnnServer(store=st, cfg=CONFIG.replace(predict="vote", **KW),
                       device="cpu")
         return
-    with pytest.raises(NotImplementedError,
-                       match="item 10: background maintenance"):
-        MutableStore(DIM, capacity_per_shard=8, device="cpu",
-                     maintenance="background")
+    bg = MutableStore(DIM, capacity_per_shard=8, device="cpu",
+                      maintenance="background")
+    jbg = JaxStore(DIM, capacity_per_shard=8, mesh=mesh8, axis_name="x",
+                   maintenance="background")
+    for st in (bg, jbg):
+        st.insert(pts[:12])
+        st.flush()
+        st.close()
+        assert st.maintenance_stats()["worker"]["errors"] == 0
+    for a, b in zip(bg.live_arrays(), jbg.live_arrays()):
+        assert np.array_equal(a, b)
     st = MutableStore(DIM, capacity_per_shard=8, device="cpu",
                       with_labels=True)
     st.insert(pts[:4], labels=[1.0, 2.0, 3.0, 4.0])

@@ -30,7 +30,7 @@ from repro.configs.knn_service import CONFIG as JCONFIG
 from repro.runtime import KnnServer as JaxServer
 from repro.store import MutableStore as JaxStore
 from repro_torch.configs import CONFIG
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import MetricsRegistry, ObsPlane
 from repro_torch.runtime import KnnServer
 from repro_torch.store import MutableStore, StoreFullError
 
@@ -378,7 +378,7 @@ def test_store_gather_sampler_agrees(rng):
 def test_tombstone_compaction_trigger(rng):
     st = _mk_store(compact_tombstone_frac=0.3, compact_imbalance_frac=10.0)
     reg = MetricsRegistry()
-    st.attach_metrics(reg)
+    st.attach_obs(ObsPlane(registry=reg))
     ids = st.insert(rng.normal(size=(200, DIM)).astype(np.float32))
     st.flush()
     assert st.stats.compactions == 0
@@ -538,9 +538,18 @@ def test_server_store_conflicts_rejected():
     KnnServer(store=st, cfg=CONFIG.replace(**_cfg()), shards=K, device="cpu")
 
 
-def test_out_of_slice_store_knobs_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _mk_store(maintenance="background")
+def test_out_of_slice_store_knobs_raise(mesh8, monkeypatch):
+    # background maintenance, refused until it was ported, holds the JAX
+    # background store's state once both workers are stopped
+    bg, jbg = _mk_store(maintenance="background"), _mk_jstore(
+        mesh8, maintenance="background")
+    pts = np.random.default_rng(4).normal(size=(20, DIM)).astype(np.float32)
+    for st in (bg, jbg):
+        st.insert(pts)
+        st.flush()
+        st.close()
+    _same_state(jbg, bg)
+    assert bg.maint_commit_clock() == jbg.maint_commit_clock()
     # the label payload is ported: labeled ops are taken, and refused
     # without with_labels, as in the reference
     st = _mk_store(with_labels=True)
