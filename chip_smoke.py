@@ -19,7 +19,10 @@ Phases:
      at l = 257 and 1000 on the long row and the merge shape, with
      all-equal, signed-zero and +inf rows, and its floored pass against
      local_topk_floor_plain; the distance step at l > 256; the routing
-     kernel in its three modes, bit for bit);
+     kernel in its three modes, bit for bit; the LM path's shapes:
+     local_topk on the sampler's vocabulary rows, 64 x 18,992 at l = 50,
+     with +inf tails of a padded vocabulary and bf16 logits full of ties,
+     bit for bit, and l2_distance and distance_topk at d = 896);
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
@@ -95,6 +98,30 @@ Phases:
      l_max = 512: each query's nearest neighbour deleted, labels
      rewritten, compact(), every answer's label held to an f64 vote over
      its generation, labels_for and the device labels to the host mirror;
+  3g. serve_lm: qwen2-0.5b at full width (24 layers, d 896, 14 heads in
+     2 KV groups, vocabulary 151,936; f32, seeded init on the card)
+     serving 8 prompts of 128 tokens, 64 new tokens each, through
+     Server.generate over 8 vocabulary shards of 18,992 (top_k 50,
+     temperature 0.8), both samplers: each step's distributed top-k
+     (values and ids, in order) equal to a stable descending sort of the
+     (B, V) row, selection and gather drawing the same tokens, the
+     prefill and the first 8 decode steps' logits within 1e-3 x max
+     |logit| of the same model in f64, decode within 5e-3 of a
+     teacher-forced forward, local_topk launched; reported: prefill ms,
+     decode ms a step beside the weight-read bound, tokens/s, selection
+     iterations and host syncs a step, peak memory;
+  3h. serve_knn_lm: the kNN-LM example (repro_torch.examples.
+     knn_lm_serve) at full width: qwen2-0.5b decoding while a static
+     KnnServer (k = 8, route exact) serves a datastore of 2^22 keys x 896
+     f32 made on the card with token values in [0, 151,936); lambda 0.35,
+     T = 10, B = 8 requests a step through submit, sampler top_k 16 at
+     0.8; 16 steps at l_max = 8 under each knn sampler and 4 at l_max =
+     1024: every retrieval equal to an f64 brute force over the
+     datastore (near ties at rank l reported), the winners' tokens the
+     datastore's values at their ids, exp(mixed) summing to 1 within
+     1e-3 and equal to an f64 host mixture within 1e-5, one step's
+     core.datastore.retrieve equal to the server's answer, each path's
+     kernels launched;
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -108,7 +135,10 @@ Phases:
      PyTorch op on a 1-element tensor) and the device-routed prologue's
      wall; the distance kernels, the long row and the merge under the
      store's real mask after the churn (bounds counting its live tiles),
-     and distance_topk there with each shard's slots shuffled;
+     and distance_topk there with each shard's slots shuffled; the LM
+     path's shapes: l2_distance and distance_topk over serve_knn_lm's
+     datastore (B = 8, 2^22 x 896, l = 8), local_topk on the vocabulary
+     rows beside the launch floor;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -202,6 +232,13 @@ STORE_KEYS = ("store_masked_ms", "store_masked_kernel_ms",
               "merge_store_ms", "merge_store_kernel_ms",
               "merge_store_plain_ms", "merge_store_bound_ms",
               "merge_store_bound_by")
+# phase 4's numbers at the LM path's shapes: the distance kernels over the
+# kNN-LM datastore (B = 8, 2^22 x 896, l = 8), local_topk on the sampler's
+# vocabulary rows (64 x 18,992, l = 50) beside the launch floor
+LM_KEYS = ("lm_shape", "lm_ms", "lm_kernel_ms", "lm_plain_ms",
+           "lm_library_ms", "lm_library_device_ms", "lm_bound_ms",
+           "lm_bound_by",
+           "lm_launch_floor_ms", "lm_launch_floor_device_ms")
 # the routed phase's B = 32 routing inputs and approx server, kept for
 # phase 4's timing
 ROUTED_INPUTS = {}
@@ -502,6 +539,71 @@ def phase_kernels(dev, results):
         main_err.setdefault("local_topk", err)
         log(f"  local_topk rows={rows} m={m} l={l} {dt} {mode or ''}: "
             f"ids equal, max abs {err:.3g}")
+    # the LM path's shapes: local_topk on the sampler's vocabulary rows
+    # (negated logits over 8 shards of 18,992, l = 50; a vocabulary 8 does
+    # not divide, whose -inf pads are +inf tails once negated, also where
+    # the top-l reaches them; bf16 logits full of ties), bit for bit; the
+    # distance kernels at the datastore's d = 896, keys at the embedding
+    # table's scale
+    from repro_torch.core.topk import shard_vocab
+    lm_err = {name: 0.0 for name in ("l2_distance", "distance_topk",
+                                     "local_topk")}
+    for (bsz, V, l, dt, mode) in [(8, 151936, 50, torch.float32, None),
+                                  (8, 151941, 50, torch.float32, "padded"),
+                                  (3, 8 * 60 + 5, 60, torch.float32,
+                                   "padded"),
+                                  (8, 151936, 50, torch.bfloat16, "ties")]:
+        logits = randn(bsz, V) * 3
+        if mode == "ties":
+            logits = torch.round(logits * 2) / 2
+        x = (-shard_vocab(logits.to(dt), 8)).contiguous().reshape(8 * bsz, -1)
+        v, i = ltk.local_topk_cuda(x, l)
+        torch.cuda.synchronize()
+        rv, ri = ltk.local_topk_plain(x, l)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise PhaseError(f"local_topk vocabulary rows "
+                             f"{(bsz, V, l, dt, mode)}: differs from the "
+                             f"plain version")
+        err = float(torch.where(torch.isfinite(rv), (v - rv).abs(), 0).max())
+        lm_err["local_topk"] = max(lm_err["local_topk"], err)
+        log(f"  local_topk vocabulary rows {tuple(x.shape)} (B={bsz}, V={V})"
+            f" l={l} {dt} {mode or ''}: {int(torch.isinf(x).sum())} +inf "
+            f"pads, values and ids equal")
+    # (l = 192 is the fused kernel's largest at d = 896; above it
+    # ops.distance_topk is l2_distance then local_topk, as at l > 256)
+    for (b, k, m, l) in [(8, K, 65536, 8), (8, K, 65536, 192),
+                         (5, 3, 777, 8)]:
+        q = randn(b, 896) * 0.02
+        p = randn(k, m, 896) * 0.02
+        out = l2.l2_distance_cuda(q, p)
+        torch.cuda.synchronize()
+        full = l2.l2_distance_plain(q, p)
+        if not torch.allclose(out, full, **F32_TOL):
+            raise PhaseError(f"l2_distance d=896 {(b, k, m)}: max abs "
+                             f"{(out - full).abs().max()}")
+        lm_err["l2_distance"] = max(lm_err["l2_distance"],
+                                    float((out - full).abs().max()))
+        v, i = dtk.distance_topk_cuda(q, p, l)
+        torch.cuda.synchronize()
+        rv, ri = dtk.distance_topk_plain(q, p, l)
+        lm_err["distance_topk"] = max(lm_err["distance_topk"], topk_agree(
+            v, i, rv, ri, full, F32_TOL))
+        if l == 192:
+            before = (dtk.COUNT.n, l2.COUNT.n)
+            v, i = kops.distance_topk(q, p, 256)
+            torch.cuda.synchronize()
+            if (dtk.COUNT.n, l2.COUNT.n) != (before[0], before[1] + 1):
+                raise PhaseError("d=896 l=256: not l2_distance + local_topk")
+            rv, ri = dtk.distance_topk_plain(q, p, 256)
+            topk_agree(v, i, rv, ri, full, F32_TOL)
+        log(f"  l2_distance and distance_topk B={b} k={k} m={m} d=896 l={l}:"
+            f" max abs {lm_err['l2_distance']:.3g}, "
+            f"{lm_err['distance_topk']:.3g}")
+        del q, p, out, full
+    for name, err in lm_err.items():
+        errs[name] = max(errs[name], err)
+    results["lm_max_abs_err"] = lm_err
+
     # local_topk's merge of a real distance_topk launch's partials at the
     # main shape, unmasked and under the routed mask: bit for bit
     q, p = randn(B, DIM), randn(K, M, DIM)
@@ -2226,6 +2328,7 @@ def device_total_ms(fn, iters=20):
     torch.profiler (the aten:: rows repeat their kernels and are left
     out)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2559,6 +2662,514 @@ def phase_serve_predict(dev, gpu, results):
     torch.cuda.empty_cache()
 
 
+# ---- phases 3g-3h: LM serving at full width ---------------------------------
+
+LM_ARCH = "qwen2-0.5b"
+LM_SHARDS = 8                 # vocabulary shards: 151,936 = 8 x 18,992
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 64
+LM_TOP_K, LM_TEMP = 50, 0.8
+LM_F64_STEPS = 8              # decode steps held against the f64 model
+LM_F64_REL = 1e-3             # ... within this times max |logit|
+DECODE_TOL = 5e-3             # tests/test_decode_consistency.py:58-59
+PREFILL_TOL = 5e-4
+KNN_LM_KEYS = 1 << 22         # datastore keys, d = 896 (15.03 GB in f32)
+KNN_LM_SCALE = 0.02           # keys at the embedding table's scale
+KNN_LM_STEPS = 16             # at the example's L = 8, each knn sampler
+KNN_LM_LARGE_STEPS = 4        # at l_max = L_LARGE
+MIX_TOL = 1e-5                # mixed probability vs the f64 host mixture
+# the datastore and queries of serve_knn_lm, kept for phase 4's timing
+LM_INPUTS = {}
+
+
+def lm_server_run(api, params, batch, sampler, observe, key):
+    from repro_torch.runtime import ServeConfig, Server
+    srv = Server(api, params, ServeConfig(
+        max_seq=LM_PROMPT + LM_NEW + 8, top_k=LM_TOP_K,
+        temperature=LM_TEMP, sampler=sampler), shards=LM_SHARDS,
+        observe=observe)
+    return srv.generate(batch, LM_NEW, key=key)
+
+
+def phase_serve_lm(dev, gpu, results):
+    """qwen2-0.5b at full width (f32, seeded init) through Server.generate
+    over 8 vocabulary shards, both samplers: checked runs (each step's
+    distributed top-k against a stable descending sort of the row on the
+    card; prefill and the first decode steps against the same model in
+    f64; decode against a teacher-forced forward), then timed runs and
+    one profiled step of each."""
+    import copy
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+
+    cfg = configs.get(LM_ARCH)
+    if cfg.vocab // LM_SHARDS != 18992 or cfg.vocab % LM_SHARDS:
+        raise PhaseError("qwen2-0.5b's vocabulary moved; update the shards")
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0, device=dev)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    rng = np.random.default_rng(20)
+    prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(
+        np.int32)
+    batch = {"tokens": prompt}
+    out, gens, launches, logged = {}, {}, {}, {}
+    for sampler in ("selection", "gather"):
+        steps, bad = [], []
+
+        def observe(logits, res):
+            srt = torch.sort(logits, dim=-1, descending=True, stable=True)
+            if not (torch.equal(res.indices.long(),
+                                srt.indices[:, :LM_TOP_K])
+                    and torch.equal(res.values, srt.values[:, :LM_TOP_K])):
+                bad.append(len(steps))
+            steps.append(logits.clone())
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        gen, _ = lm_server_run(api, params, batch, sampler, observe, key=1)
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        if counts["local_topk"] < 1:
+            raise PhaseError(f"serve_lm {sampler}: local_topk never "
+                             f"launched")
+        if bad:
+            raise PhaseError(f"serve_lm {sampler}: the top-k of steps {bad} "
+                             f"differs from a stable sort of the row")
+        launches[f"lm_{sampler}"] = counts
+        gens[sampler], logged[sampler] = gen, steps
+        log(f"  [{gpu}] serve_lm {sampler}: {len(steps)} decode steps, each "
+            f"top-{LM_TOP_K} (values and ids in order) equal to a stable "
+            f"sort of the (B, V) row; launches {counts}")
+    if not np.array_equal(gens["selection"], gens["gather"]):
+        raise PhaseError("serve_lm: selection and gather drew other tokens")
+    gen, steps = gens["selection"], logged["selection"]
+    del logged
+
+    # the prefill and the first decode steps against the model in f64
+    p64 = copy.deepcopy(params).double()
+    c32 = api.init_cache(LM_BATCH, LM_PROMPT + 8, device=dev)
+    c64 = api.init_cache(LM_BATCH, LM_PROMPT + 8, dtype=torch.float64,
+                         device=dev)
+    pre32, _ = api.prefill(params, batch, c32)
+    pre64, c64 = api.prefill(p64, batch, c64)
+
+    def rel(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+    f64_err = [rel(pre32, pre64)]
+    for i in range(LM_F64_STEPS):
+        want, c64 = api.decode_step(p64, torch.as_tensor(gen[:, i],
+                                                         device=dev), c64)
+        f64_err.append(rel(steps[i], want))
+    del p64, c64, c32
+    if max(f64_err) > LM_F64_REL:
+        raise PhaseError(f"serve_lm: logits vs f64 {f64_err} above "
+                         f"{LM_F64_REL} x max |logit|")
+    # decode against the teacher-forced forward over the generated tokens
+    ext = np.concatenate([prompt, gen[:, :-1]], 1)
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": ext})
+    pre_err = float((pre32 - full[:, LM_PROMPT - 1]).abs().max())
+    dec_err = max(float((s - full[:, LM_PROMPT + i]).abs().max())
+                  for i, s in enumerate(steps))
+    max_logit = float(full.abs().max())
+    del full, steps, pre32, pre64
+    if pre_err > PREFILL_TOL or dec_err > DECODE_TOL:
+        raise PhaseError(f"serve_lm: vs teacher forcing prefill {pre_err}, "
+                         f"decode {dec_err}")
+    log(f"  [{gpu}] serve_lm: selection and gather drew the same "
+        f"{gen.shape} tokens; prefill + {LM_F64_STEPS} decode steps vs f64: "
+        f"max rel {max(f64_err):.3g} (max |logit| {max_logit:.3f}); vs "
+        f"teacher forcing prefill {pre_err:.3g}, decode {dec_err:.3g}")
+
+    # timed runs: no comparisons in the loop
+    bound_ms = weight_bytes / PEAK_BYTES_S * 1e3
+    for sampler in ("selection", "gather"):
+        sel = []
+        torch.cuda.synchronize()
+        again, stats = lm_server_run(
+            api, params, batch, sampler,
+            lambda lg, r: sel.append((r.iterations, r.host_syncs)), key=1)
+        if not np.array_equal(again, gen):
+            raise PhaseError(f"serve_lm {sampler}: the timed run drew "
+                             f"other tokens")
+        its = [a for a, _ in sel]
+        syncs = [b for _, b in sel]
+        decode_ms = stats["decode_s"] / (LM_NEW - 1) * 1e3
+        out[sampler] = dict(
+            prefill_ms=stats["prefill_s"] * 1e3, decode_ms_per_step=decode_ms,
+            tok_per_s=stats["tok_per_s"], weight_read_bound_ms=bound_ms,
+            iterations_per_step=dict(mean=float(np.mean(its)),
+                                     min=min(its), max=max(its)),
+            host_syncs_per_step=dict(mean=float(np.mean(syncs)),
+                                     min=min(syncs), max=max(syncs)))
+        log(f"  [{gpu}] serve_lm {sampler}: prefill {LM_BATCH}x{LM_PROMPT} "
+            f"{stats['prefill_s'] * 1e3:.3f} ms; decode "
+            f"{decode_ms:.3f} ms a step (weight-read bound {bound_ms:.3f} "
+            f"ms for {weight_bytes} bytes); {stats['tok_per_s']:.1f} "
+            f"tokens/s; selection iterations a step "
+            f"{out[sampler]['iterations_per_step']}, host syncs "
+            f"{out[sampler]['host_syncs_per_step']}")
+    # where a decode step goes: one serve_step of each sampler under
+    # torch.profiler (device time, kernel launches, the top device items)
+    from torch.profiler import ProfilerActivity, profile
+    for sampler in ("selection", "gather"):
+        cache = api.init_cache(LM_BATCH, LM_PROMPT + 8, device=dev)
+        lg, cache = api.prefill(params, batch, cache)
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        step = lambda: api.serve_step(                     # noqa: E731
+            params, tok, cache, 7, shards=LM_SHARDS, top_k=LM_TOP_K,
+            temperature=LM_TEMP, sampler=sampler)[0].cpu()
+        step()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            prof_wall = time.perf_counter() - t0
+        ka = prof.key_averages()
+        # device-side events only; the aten:: rows repeat their kernels'
+        dev_us = {e.key: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+                  for e in ka if not e.key.startswith("aten::")}
+        top = sorted(((us, k) for k, us in dev_us.items() if us),
+                     reverse=True)[:5]
+        dev_ms = sum(dev_us.values()) / 1e3
+        out[sampler].update(
+            profiled_device_ms=dev_ms, profiled_wall_ms=prof_wall * 1e3,
+            device_busy_share=dev_ms / (prof_wall * 1e3),
+            launches_per_step=sum(e.count for e in ka
+                                  if e.key == "cudaLaunchKernel"),
+            top_device_ms={k[:60]: us / 1e3 for us, k in top})
+        log(f"  [{gpu}] serve_lm {sampler}: one profiled step "
+            f"{dev_ms:.3f} ms of device time in {prof_wall * 1e3:.3f} ms "
+            f"({100 * out[sampler]['device_busy_share']:.1f}% busy), "
+            f"{out[sampler]['launches_per_step']} kernel launches (wall "
+            f"unprofiled {out[sampler]['decode_ms_per_step']:.3f} ms); top "
+            f"{out[sampler]['top_device_ms']}")
+        del cache, lg
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  [{gpu}] serve_lm: max_memory_allocated {peak} bytes")
+    results["serve_lm"] = dict(
+        runs=out, launches=launches, f64_max_rel_err=f64_err,
+        prefill_err=pre_err, decode_err=dec_err, max_abs_logit=max_logit,
+        weight_bytes=weight_bytes, max_memory_allocated=peak,
+        shape=dict(batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW,
+                   shards=LM_SHARDS, top_k=LM_TOP_K, temperature=LM_TEMP))
+    del params
+    torch.cuda.empty_cache()
+
+
+def brute_f64(keys, q, l, chunk=1 << 18):
+    """The l + 1 nearest keys of each query ``q`` (B, d), in f64 over all
+    of ``keys`` (n, d) on the card, chunk by chunk: ``((B, l+1) f64
+    distances ascending, (B, l+1) int64 ids)``."""
+    import torch
+    q64 = q.double()
+    q2 = (q64 * q64).sum(-1, keepdim=True)
+    best_d = best_i = None
+    for s in range(0, keys.shape[0], chunk):
+        kc = keys[s:s + chunk].double()
+        d = q2 - 2.0 * q64 @ kc.t() + (kc * kc).sum(-1)[None]
+        del kc
+        v, i = torch.topk(d, min(l + 1, d.shape[1]), largest=False)
+        i = i + s
+        if best_d is not None:
+            v, j = torch.topk(torch.cat([best_d, v], 1), l + 1,
+                              largest=False)
+            i = torch.cat([best_i, i], 1).gather(1, j)
+        best_d, best_i = v, i
+    return best_d, best_i
+
+
+def retrieval_check(keys, values, q_np, res, l, what, mag_p):
+    """Each served answer against an f64 brute force over the datastore:
+    distances within 1e-5 relative plus the f32 rounding of the expanded
+    distance, ``32 * 2^-23 * (|q|^2 + max |p|^2)`` (``mag_p`` the last
+    term); the id set equal where rank l and l + 1 lie farther apart than
+    that, else the ids below the tie; the tokens the datastore's values
+    at the ids.  Returns (near ties, max abs distance error)."""
+    import numpy as np
+    import torch
+    bd, bi = brute_f64(keys, torch.as_tensor(q_np, device=keys.device), l)
+    bd, bi = bd.cpu().numpy(), bi.cpu().numpy()
+    q2 = (q_np.astype(np.float64) ** 2).sum(-1)
+    ties, err = 0, 0.0
+    for b, r in enumerate(res):
+        tol = 1e-5 * abs(bd[b, l - 1]) + 32 * 2.0 ** -23 * (q2[b] + mag_p)
+        if len(r.dists) != l or not np.all(np.abs(r.dists - bd[b, :l])
+                                           <= tol):
+            raise PhaseError(f"{what} row {b}: distances differ from the "
+                             f"f64 brute force")
+        err = max(err, float(np.abs(r.dists - bd[b, :l]).max()))
+        if len(set(r.ids.tolist())) != l:
+            raise PhaseError(f"{what} row {b}: repeated id")
+        if not np.array_equal(r.values, values[r.ids]):
+            raise PhaseError(f"{what} row {b}: tokens are not the "
+                             f"datastore's values at the ids")
+        if bd[b, l] - bd[b, l - 1] > tol:
+            if set(r.ids.tolist()) != set(bi[b, :l].tolist()):
+                raise PhaseError(f"{what} row {b}: id set differs from the "
+                                 f"f64 brute force")
+        else:
+            ties += 1
+            inner = set(bi[b, :l][bd[b, :l] < bd[b, l - 1] - tol].tolist())
+            if not inner <= set(r.ids.tolist()):
+                raise PhaseError(f"{what} row {b}: interior ids differ")
+    return ties, err
+
+
+def host_mixture(lm_logits, res, lam, temp):
+    """The f64 host kNN-LM mixture (probabilities, (B, V)) from the LM
+    logits and the served (dists, values): softmax over the row, the kNN
+    weights softmax(-d / T) added at their tokens (duplicates add)."""
+    import numpy as np
+    lm = lm_logits.astype(np.float64)
+    p_lm = np.exp(lm - lm.max(-1, keepdims=True))
+    p_lm /= p_lm.sum(-1, keepdims=True)
+    p_knn = np.zeros_like(p_lm)
+    for b, r in enumerate(res):
+        d = r.dists.astype(np.float64)
+        fin = np.isfinite(d)
+        w = np.exp(-(d[fin] - d[fin].min()) / temp)
+        np.add.at(p_knn[b], np.maximum(r.values[fin], 0), w / w.sum())
+    return (1 - lam) * p_lm + lam * p_knn
+
+
+def phase_serve_knn_lm(dev, gpu, results):
+    """The kNN-LM example at full width: qwen2-0.5b (seeded, f32) decodes
+    while a static KnnServer (k = 8, route exact) serves a datastore of
+    2^22 keys x 896 made on the card, through
+    repro_torch.examples.knn_lm_serve.knn_lm_decode with the example's
+    knobs; 16 steps at l_max = 8 under each knn sampler, 4 at l_max =
+    1024.  Every retrieval against an f64 brute force, the mixture
+    against an f64 host mixture, one step's core.datastore.retrieve
+    against the server's answer."""
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch.core import datastore, topk
+    from repro_torch.examples import knn_lm_serve as ex
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+
+    cfg = configs.get(LM_ARCH)
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    keys = torch.randn((KNN_LM_KEYS, cfg.d_model), generator=g, device=dev)
+    keys.mul_(KNN_LM_SCALE)
+    mag_p = float(max((keys[s:s + (1 << 18)].double() ** 2).sum(-1).max()
+                      for s in range(0, KNN_LM_KEYS, 1 << 18)))
+    values = np.random.default_rng(21).integers(
+        0, cfg.vocab, KNN_LM_KEYS).astype(np.int32)
+    rng = np.random.default_rng(22)
+    prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)).astype(
+        np.int32)
+    runs = (("knn_lm_selection", "selection", ex.L, KNN_LM_STEPS,
+             ["distance_topk", "local_topk"]),
+            ("knn_lm_gather", "gather", ex.L, KNN_LM_STEPS,
+             ["l2_distance", "local_topk"]),
+            ("knn_lm_large", "selection", L_LARGE, KNN_LM_LARGE_STEPS,
+             ["l2_distance", "local_topk"]))
+    out, launches, gens = {}, {}, {}
+    for run, sampler, l, n_steps, needs in runs:
+        srv = ex.datastore_server(keys, values, l_max=l, batch=LM_BATCH,
+                                  sampler=sampler, device=dev)
+        srv.warmup()
+        seen = []
+
+        def observe(i, s):
+            seen.append(dict(q=s["queries"], res=s["results"],
+                             lm=s["lm_logits"].cpu().numpy(),
+                             mixed=s["mixed"].transpose(0, 1).reshape(
+                                 LM_BATCH, -1).cpu().numpy()))
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with srv.serving():
+            gen, _ = ex.knn_lm_decode(api, params, srv, prompt, n_steps,
+                                      l=l, shards=LM_SHARDS, observe=observe)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        for name in needs:
+            if counts[name] < 1:
+                raise PhaseError(f"{run}: {name} was never launched")
+        launches[run] = counts
+        ties = 0
+        dist_err = mix_err = sum_err = 0.0
+        for i, st in enumerate(seen):
+            t, e = retrieval_check(keys, values, st["q"], st["res"], l,
+                                   f"{run} step {i}", mag_p)
+            ties, dist_err = ties + t, max(dist_err, e)
+            p = np.exp(st["mixed"].astype(np.float64))[:, :cfg.vocab]
+            sum_err = max(sum_err, float(np.abs(p.sum(-1) - 1).max()))
+            want = host_mixture(st["lm"], st["res"], ex.LAM, ex.TEMP)
+            mix_err = max(mix_err, float(np.abs(p - want).max()))
+        if sum_err > 1e-3:
+            raise PhaseError(f"{run}: exp(mixed) sums off 1 by {sum_err}")
+        if mix_err > MIX_TOL:
+            raise PhaseError(f"{run}: mixture vs the f64 host mixture "
+                             f"{mix_err} > {MIX_TOL}")
+        if run == "knn_lm_selection":
+            # core.datastore.retrieve on the same shards, step 0's queries
+            m = KNN_LM_KEYS // K
+            store = datastore.build_local(
+                keys.view(K, m, cfg.d_model),
+                torch.as_tensor(values, device=dev).view(K, m))
+            q0 = torch.as_tensor(seen[0]["q"], device=dev)
+            with kops.counted_apart():
+                ret = datastore.retrieve(store, q0, l,
+                                         topk.generator(5, dev),
+                                         temperature=ex.TEMP)
+            r0 = seen[0]["res"]
+            want_t = np.stack([r.values for r in r0])
+            want_d = np.stack([r.dists for r in r0])
+            # the pack is in shard order; the server's answer ascending
+            order = torch.argsort(ret.dists, dim=-1, stable=True)
+            got_t = ret.tokens.gather(-1, order).cpu().numpy()
+            got_d = ret.dists.gather(-1, order).cpu().numpy()
+            if not np.array_equal(got_t, want_t):
+                raise PhaseError("core.datastore.retrieve's tokens differ "
+                                 "from the server's")
+            if not np.allclose(got_d, want_d, **F32_TOL):
+                raise PhaseError("core.datastore.retrieve's distances "
+                                 "differ from the server's")
+            log(f"  [{gpu}] {run} step 0: core.datastore.retrieve over the "
+                f"same shards equals the server's answer")
+            del store, ret
+        lat = sorted(r.latency_s for st in seen for r in st["res"])
+        gens[run] = gen
+        out[run] = dict(sampler=sampler, l=l, steps=n_steps, wall_s=wall,
+                        near_ties=ties, max_abs_dist_err=dist_err,
+                        mix_max_abs_err=mix_err, sum_max_abs_err=sum_err,
+                        retrieval_p50_ms=lat[len(lat) // 2] * 1e3,
+                        iterations=[st["res"][0].iterations for st in seen],
+                        launches=counts)
+        log(f"  [{gpu}] {run}: {n_steps} steps x {LM_BATCH} retrievals of "
+            f"l={l} over {KNN_LM_KEYS} keys, all equal the f64 brute force "
+            f"({ties} near ties at rank l, max abs {dist_err:.3g}); mixture "
+            f"vs f64 host {mix_err:.3g}, sums within {sum_err:.3g}; "
+            f"retrieval p50 {out[run]['retrieval_p50_ms']:.3f} ms; loop "
+            f"wall {wall:.2f} s with the checks; launches {counts}")
+        srv.close()
+        del srv, seen
+    # the two knn samplers' answers are equal; their distances come from
+    # two kernels, so the draws may part where the mixture nearly ties
+    same = int((gens["knn_lm_selection"] == gens["knn_lm_gather"]).sum())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  [{gpu}] serve_knn_lm: the knn samplers drew the same token at "
+        f"{same} of {gens['knn_lm_gather'].size} places; "
+        f"max_memory_allocated {peak} bytes")
+    results["serve_knn_lm"] = dict(runs=out, launches=launches,
+                                   keys=KNN_LM_KEYS, dim=cfg.d_model,
+                                   same_tokens=same,
+                                   max_memory_allocated=peak)
+    # phase 4 times the distance kernels on this datastore, with the
+    # prompts' last token embeddings as queries
+    last = torch.as_tensor(prompt[:, -1], device=dev).long()
+    LM_INPUTS.update(keys=keys, q=params.embed.table[last].contiguous())
+    del params
+    torch.cuda.empty_cache()
+
+
+def lm_timing(timing, dev, results):
+    """Phase 4 at the LM path's shapes: l2_distance and distance_topk over
+    serve_knn_lm's datastore (B = 8, 2^22 x 896, l = 8), local_topk on
+    the vocabulary rows (8 x 8 shards of 18,992, l = 50) beside the
+    launch floor; each beside its bound and its library call, the
+    library's device time too.  First the kernels are held against their
+    plain versions on these inputs: l2_distance, distance_topk at l = 8,
+    and local_topk's passes at l = 1024 over l2_distance's output."""
+    import torch
+    from repro_torch.core.topk import shard_vocab
+    from repro_torch.kernels import distance_topk as dtk
+    from repro_torch.kernels import l2_distance as l2
+    from repro_torch.kernels import local_topk as ltk
+    keys, q = LM_INPUTS["keys"], LM_INPUTS["q"]
+    n, d = keys.shape
+    b, l = q.shape[0], 8
+    p = keys.view(K, n // K, d)
+    lm_err = results["lm_max_abs_err"]
+    out = l2.l2_distance_cuda(q, p)
+    torch.cuda.synchronize()
+    full = l2.l2_distance_plain(q, p)
+    if not torch.allclose(out, full, **F32_TOL):
+        raise PhaseError(f"l2_distance at {(b, n, d)}: max abs "
+                         f"{(out - full).abs().max()}")
+    lm_err["l2_distance"] = max(lm_err["l2_distance"],
+                                float((out - full).abs().max()))
+    v, i = dtk.distance_topk_cuda(q, p, l)
+    torch.cuda.synchronize()
+    rv, ri = dtk.distance_topk_plain(q, p, l)
+    lm_err["distance_topk"] = max(lm_err["distance_topk"], topk_agree(
+        v, i, rv, ri, full, F32_TOL))
+    # l = 1024 as the server takes it: local_topk's passes over the
+    # distances l2_distance wrote, bit for bit
+    v, i = ltk.local_topk_cuda(out, L_LARGE)
+    torch.cuda.synchronize()
+    rv, ri = ltk.local_topk_plain(out, L_LARGE)
+    if not (torch.equal(v, rv) and torch.equal(i, ri)):
+        raise PhaseError(f"local_topk at {tuple(out.shape)} l={L_LARGE}: "
+                         f"differs from the plain version")
+    log(f"  at {(b, n, d)}: l2_distance (max abs {lm_err['l2_distance']:.3g})"
+        f", distance_topk l={l} (max abs {lm_err['distance_topk']:.3g}) and "
+        f"local_topk l={L_LARGE} on l2_distance's output (bit for bit) agree"
+        f" with their plain versions")
+    del out, full, v, i, rv, ri
+    torch.cuda.empty_cache()
+    qk = q.expand(K, b, d)
+    flops = 2 * b * n * d + 3 * b * n
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    logits = torch.randn((LM_BATCH, 151936), generator=g, device=dev)
+    rows = (-shard_vocab(logits, LM_SHARDS)).contiguous().reshape(
+        LM_SHARDS * LM_BATCH, -1)
+    runs = {
+        "l2_distance": (
+            (b, n, d), lambda: l2.l2_distance_cuda(q, p),
+            lambda: l2.l2_distance_plain(q, p),
+            lambda: torch.cdist(qk, p).square(),
+            4 * (b * d + n * d) + 4 * b * n, flops),
+        "distance_topk": (
+            (b, n, d, l), lambda: dtk.distance_topk_cuda(q, p, l),
+            lambda: dtk.distance_topk_plain(q, p, l),
+            lambda: torch.topk(torch.cdist(qk, p).square(), l,
+                               largest=False),
+            4 * (b * d + n * d) + 8 * K * b * l, flops),
+        "local_topk": (
+            tuple(rows.shape) + (LM_TOP_K,),
+            lambda: ltk.local_topk_cuda(rows, LM_TOP_K),
+            lambda: ltk.local_topk_plain(rows, LM_TOP_K),
+            lambda: torch.topk(logits, LM_TOP_K),
+            4 * rows.numel() + 8 * rows.shape[0] * LM_TOP_K, rows.numel()),
+    }
+    floor = timing["route_mask"]
+    for name, (shape, kern, plain, lib, nbytes, ops) in runs.items():
+        b_ms, by = bound(nbytes, ops)
+        t = timing[name]
+        t.update(lm_shape=list(shape), lm_ms=time_ms(kern, 20),
+                 lm_kernel_ms=device_ms(kern, f"{name}_kernel",
+                                        iters=20, per_call=True),
+                 lm_plain_ms=time_ms(plain, 3), lm_library_ms=time_ms(lib, 3),
+                 lm_library_device_ms=device_ms(lib, None, iters=5,
+                                                per_call=True),
+                 lm_bound_ms=b_ms, lm_bound_by=by)
+        if name == "local_topk":
+            t.update(lm_launch_floor_ms=floor["launch_floor_ms"],
+                     lm_launch_floor_device_ms=floor[
+                         "launch_floor_device_ms"])
+        log(f"  {name} at the LM path's shape {shape}: {t['lm_ms']:.4f} ms "
+            f"(kernels alone {t['lm_kernel_ms']}, plain "
+            f"{t['lm_plain_ms']:.4f}, library {t['lm_library_ms']:.4f} "
+            f"[device {t['lm_library_device_ms']}], "
+            f"bound {b_ms:.6f} by {by})")
+
+
 def phase_profile(dev, gpu, results):
     """Where one full bucket's time goes: torch.profiler over one
     query_batch of 32 requests per sampler, after warm-up, beside the
@@ -2643,10 +3254,12 @@ def time_ms(fn, iters):
 
 def device_ms(fn, kernel_name, iters=50, per_call=False):
     """Mean device time of one launch (``per_call``: of all launches in
-    one call of ``fn``) of the kernel whose name contains ``kernel_name``,
+    one call of ``fn``) of the kernel whose name contains ``kernel_name``
+    (None: of every device event, a library call's kernels and copies),
     from torch.profiler over ``iters`` calls of ``fn``: the kernel alone,
     without the host time between launches."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2657,7 +3270,8 @@ def device_ms(fn, kernel_name, iters=50, per_call=False):
             torch.cuda.synchronize()
         total = count = 0
         for e in prof.key_averages():
-            if kernel_name in e.key:
+            if (e.device_type == DeviceType.CUDA if kernel_name is None
+                    else kernel_name in e.key):
                 total += getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0))
                 count += e.count
@@ -2997,6 +3611,7 @@ def phase_timing(dev, results):
         f" ms (device {rtm['launch_floor_device_ms']} ms); device-routed "
         f"prologue at B={B}: p50 and quartiles {rtm['prologue_ms']} ms; its "
         f"launch and readback alone {rtm['routing_readback_ms']} ms")
+    lm_timing(timing, dev, results)
     results["timing"] = timing
 
 
@@ -3031,6 +3646,8 @@ def main(argv=None) -> int:
               ("serve_store", phase_serve_store),
               ("serve_maintained", phase_serve_maintained),
               ("serve_predict", phase_serve_predict),
+              ("serve_lm", phase_serve_lm),
+              ("serve_knn_lm", phase_serve_knn_lm),
               ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
@@ -3061,7 +3678,7 @@ def main(argv=None) -> int:
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "serve_large_l",
                           "serve_store", "serve_maintained", "serve_predict",
-                          "profile"):
+                          "serve_lm", "serve_knn_lm", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -3087,6 +3704,8 @@ def main(argv=None) -> int:
     counts.update(results["serve_store"]["launches"])
     counts.update(results["serve_predict"]["launches"])
     counts.update(results["serve_maintained"]["launches"])
+    counts.update(results["serve_lm"]["launches"])
+    counts.update(results["serve_knn_lm"]["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]
@@ -3099,11 +3718,12 @@ def main(argv=None) -> int:
             store_max_abs_err=results["serve_store"][
                 "kernel_max_abs_err"].get(name),
             launches=sum(by_run.values()), launches_by_run=by_run,
-            max_abs_err=results["max_abs_err"][name], ms=t["ms"],
+            max_abs_err=results["max_abs_err"][name],
+            lm_max_abs_err=results["lm_max_abs_err"].get(name), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{key: t[key] for key in MASKED_KEYS + LTK_KEYS + ROUTE_KEYS
-               + LARGE_L_KEYS + STORE_KEYS if key in t}))
+               + LARGE_L_KEYS + STORE_KEYS + LM_KEYS if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

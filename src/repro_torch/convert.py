@@ -9,6 +9,11 @@ A reference ``MutableStore``'s state is its host mirrors (points, ids
 and valid, ``(k*cap, ...)`` with shard j owning slots ``[j*cap,
 (j+1)*cap)``); :func:`store_from_mirrors` builds the port's store from
 them, the role weights play elsewhere.
+
+A reference LM's parameter tree (``repro.models.ModelApi.init_params``,
+as numpy arrays) becomes the port's ``Transformer`` state dict by
+:func:`params_from_jax`: the stacked layers are unstacked and the dummy
+heads the reference pads its head axis with are dropped.
 """
 
 from __future__ import annotations
@@ -136,3 +141,60 @@ def store_from_mirrors(points, ids, valid, *, cap: int, shards: int,
         if st._worker is not None:
             st._worker.notify()
     return st
+
+
+def real_heads(n_phys: int, n_kv_phys: int, n_kv: int, group: int):
+    """Physical indices of the real query heads of the reference's
+    kv-major padded layout, in order: head h is in KV group ``h //
+    (n_phys // n_kv_phys)`` and real when that group is real and ``h``
+    is among its first ``group`` heads (``attention.make_head_mask``)."""
+    g_phys = n_phys // n_kv_phys
+    return [h for h in range(n_phys)
+            if h // g_phys < n_kv and h % g_phys < group]
+
+
+def params_from_jax(tree, cfg) -> dict:
+    """A dense reference model's parameter tree -> the port's
+    ``models.transformer.Transformer`` state dict (CPU f32 tensors).
+
+    ``tree``: ``{"embed": {"table"}, "final_ln": {"scale"},
+    "blocks": {"sub0": {...}}, ["lm_head": {"table"}]}`` as numpy
+    arrays, every leaf of ``blocks/sub0`` stacked over ``cfg.n_layers``.
+    The columns of ``wq``/``bq`` and the rows of ``wo`` that belong to
+    the dummy heads of ``cfg.head_pad_to`` (and the KV columns of
+    ``kv_head_pad_to``) are dropped, keeping the real heads in order.
+    """
+    hd = cfg.head_dim
+    heads = real_heads(cfg.n_heads_phys, cfg.n_kv_phys, cfg.n_kv_heads,
+                       cfg.head_group)
+    kv = list(range(cfg.n_kv_heads))
+
+    def cols(w, keep):          # (..., H_phys * hd) -> (..., len(keep)*hd)
+        w = w.reshape(*w.shape[:-1], -1, hd)[..., keep, :]
+        return w.reshape(*w.shape[:-2], len(keep) * hd)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    out = {"embed.table": t(tree["embed"]["table"]),
+           "final_ln.scale": t(tree["final_ln"]["scale"])}
+    if "lm_head" in tree:
+        out["lm_head.table"] = t(tree["lm_head"]["table"])
+    sub = tree["blocks"]["sub0"]
+    a, f = sub["attn"], sub["ffn"]
+    for i in range(cfg.n_layers):
+        p = f"blocks.{i}."
+        out[p + "ln1.scale"] = t(sub["ln1"]["scale"][i])
+        out[p + "ln2.scale"] = t(sub["ln2"]["scale"][i])
+        out[p + "attn.wq"] = t(cols(np.asarray(a["wq"][i]), heads))
+        out[p + "attn.wk"] = t(cols(np.asarray(a["wk"][i]), kv))
+        out[p + "attn.wv"] = t(cols(np.asarray(a["wv"][i]), kv))
+        wo = np.asarray(a["wo"][i])
+        out[p + "attn.wo"] = t(cols(wo.T, heads).T)
+        if "bq" in a:
+            out[p + "attn.bq"] = t(cols(np.asarray(a["bq"][i]), heads))
+            out[p + "attn.bk"] = t(cols(np.asarray(a["bk"][i]), kv))
+            out[p + "attn.bv"] = t(cols(np.asarray(a["bv"][i]), kv))
+        for name in ("w_gate", "w_up", "w_down"):
+            out[p + "ffn." + name] = t(f[name][i])
+    return out

@@ -12,12 +12,32 @@ stream the store's tests and the chip run ingest, numpy only, the
 reference's seeded output exactly.  ``labeled_mixture`` and
 ``bayes_labels``: the prediction plane's labeled workload and its
 Bayes-optimal labels, numpy only, the reference's output exactly.
+``uniform_points`` (the paper's dataset) and ``gaussian_clusters`` (the
+l-NN service's labeled clusters, ``launch/serve.py``): numpy only, the
+reference's output exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def uniform_points(n: int, dim: int, seed: int = 0,
+                   high: float = 2**32 - 1) -> np.ndarray:
+    """The paper's dataset: n points uniform in [0, high)^dim (f32)."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, dim)) * high).astype(np.float32)
+
+
+def gaussian_clusters(n: int, dim: int, num_classes: int, seed: int = 0):
+    """Labeled clusters for the kNN classification example:
+    ``(points (n, dim) f32, labels (n,) int32)``."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(scale=8.0, size=(num_classes, dim))
+    labels = rng.integers(0, num_classes, n)
+    pts = centers[labels] + rng.normal(size=(n, dim))
+    return pts.astype(np.float32), labels.astype(np.int32)
 
 
 def sharded_clusters(k: int, per_shard: int, dim: int, *, scale: float = 8.0,

@@ -10,7 +10,8 @@ of the reference's shape gate that sent unaligned routing shapes to
 jnp: at k = 8 the card runs the routing kernel.  Where the reference
 sends ``l > 256`` to its jnp oracle, the card runs kernels too:
 ``distance_topk`` becomes l2_distance then the multi-pass local_topk
-(:func:`fused_topk` decides, by l alone).  Each wrapper's counter
+(:func:`fused_topk` decides, by l and by whether the fused block's
+shared memory fits at the width).  Each wrapper's counter
 counts its kernel's launches where it launches it; the plain versions
 count nothing.  A thread's launches inside :func:`counted_apart` are
 counted in that block's tally instead.
@@ -56,20 +57,22 @@ def l2_distance(queries, points, *, valid=None):
     return out
 
 
-def fused_topk(l: int) -> bool:
-    """Whether the card's distance + top-l step at ``l`` is the fused
-    distance_topk kernel (``l <= MAX_L``, its slots), or else l2_distance
-    then the multi-pass local_topk."""
-    return l <= MAX_L
+def fused_topk(l: int, dim: int, elem_bytes: int = 4) -> bool:
+    """Whether the card's distance + top-l step at ``l`` and width ``dim``
+    is the fused distance_topk kernel (``l <= MAX_L``, its slots, and its
+    block's query tile and slots fit in shared memory: at d = 896 up to
+    l = 192), or else l2_distance then the multi-pass local_topk."""
+    return l <= MAX_L and _dtk.smem(dim, l, elem_bytes) <= _l2.SMEM_MAX
 
 
 def distance_topk(queries, points, l: int, *, valid=None):
     """Fused distance + top-l: ``((..., B, l) ascending, int32 indices
     into the point axis)``; +inf slots carry ``2**31-1``.  On the card,
-    above ``MAX_L`` (:func:`fused_topk`), the distances are written by
-    l2_distance and their top-l taken in passes by local_topk."""
+    where the fused kernel does not take ``l`` (:func:`fused_topk`), the
+    distances are written by l2_distance and their top-l taken in passes
+    by local_topk."""
     if _path("distance_topk", queries) == "cuda":
-        if fused_topk(l):
+        if fused_topk(l, queries.shape[-1], points.element_size()):
             return _dtk.distance_topk_cuda(queries, points, l, valid=valid)
         v, i = _ltk.local_topk_cuda(
             _l2.l2_distance_cuda(queries, points, valid=valid), l)
@@ -160,11 +163,12 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     On the card, ``dtk_path`` names the distance + top-l step
     (:func:`fused_topk`): ``"distance_topk"``, with ``dtk_chunk`` the
     points per chunk and ``dtk_blocks`` its persistent blocks (each walks
-    its chunk in all k shards), or ``"l2+local_topk"`` above ``MAX_L``,
-    with ``ltk_passes`` local_topk's passes; ``l2_blocks`` is the
-    persistent l2_distance blocks per query tile.  All None on the CPU.
-    A width whose query tile does not fit in shared memory has no kernel
-    on the card (``unsupported``), and the wrappers raise on it.
+    its chunk in all k shards), or ``"l2+local_topk"`` where the fused
+    kernel does not take ``l``, with ``ltk_passes`` local_topk's passes;
+    ``l2_blocks`` is the persistent l2_distance blocks per query tile.
+    All None on the CPU.  A width whose query tile does not fit in shared
+    memory has no kernel on the card (``unsupported``), and the wrappers
+    raise on it.
     """
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
@@ -174,7 +178,7 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
            "unsupported": None}
     if path == "plain":
         return env
-    fused = fused_topk(l)
+    fused = fused_topk(l, dim)
     smem = _dtk.smem(dim, l, 4) if fused else _l2.loop_smem(dim, 4)
     if smem > _l2.SMEM_MAX:
         env["unsupported"] = (f"dim={dim}: {smem} bytes of shared memory a "

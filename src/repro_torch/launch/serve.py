@@ -1,0 +1,128 @@
+"""Serving driver: LM generation with the distributed-selection sampler,
+or the paper's standalone distributed l-NN service.
+
+Port of ``repro.launch.serve``; ``--shards K`` takes the place of the
+reference's ``--mesh dxm`` (K vocabulary shards for the LM sampler, K
+point shards for the l-NN service), and ``--device`` is the card unless
+``cpu`` is given.
+
+  # LM decode, qwen2-0.5b at full width, 8 vocabulary shards:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --shards 8
+
+  # reduced, on the CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --reduced --tokens 4 --batch 2 --shards 2 --device cpu
+
+  # the paper's artifact: distributed l-NN queries over a sharded corpus
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch knn-service \
+      --knn-k 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+import repro_torch.configs as configs
+from repro_torch import convert
+from repro_torch.core import knn as knn_mod
+from repro_torch.core.topk import generator
+from repro_torch.data import gaussian_clusters
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.runtime import ServeConfig, Server
+
+
+def serve_lm(args):
+    """Seeded random model, random prompts, ``Server.generate``; returns
+    ``(generated tokens, stats)``."""
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    api = build_model(cfg)
+    dev = resolve_device(args.device)
+    rng = np.random.default_rng(args.seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab,
+                                    (args.batch, args.prompt)).astype(
+                                        np.int32)}
+    scfg = ServeConfig(max_seq=args.prompt + args.tokens + 8,
+                       top_k=args.top_k, sampler=args.sampler,
+                       num_pivots=args.num_pivots)
+    params = api.init_params(args.seed, device=dev)
+    server = Server(api, params, scfg, shards=args.shards)
+    gen, stats = server.generate(batch, args.tokens, key=args.seed + 1)
+    print("generated tokens:\n", gen)
+    print({k: round(v, 4) for k, v in stats.items()})
+    return gen, stats
+
+
+def serve_knn(args):
+    """The paper's own service: l-NN queries against a sharded point set,
+    classified by a vote of the winners' labels; returns ``(predicted
+    classes, (B, l) distances, (B, l) ids)``."""
+    kcfg = configs.get("knn-service")
+    dev = resolve_device(args.device)
+    k = args.shards or 8
+    n = min(kcfg.n_points, args.knn_points)
+    n -= n % k
+    pts, labels = gaussian_clusters(n, kcfg.dim, kcfg.num_classes,
+                                    seed=args.seed)
+    points, ids, _, lab = convert.shards_from_numpy(pts, k, labels=labels,
+                                                    device=dev)
+    l = args.knn_k
+    rng = np.random.default_rng(args.seed + 7)
+    qs = rng.normal(scale=8.0, size=(kcfg.query_batch, kcfg.dim)).astype(
+        np.float32)
+    q = torch.from_numpy(qs).to(dev)
+    t0 = time.perf_counter()
+    res = knn_mod.knn_query(points, ids, q, l, generator(3, dev),
+                            num_pivots=args.num_pivots, gather_results=True,
+                            point_labels=lab)
+    pred, _ = knn_mod.knn_classify(res.mask, res.local_labels.long(),
+                                   kcfg.num_classes)
+    pred = pred.cpu().numpy()
+    dt = time.perf_counter() - t0
+    print(f"l-NN over {n} points sharded {k} ways: l={l} "
+          f"iterations={res.selection.iterations} wall={dt*1e3:.1f}ms")
+    print("predicted classes:", pred)
+    d = res.dists.cpu().numpy()
+    print("nearest distances (q0):", np.sort(d[0])[:5])
+    return pred, d, res.ids.cpu().numpy()
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=32)
+    ap.add_argument("--top-k", type=int, default=50)
+    ap.add_argument("--sampler", default="selection",
+                    choices=["selection", "gather"])
+    ap.add_argument("--num-pivots", type=int, default=1)
+    ap.add_argument("--shards", type=int, default=None,
+                    help="vocabulary shards of the LM sampler (none: the "
+                         "no-mesh path), or point shards of the l-NN "
+                         "service (default 8)")
+    ap.add_argument("--device", default=None,
+                    help="torch device; the card when omitted")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--knn-k", type=int, default=8)
+    ap.add_argument("--knn-points", type=int, default=1 << 16)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.arch in ("knn-service", "knn_service"):
+        return serve_knn(args)
+    return serve_lm(args)
+
+
+if __name__ == "__main__":
+    main()

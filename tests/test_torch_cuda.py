@@ -1015,3 +1015,86 @@ def test_obs_adds_no_launch_or_sync_on_the_card(card):
         assert bool(apart) == (name == "audit"), apart
     assert runs["on"] == runs["off"] == runs["audit"]
     assert runs["off"][0]["route_index_mask"] == 1
+
+
+# ---- the LM path: the vocabulary top-k and the datastore's width --------
+
+@pytest.mark.parametrize("B,V,l,mode", [
+    (8, 151936, 50, "f32"),            # 64 rows of 18,992 (qwen2-0.5b)
+    (8, 151941, 50, "f32"),            # 3 -inf pads in the last shard
+    (3, 8 * 60 + 5, 60, "f32"),        # the top-l reaches the pads
+    (8, 151936, 50, "bf16_ties")])     # bf16 logits full of ties
+def test_local_topk_kernel_vocab_rows(card, B, V, l, mode):
+    """The sampler's local step: negated logits over k = 8 vocabulary
+    shards, -inf padded logits (+inf once negated) at the tail of a
+    vocabulary k does not divide, against the plain version bit for
+    bit."""
+    from repro_torch.core.topk import shard_vocab
+    logits = _randn(card, B, V, seed=30) * 3
+    if mode == "bf16_ties":
+        logits = (torch.round(logits * 2) / 2).to(torch.bfloat16)
+    rows = (-shard_vocab(logits, 8)).contiguous().reshape(8 * B, -1)
+    assert bool(torch.isinf(rows).any()) == (V % 8 != 0)
+    before = ltk.COUNT.n
+    v, i = ltk.local_topk_cuda(rows, l)
+    torch.cuda.synchronize()
+    assert ltk.COUNT.n > before
+    rv, ri = ltk.local_topk_plain(rows, l)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+@pytest.mark.parametrize("l", [8, 192, 256])
+def test_distance_kernels_at_lm_width(card, l):
+    """l2_distance and distance_topk at d = 896 (qwen2-0.5b's hidden
+    size), on keys at the embedding's scale.  The fused kernel takes l up
+    to 192 at this width (its shared memory); above, ops.distance_topk is
+    l2_distance then local_topk."""
+    q = _randn(card, 8, 896) * 0.02
+    p = _randn(card, 8, 16384, 896, seed=31) * 0.02
+    full = l2.l2_distance_plain(q, p)
+    torch.testing.assert_close(l2.l2_distance_cuda(q, p), full, **F32)
+    assert ops.fused_topk(l, 896) == (l <= 192)
+    before = (dtk.COUNT.n, l2.COUNT.n)
+    v, i = ops.distance_topk(q, p, l)
+    torch.cuda.synchronize()
+    assert (dtk.COUNT.n - before[0], l2.COUNT.n - before[1]) == (
+        (1, 0) if l <= 192 else (0, 1))
+    rv, ri = dtk.distance_topk_plain(q, p, l)
+    _topk_close(v, i, rv, ri, full)
+
+
+def test_lm_server_on_the_card(card):
+    """qwen2-0.5b at full width and 2 layers: Server.generate over 8
+    vocabulary shards launches local_topk, every step's top-k equals a
+    stable descending sort of the row, both samplers draw the same
+    tokens, and decode agrees with the teacher-forced forward."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServeConfig, Server
+    cfg = dataclasses.replace(configs.get("qwen2-0.5b"), n_layers=2)
+    api = build_model(cfg)
+    params = api.init_params(0, device=card)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (4, 16))
+    logged, gens = [], {}
+
+    def observe(logits, res):
+        srt = torch.sort(logits, dim=-1, descending=True, stable=True)
+        assert torch.equal(res.indices.long(), srt.indices[:, :20])
+        assert torch.equal(res.values, srt.values[:, :20])
+        logged.append(logits.clone())
+
+    for sampler in ("selection", "gather"):
+        before = ltk.COUNT.n
+        srv = Server(api, params, ServeConfig(max_seq=32, top_k=20,
+                                              sampler=sampler),
+                     shards=8, observe=observe)
+        gens[sampler], stats = srv.generate({"tokens": prompt}, 6, key=3)
+        assert ltk.COUNT.n > before
+    np.testing.assert_array_equal(gens["selection"], gens["gather"])
+    ext = np.concatenate([prompt, gens["selection"][:, :-1]], 1)
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": ext})
+    for s in range(5):
+        err = (logged[s] - full[:, prompt.shape[1] + s]).abs().max()
+        assert float(err) < 5e-3
