@@ -122,6 +122,20 @@ Phases:
      1e-3 and equal to an f64 host mixture within 1e-5, one step's
      core.datastore.retrieve equal to the server's answer, each path's
      kernels launched;
+  3i. train: qwen2-0.5b at full width (f32, seeded) trained for 30 steps
+     through runtime.train_loop on MarkovTokens(vocab, 0, branch 2, 13
+     contexts), batch 8 x 128 in 2 microbatches with remat, AdamW's
+     defaults at lr 1e-3 after 5 warmup steps; a CheckpointManager(keep
+     2) every 10 steps and one SimulatedNodeFailure at step 22, all under
+     torch.use_deterministic_algorithms: the loss falls by more than 1.0,
+     steps 20-21 replay bit for bit after the restore of step 20, a
+     checkpoint restored equals the live parameters and moments, the
+     gradients of a 2 x 64 batch within 1e-3 x max |g| of the f64 twin
+     tensor by tensor, one AdamW step within 1e-6 x max |p| of f64 on the
+     host, the prefetcher's copies equal their batches, no kernel
+     launched; reported: step walls and tokens/s beside the products'
+     and AdamW's bounds, one profiled step, peak memory, the checkpoint's
+     snapshot, write and restore walls and bytes;
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -149,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3077,6 +3092,372 @@ def phase_serve_knn_lm(dev, gpu, results):
     torch.cuda.empty_cache()
 
 
+# ---- phase 3i: training at full width ------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 128, 2
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_LR = 30, 5, 1e-3
+TRAIN_CKPT_EVERY, TRAIN_KEEP, TRAIN_FAIL_AT = 10, 2, 22
+TRAIN_TIMED = 2               # steps timed after the loop, in each mode
+TRAIN_GRAD_BATCH = (2, 64)    # the batch held against the f64 twin
+GRAD_F64_REL = 1e-3           # max |g32 - g64| <= this x max |g64|, a tensor
+ADAMW_F64_REL = 1e-6          # one AdamW step vs f64: this x max |p|
+
+
+def profiled_step(fn):
+    """``fn()`` once under torch.profiler: ``(wall ms, device ms, kernel
+    launches, {kernel: device ms})``, the device time summed over the
+    events that ran on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    us = {e.key: getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+          for e in ka if getattr(e, "device_type", None) == DeviceType.CUDA}
+    launches = sum(e.count for e in ka if e.key.startswith(
+        ("cudaLaunchKernel", "cuLaunchKernel")))
+    return (wall * 1e3, sum(us.values()) / 1e3, launches,
+            {k: v / 1e3 for k, v in us.items() if v})
+
+
+def phase_train(dev, gpu, results):
+    """qwen2-0.5b at full width (f32, seeded) trained through
+    ``runtime.train_loop`` on MarkovTokens(vocab, 0, branch 2, 13
+    contexts), batch 8 x 128 in 2 microbatches, AdamW's defaults, lr
+    1e-3 after 5 warmup steps, 30 steps; checkpoints every 10 (keep 2)
+    and one injected node failure at step 22.  Checks: the loss falls by
+    more than 1.0; the restart from step 20 replays steps 20-21 bit for
+    bit (under ``torch.use_deterministic_algorithms``); a checkpoint
+    restored equals the live parameters and moments; the gradients of a
+    2 x 64 batch within 1e-3 x max |g| of the model's f64 twin, tensor by
+    tensor; one AdamW step on the card within 1e-6 x max |p| of the same
+    step in f64 on the host; the prefetcher's copies to the card equal
+    their batches; no kernel of repro_torch.kernels launched.  Reported:
+    step walls, tokens/s, one profiled step, peak memory, the
+    checkpoint's snapshot, write and restore walls and its bytes."""
+    import shutil
+    import tempfile
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+
+    cfg = configs.get(LM_ARCH)
+    api = build_model(cfg)
+    n_params = cfg.param_count() + cfg.d_model
+    ckpt_est = 3 * 4 * n_params          # parameters, m and v in f32
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = shutil.disk_usage(ROOT / "build").free
+    if free < 3 * ckpt_est:
+        raise PhaseError(f"train: {free} bytes free under build/, less "
+                         f"than 3 checkpoints of ~{ckpt_est}")
+    ckpt_dir = tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build")
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    # deterministic kernels (the embedding's backward sorts instead of
+    # adding with atomics), without the NaN fill of fresh memory, which
+    # no kernel here reads and which would add a launch to every
+    # allocation
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = train_run(dev, gpu, api, cfg, ckpt_dir, n_params, base_mem)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if any(kops.launch_counts().values()):
+        raise PhaseError(f"train: kernels launched during the phase: "
+                         f"{kops.launch_counts()}")
+    results["train"] = out
+    torch.cuda.empty_cache()
+
+
+def train_run(dev, gpu, api, cfg, ckpt_dir, n_params, base_mem):
+    """phase_train's run, checks and measurements; returns its record."""
+    import copy
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import serialization as ckpt_serialization
+    from repro_torch.checkpoint.serialization import flatten
+    from repro_torch.data import MarkovTokens, Prefetcher
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import (MetricLogger, SimulatedNodeFailure,
+                                     TrainConfig, init_opt_state,
+                                     make_train_step, train_loop)
+    from repro_torch.runtime.trainer import checkpoint_tree
+
+    params = api.init_params(0, device=dev, train=True)
+    tcfg = TrainConfig(grad_accum=TRAIN_ACCUM, peak_lr=TRAIN_LR,
+                       warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    opt = AdamW()
+    opt_state = init_opt_state(api, tcfg, opt, params)
+    data = MarkovTokens(cfg.vocab, seed=0, branch=2, n_contexts=13)
+
+    def make_batch(step):
+        t, l = data.batch(step, TRAIN_BATCH, TRAIN_SEQ)
+        return {"tokens": t, "labels": l}
+
+    # the prefetcher's consumer-side copy from pinned host memory
+    pf = Prefetcher(make_batch, prefetch=2, device=dev)
+    try:
+        for _ in range(3):
+            s, b = next(pf)
+            want = make_batch(s)
+            for k, v in b.items():
+                if v.device.type != dev.type or not np.array_equal(
+                        v.cpu().numpy(), want[k]):
+                    raise PhaseError(f"train: the prefetcher's {k} of "
+                                     f"step {s} differs from its batch")
+    finally:
+        pf.close()
+
+    mgr = CheckpointManager(ckpt_dir, keep=TRAIN_KEEP)
+    # each save's synchronous snapshot, and the writer thread's serialize
+    # (timed around serialization.save_pytree for the loop)
+    snap_s, write_s = [], []
+    save, write = mgr.save, ckpt_serialization.save_pytree
+
+    def timed_save(*a, **kw):
+        mgr.wait()
+        t0 = time.perf_counter()
+        save(*a, **kw)
+        snap_s.append(time.perf_counter() - t0)
+
+    def timed_write(*a, **kw):
+        t0 = time.perf_counter()
+        write(*a, **kw)
+        write_s.append(time.perf_counter() - t0)
+    mgr.save = timed_save
+    crashed = []
+
+    def fail_at(step):
+        if step == TRAIN_FAIL_AT and not crashed:
+            crashed.append(step)
+            raise SimulatedNodeFailure("injected node loss")
+
+    logger = MetricLogger(quiet=True)
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ckpt_serialization.save_pytree = timed_write
+    try:
+        params, opt_state, step = train_loop(
+            api=api, tcfg=tcfg, optimizer=opt, params=params,
+            opt_state=opt_state, make_batch=make_batch,
+            num_steps=TRAIN_STEPS, ckpt_manager=mgr,
+            ckpt_every=TRAIN_CKPT_EVERY, fail_at=fail_at, logger=logger,
+            device=dev)
+    finally:
+        ckpt_serialization.save_pytree = write
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    loop_peak = torch.cuda.max_memory_allocated() - base_mem
+    if any(launches.values()):
+        raise PhaseError(f"train: the loop launched kernels {launches}")
+
+    recs = [r for r in logger.history if "loss" in r]
+    events = [r for r in logger.history if "event" in r]
+    steps = [r["step"] for r in recs]
+    replayed = list(range(TRAIN_FAIL_AT)) + list(range(
+        TRAIN_FAIL_AT - TRAIN_FAIL_AT % TRAIN_CKPT_EVERY, TRAIN_STEPS))
+    if step != TRAIN_STEPS or steps != replayed or len(events) != 1:
+        raise PhaseError(f"train: steps {steps}, events {events}")
+    losses = [r["loss"] for r in recs]
+    if not all(math.isfinite(x) for x in losses):
+        raise PhaseError(f"train: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0] - 1.0:
+        raise PhaseError(f"train: the loss fell from {losses[0]} to "
+                         f"{losses[-1]}, not by more than 1.0")
+    twice = {s: [r["loss"] for r in recs if r["step"] == s]
+             for s in set(steps) if steps.count(s) == 2}
+    replay_diff = max(abs(a - b) for a, b in twice.values())
+    if sorted(twice) != [20, 21] or replay_diff != 0.0:
+        raise PhaseError(f"train: replayed losses {twice}")
+    if mgr.all_steps() != [20, 30]:
+        raise PhaseError(f"train: checkpoints kept {mgr.all_steps()}")
+    walls = [r["step_time"] for r in recs]
+    p50 = float(np.median(walls[3:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop_bound_ms = 6 * n_params * tokens / PEAK_F32_S * 1e3
+    adamw_bound_ms = 7 * 4 * n_params / PEAK_BYTES_S * 1e3
+    log(f"  [{gpu}] train: {TRAIN_STEPS} steps of qwen2-0.5b at full width "
+        f"({n_params} parameters, f32), batch {TRAIN_BATCH}x{TRAIN_SEQ} in "
+        f"{TRAIN_ACCUM} microbatches, remat; loss {losses[0]:.4f} (ln V "
+        f"{math.log(cfg.vocab):.4f}) -> {losses[-1]:.4f}; restart at step "
+        f"{TRAIN_FAIL_AT} from step 20, steps 20-21 replayed bit for bit; "
+        f"launches {launches}")
+    log(f"  [{gpu}] train: step wall p50 {p50 * 1e3:.3f} ms over steps "
+        f"3-30 ({tokens / p50:.1f} tokens/s), first step "
+        f"{walls[0] * 1e3:.3f} ms; the loop {loop_s:.3f} s with its "
+        f"checkpoints and restart; bounds: the step's products "
+        f"{flop_bound_ms:.3f} ms (6 x {n_params} x {tokens} f32 flops at "
+        f"67 TFLOP/s), AdamW {adamw_bound_ms:.3f} ms (7 x 4 B x {n_params} "
+        f"at 3.35 TB/s); peak memory of the loop {loop_peak} bytes")
+
+    # the last checkpoint restored to the card and compared with the
+    # live state it was taken from
+    tree = checkpoint_tree(params, opt_state)
+    ckpt_bytes = sum(f.stat().st_size for f in
+                     (Path(ckpt_dir) / f"step_{TRAIN_STEPS}").iterdir())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore(TRAIN_STEPS, tree, device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    live, back = flatten(tree), flatten(restored)
+    if list(live) != list(back):
+        raise PhaseError("train: the restored tree's leaves differ")
+    bad = [k for k in live if not torch.equal(
+        live[k], back[k].to(live[k].device))]
+    del restored, back
+    if bad:
+        raise PhaseError(f"train: restored leaves differ: {bad[:5]}")
+    log(f"  [{gpu}] train: checkpoints of {len(live)} leaves, {ckpt_bytes} "
+        f"bytes: snapshots {[round(x * 1e3, 3) for x in snap_s]} ms, "
+        f"writes {[round(x, 3) for x in write_s]} s (steps 10, 20, 30); "
+        f"step {TRAIN_STEPS} restored to the card in {restore_s:.3f} s, "
+        f"equal to the live state bit for bit")
+
+    # steps timed as the loop runs them, then with deterministic
+    # algorithms off (what the replay's bit-equality costs), one step of
+    # each mode under the profiler
+    split = {"loop": loop_s, "restore": restore_s}
+    t_part = time.perf_counter()
+    train_step = make_train_step(api, tcfg, opt)
+    prof, next_step = {}, [TRAIN_STEPS]
+
+    def one():
+        nonlocal params, opt_state
+        params, opt_state, m = train_step(params, opt_state,
+                                          make_batch(next_step[0]))
+        float(m["loss"])
+        next_step[0] += 1
+
+    for mode in ("deterministic", "nondeterministic"):
+        torch.use_deterministic_algorithms(mode == "deterministic")
+        walls_m = []
+        for _ in range(TRAIN_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            walls_m.append((time.perf_counter() - t0) * 1e3)
+        wall, dev_ms, n_launch, by_kernel = profiled_step(one)
+        share = lambda words: sum(  # noqa: E731
+            v for k, v in by_kernel.items()
+            if any(w in k.lower() for w in words))
+        prof[mode] = dict(
+            step_ms=walls_m, profiled_wall_ms=wall, device_ms=dev_ms,
+            busy_share=dev_ms / wall, launches=n_launch,
+            gemm_ms=share(("gemm", "xmma", "cutlass", "sm90_")),
+            foreach_ms=share(("multi_tensor",)),
+            top_device_ms=dict(sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1])[:8]))
+        top = prof[mode]["top_device_ms"]
+        log(f"  [{gpu}] train, {mode}: step walls "
+            f"{[round(w, 3) for w in walls_m]} ms; one profiled step "
+            f"{dev_ms:.3f} ms of device time in {wall:.3f} ms "
+            f"({100 * dev_ms / wall:.1f}% busy), {n_launch} kernel "
+            f"launches; GEMMs {prof[mode]['gemm_ms']:.3f} ms, foreach "
+            f"(accumulation + AdamW) {prof[mode]['foreach_ms']:.3f} ms; top "
+            f"{ {k[:60]: round(v, 3) for k, v in top.items()} }")
+    torch.use_deterministic_algorithms(True)
+    split["timed_steps"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # the gradients of one batch against the model's f64 twin
+    t, l = data.batch(1000, *TRAIN_GRAD_BATCH)
+    gbatch = {"tokens": t, "labels": l}
+    names = [n for n, _ in params.named_parameters()]
+    loss32, _ = api.loss_fn(params, gbatch, remat=False)
+    g32 = torch.autograd.grad(loss32, list(params.parameters()))
+    twin = copy.deepcopy(params).double()
+    loss64, _ = api.loss_fn(twin, gbatch, remat=False)
+    g64 = torch.autograd.grad(loss64, list(twin.parameters()))
+    grad_rel = {n: float((a.double() - b).abs().max() / b.abs().max())
+                for n, a, b in zip(names, g32, g64)}
+    loss_err = abs(float(loss32.detach()) - float(loss64.detach()))
+    del twin, g64, loss64
+    worst = max(grad_rel, key=grad_rel.get)
+    if grad_rel[worst] > GRAD_F64_REL:
+        raise PhaseError(f"train: gradient of {worst} {grad_rel[worst]} x "
+                         f"max |g64| from f64")
+    log(f"  [{gpu}] train: gradients of a {TRAIN_GRAD_BATCH} batch vs the "
+        f"f64 twin: largest max|g32 - g64| / max|g64| {grad_rel[worst]:.3g} "
+        f"({worst}; limit {GRAD_F64_REL}); loss {loss_err:.3g} apart")
+
+    split["grad_f64"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # one AdamW step on the card against the same step in f64 on the host
+    adam = opt_state[0]
+    host = {n: tuple(x.detach().to("cpu", copy=True) for x in (
+        p, adam.m[n], adam.v[n], g)) for n, p, g in zip(
+            names, params.parameters(), g32)}
+    count = int(adam.count)
+    opt.update(dict(zip(names, g32)), adam, dict(params.named_parameters()),
+               TRAIN_LR)
+    del g32
+    gn = math.sqrt(sum(float((h[3].double() ** 2).sum())
+                       for h in host.values()))
+    scale = min(1.0, opt.clip_norm / (gn + 1e-9))
+    b1c, b2c = 1 - opt.b1 ** (count + 1), 1 - opt.b2 ** (count + 1)
+    adam_err = p_max = 0.0
+    for n, p in params.named_parameters():
+        p0, m0, v0, g = (x.double() for x in host.pop(n))
+        g = g * scale
+        m = opt.b1 * m0 + (1 - opt.b1) * g
+        v = opt.b2 * v0 + (1 - opt.b2) * g * g
+        want = p0 - TRAIN_LR * ((m / b1c) / (torch.sqrt(v / b2c) + opt.eps)
+                                + opt.weight_decay * p0)
+        adam_err = max(adam_err, float((p.detach().cpu().double()
+                                        - want).abs().max()))
+        p_max = max(p_max, float(want.abs().max()))
+    if adam_err > ADAMW_F64_REL * p_max:
+        raise PhaseError(f"train: AdamW step {adam_err} from f64 (max |p| "
+                         f"{p_max})")
+    split["adamw_f64"] = time.perf_counter() - t_part
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    log(f"  [{gpu}] train: one AdamW step (count {count + 1}, lr "
+        f"{TRAIN_LR}, global norm {gn:.4g}) vs f64 on the host: max |dp| "
+        f"{adam_err:.3g} = {adam_err / p_max:.3g} x max |p| (limit "
+        f"{ADAMW_F64_REL}); peak memory of the phase {peak} bytes; the "
+        f"phase's parts {({k: round(v, 3) for k, v in split.items()})} s")
+    return dict(
+        launches={"train": launches}, steps=steps, losses=losses,
+        first_loss=losses[0], last_loss=losses[-1],
+        replayed=twice, replay_max_abs_diff=replay_diff,
+        step_walls_s=walls, step_wall_p50_ms=p50 * 1e3,
+        first_step_ms=walls[0] * 1e3, tokens_per_s=tokens / p50,
+        loop_s=loop_s, flop_bound_ms=flop_bound_ms,
+        adamw_bound_ms=adamw_bound_ms, profiled=prof,
+        loop_peak_bytes=loop_peak, phase_peak_bytes=peak,
+        ckpt_bytes=ckpt_bytes, ckpt_leaves=len(live),
+        ckpt_snapshot_ms=[x * 1e3 for x in snap_s], ckpt_write_s=write_s,
+        restore_s=restore_s, grad_f64_max_rel=grad_rel[worst],
+        grad_f64_worst=worst, grad_f64_rel=grad_rel,
+        adamw_f64_max_abs=adam_err, adamw_f64_rel=adam_err / p_max,
+        n_params=n_params, split_s=split,
+        shape=dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, grad_accum=TRAIN_ACCUM,
+                   steps=TRAIN_STEPS, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                   ckpt_every=TRAIN_CKPT_EVERY, fail_at=TRAIN_FAIL_AT))
+
+
 def lm_timing(timing, dev, results):
     """Phase 4 at the LM path's shapes: l2_distance and distance_topk over
     serve_knn_lm's datastore (B = 8, 2^22 x 896, l = 8), local_topk on
@@ -3626,6 +4007,10 @@ def main(argv=None) -> int:
         print("chip_smoke: src/repro_torch is not beside this script",
               file=sys.stderr)
         return 2
+    # phase train runs under torch.use_deterministic_algorithms, which
+    # needs a fixed cuBLAS workspace before the first cuBLAS call; 8 x 4 MiB
+    # is PyTorch's default on Hopper
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3648,6 +4033,7 @@ def main(argv=None) -> int:
               ("serve_predict", phase_serve_predict),
               ("serve_lm", phase_serve_lm),
               ("serve_knn_lm", phase_serve_knn_lm),
+              ("train", phase_train),
               ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
@@ -3678,7 +4064,7 @@ def main(argv=None) -> int:
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "serve_large_l",
                           "serve_store", "serve_maintained", "serve_predict",
-                          "serve_lm", "serve_knn_lm", "profile"):
+                          "serve_lm", "serve_knn_lm", "train", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -3706,6 +4092,7 @@ def main(argv=None) -> int:
     counts.update(results["serve_maintained"]["launches"])
     counts.update(results["serve_lm"]["launches"])
     counts.update(results["serve_knn_lm"]["launches"])
+    counts.update(results["train"]["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]

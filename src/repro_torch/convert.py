@@ -13,7 +13,9 @@ them, the role weights play elsewhere.
 A reference LM's parameter tree (``repro.models.ModelApi.init_params``,
 as numpy arrays) becomes the port's ``Transformer`` state dict by
 :func:`params_from_jax`: the stacked layers are unstacked and the dummy
-heads the reference pads its head axis with are dropped.
+heads the reference pads its head axis with are dropped.  The same map
+carries a gradient tree across, and :func:`opt_state_from_jax` a
+reference ``AdamWState``.
 """
 
 from __future__ import annotations
@@ -198,3 +200,19 @@ def params_from_jax(tree, cfg) -> dict:
         for name in ("w_gate", "w_up", "w_down"):
             out[p + "ffn." + name] = t(f[name][i])
     return out
+
+
+def opt_state_from_jax(state, cfg):
+    """A dense reference model's ``AdamWState`` (numpy leaves) -> the
+    port's ``optim.AdamWState``: the moments mapped by
+    :func:`params_from_jax` (the dummy heads' entries dropped) and kept
+    in their dtype, f32 or bf16; ``count`` an int32 host tensor."""
+    from repro_torch.optim import AdamWState
+
+    def moments(tree):
+        dt = (torch.bfloat16 if str(np.asarray(
+            tree["embed"]["table"]).dtype) == "bfloat16" else torch.float32)
+        return {k: v.to(dt) for k, v in params_from_jax(tree, cfg).items()}
+    return AdamWState(
+        count=torch.tensor(int(np.asarray(state.count)), dtype=torch.int32),
+        m=moments(state.m), v=moments(state.v))

@@ -1,6 +1,9 @@
-from repro_torch.data.synthetic import (bayes_labels, drifting_clusters,
-                                       gaussian_clusters, labeled_mixture,
-                                       sharded_clusters, uniform_points)
+from repro_torch.data.synthetic import (MarkovTokens, bayes_labels,
+                                       drifting_clusters, gaussian_clusters,
+                                       labeled_mixture, sharded_clusters,
+                                       uniform_points)
+from repro_torch.data.pipeline import Prefetcher
 
-__all__ = ["bayes_labels", "drifting_clusters", "gaussian_clusters",
-           "labeled_mixture", "sharded_clusters", "uniform_points"]
+__all__ = ["MarkovTokens", "Prefetcher", "bayes_labels",
+           "drifting_clusters", "gaussian_clusters", "labeled_mixture",
+           "sharded_clusters", "uniform_points"]

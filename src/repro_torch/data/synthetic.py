@@ -1,6 +1,9 @@
-"""Synthetic point sets for the port's routing and store workloads.
+"""Synthetic data: the LM token stream and the port's point sets.
 
-The port's own copies of ``repro.data.synthetic``'s ``sharded_clusters``
+``MarkovTokens``: the reference's order-2 Markov token stream, numpy
+only, its batches the reference's bit for bit at any ``(step, batch,
+seq_len)`` (a restart from the checkpoint at step s regenerates exactly
+the batches after s).  The port's own copies of ``repro.data.synthetic``'s ``sharded_clusters``
 and ``drifting_clusters``.  ``sharded_clusters``: one Gaussian cluster
 per shard, laid out contiguously, so shard j owns rows ``[j*m, (j+1)*m)``,
 all near ``centers[j]``.  Its numpy path gives the reference's seeded
@@ -21,6 +24,41 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+class MarkovTokens:
+    """Order-2 Markov token stream: p(x_t | x_{t-1}, x_{t-2}) concentrated
+    on a few successors, so a small LM's loss falls quickly below the
+    uniform baseline (the train-smoke criterion)."""
+
+    def __init__(self, vocab: int, seed: int = 0, branch: int = 4,
+                 n_contexts: int = 61):
+        self.vocab = vocab
+        self.branch = branch
+        self.n_contexts = n_contexts
+        rng = np.random.default_rng(seed)
+        # successor table: for each (prev mixed hash) a few allowed tokens
+        self._succ = rng.integers(0, vocab, size=(n_contexts, branch),
+                                  dtype=np.int64)
+
+    def batch(self, step: int, batch: int, seq_len: int):
+        """Returns (tokens, labels) int32 of shape (batch, seq_len)."""
+        rng = np.random.default_rng((step << 20) + 17)
+        out = np.empty((batch, seq_len + 1), np.int64)
+        out[:, 0] = rng.integers(0, self.vocab, batch)
+        out[:, 1] = rng.integers(0, self.vocab, batch)
+        choices = rng.integers(0, self.branch, size=(batch, seq_len + 1))
+        for t in range(2, seq_len + 1):
+            h = (out[:, t - 1] * 31 + out[:, t - 2]) % self.n_contexts
+            out[:, t] = self._succ[h, choices[:, t]]
+        tokens = out[:, :-1].astype(np.int32)
+        labels = out[:, 1:].astype(np.int32)
+        return tokens, labels
+
+    @property
+    def entropy_floor(self) -> float:
+        """Ideal CE of the stream (log branch) — the learnability target."""
+        return float(np.log(self.branch))
 
 
 def uniform_points(n: int, dim: int, seed: int = 0,

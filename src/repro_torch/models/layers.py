@@ -4,7 +4,7 @@ Port of ``repro.models.layers``.  Plain functions on tensors, plus the
 norm as an ``nn.Module`` holding its scale.  Arithmetic that the
 reference does in f32 is done in f32 here, or in f64 when the input is
 f64 (``compute_dtype``), so one model can also run as its own f64
-reference.  The sharded-vocab cross entropy comes with training.
+reference.
 """
 
 from __future__ import annotations
@@ -73,3 +73,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x2 = x[..., half:].to(ct)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
     return out.to(x.dtype)
+
+
+# ---- loss -------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits`` (B, S,
+    V), in f32 (f64 for f64 logits): logsumexp minus the label's logit.
+    With ``mask`` (B, S), the sum over valid tokens over the mask's sum,
+    floored at 1."""
+    logits = logits.to(compute_dtype(logits))
+    m = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.long().unsqueeze(-1))[..., 0]
+    nll = m - label_logit
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -10,7 +10,8 @@ the whole row, the reference's no-mesh path.
 
 The parameters are a :class:`~repro_torch.models.transformer.Transformer`
 module; its device is where every step runs.  The serving entry points
-run without autograd.  Families other than dense raise
+run without autograd; ``loss_fn`` is the training step's, on a module
+made with ``init_params(train=True)``.  Families other than dense raise
 ``NotImplementedError`` in :func:`build_model`.
 """
 
@@ -48,18 +49,28 @@ class ModelApi:
     cfg: ModelConfig
 
     # ---- parameters -------------------------------------------------------
-    def init_params(self, seed: int = 0,
-                    device=None) -> transformer.Transformer:
-        """A seeded random f32 model on ``device`` (the card when None),
-        for serving: no autograd."""
+    def init_params(self, seed: int = 0, device=None,
+                    train: bool = False) -> transformer.Transformer:
+        """A seeded random f32 model on ``device`` (the card when None):
+        for serving, no autograd; with ``train``, trainable parameters."""
         dev = resolve_device(device)
         model = transformer.Transformer(self.cfg, device=dev)
         g = torch.Generator(device=dev)
         g.manual_seed(int(seed))
         transformer.init_params(model, g)
-        return model.requires_grad_(False).eval()
+        return model.requires_grad_(train).train(train)
 
     # ---- steps ------------------------------------------------------------
+    def loss_fn(self, params, batch, remat: bool = True):
+        """``(loss, {"ce", "aux"})`` of ``batch`` (``tokens``, ``labels``,
+        optional ``mask``; numpy or tensors) under the model ``params``."""
+        dev = params.embed.table.device
+        b = {"tokens": _tokens(batch["tokens"], dev),
+             "labels": _tokens(batch["labels"], dev)}
+        if batch.get("mask") is not None:
+            b["mask"] = torch.as_tensor(batch["mask"], device=dev)
+        return transformer.loss_fn(params, b, remat=remat)
+
     def forward(self, params, batch):
         """``(logits (B, S, V), aux_loss)`` over ``batch["tokens"]``."""
         return transformer.forward(params, _tokens(

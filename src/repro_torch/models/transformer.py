@@ -4,8 +4,9 @@ Port of ``repro.models.transformer`` for ``family="dense"``.  The
 reference stacks its layers into super-blocks driven by ``lax.scan``, a
 compile economy; here the layers are a ``ModuleList`` run in order.
 Entry points are plain functions on a :class:`Transformer`: ``forward``
-(full-sequence logits), ``prefill`` (the prompt into the cache, the
-last position's logits), ``decode_step`` (one token), ``init_cache``.
+(full-sequence logits), ``loss_fn`` (its cross entropy, for training),
+``prefill`` (the prompt into the cache, the last position's logits),
+``decode_step`` (one token), ``init_cache``.
 
 :func:`init_params` is the seeded init of ``repro.models.creator``'s
 rules: embedding tables ``0.02 * N(0, 1)``; matrices ``N(0, 1) /
@@ -22,6 +23,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
@@ -119,16 +121,34 @@ def _mlp_residual(blk: Block, x):
     return x + blk.ffn(blk.ln2(x))
 
 
-def forward(model: Transformer, tokens):
+def _layer(blk: Block, x, positions, kw: dict):
+    x = x + attn.causal_attention(blk.attn, blk.ln1(x), positions, **kw)
+    return _mlp_residual(blk, x)
+
+
+def forward(model: Transformer, tokens, remat: bool = False):
     """Full-sequence forward -> ``(logits (B, S, V), aux_loss)``; the
-    dense family's aux loss is 0."""
+    dense family's aux loss is 0.  ``remat``: each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass
+    (the reference's ``jax.checkpoint`` over its scanned blocks)."""
     x, positions = _embed_inputs(model, tokens)
     kw = model.attn_kwargs()
     for blk in model.blocks:
-        x = x + attn.causal_attention(blk.attn, blk.ln1(x), positions, **kw)
-        x = _mlp_residual(blk, x)
+        if remat:
+            x = checkpoint(_layer, blk, x, positions, kw,
+                           use_reentrant=False)
+        else:
+            x = _layer(blk, x, positions, kw)
     x = model.final_ln(x)
     return layers.unembed(x, model.head_table()), x.new_zeros(())
+
+
+def loss_fn(model: Transformer, batch: dict, remat: bool = True):
+    """``batch``: ``{"tokens", "labels", "mask"?}`` tensors on the model's
+    device -> ``(ce + 0.01 * aux, {"ce", "aux"})``."""
+    logits, aux = forward(model, batch["tokens"], remat=remat)
+    ce = layers.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,

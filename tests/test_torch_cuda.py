@@ -1098,3 +1098,46 @@ def test_lm_server_on_the_card(card):
     for s in range(5):
         err = (logged[s] - full[:, prompt.shape[1] + s]).abs().max()
         assert float(err) < 5e-3
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One train step of qwen2-0.5b's reduced config (grad_accum 2,
+    remat) from the same seeded weights on the card and on the CPU: loss
+    within 1e-5; 99% of the parameters' elements within 1e-5 x max |p|
+    and every tensor's displacement within 1% (relative L2), as
+    tests/test_torch_train.py holds the port to the reference; no kernel
+    of ``repro_torch.kernels`` launched."""
+    from repro_torch import configs
+    from repro_torch.data import MarkovTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import (TrainConfig, init_opt_state,
+                                     make_train_step)
+    cfg = configs.get("qwen2-0.5b").reduced()
+    api = build_model(cfg)
+    t, l = MarkovTokens(cfg.vocab, seed=3, branch=2,
+                        n_contexts=13).batch(0, 8, 32)
+    tcfg = TrainConfig(grad_accum=2, peak_lr=3e-3, warmup_steps=5,
+                       total_steps=20)
+    out = {}
+    before = ops.launch_counts()
+    for dev in ("cpu", card):
+        model = api.init_params(0, device="cpu", train=True).to(dev)
+        opt = AdamW(weight_decay=0.01)
+        state = init_opt_state(api, tcfg, opt, model)
+        model, state, m = make_train_step(api, tcfg, opt)(
+            model, state, {"tokens": t, "labels": l})
+        out[str(dev)] = (float(m["loss"]), {n: p.detach().cpu() for n, p
+                                            in model.named_parameters()})
+    assert ops.launch_counts() == before
+    (lc, pc), (lg, pg) = out["cpu"], out[str(card)]
+    assert abs(lc - lg) <= 1e-5
+    start = {n: p.detach() for n, p in api.init_params(
+        0, device="cpu").named_parameters()}
+    pmax = max(float(p.abs().max()) for p in pc.values())
+    far = sum(int(((pc[n] - pg[n]).abs() > 1e-5 * pmax).sum()) for n in pc)
+    assert far <= 0.01 * sum(p.numel() for p in pc.values()), far
+    for n in pc:
+        moved, moved_ref = pg[n] - start[n], pc[n] - start[n]
+        assert float((moved - moved_ref).norm()) <= 1e-2 * float(
+            moved_ref.norm()), n

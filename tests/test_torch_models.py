@@ -277,3 +277,58 @@ def test_dummy_heads_are_dropped(rng):
     sd2 = convert.params_from_jax(tree, cfg)
     assert all(torch.equal(sd[n], sd2[n]) for n in sd)
     assert sorted(sd) == sorted(ttr.Transformer(cfg).state_dict())
+
+
+# ---- the KV cache's two divergences from the reference ----------------------
+
+def test_full_kv_cache_raises_where_the_reference_clamps(rng):
+    """At ``length == S_max`` the reference's ``dynamic_update_slice``
+    clamps the write onto the last slot and attends over every slot
+    (its output silently wrong; its length passes S_max); the port
+    raises instead."""
+    p, m, kw = _attn_pair(rng, bias=False)
+    B, s_max = 2, 4
+    x = rng.normal(size=(B, s_max, 32)).astype(np.float32)
+    pos = np.tile(np.arange(s_max, dtype=np.int32), (B, 1))
+    jc = jattn.KVCache(k=jnp.zeros((B, s_max, 2, 8)),
+                       v=jnp.zeros((B, s_max, 2, 8)), length=jnp.int32(0))
+    _, jc = jattn.prefill_into_cache(p, jnp.asarray(x), jnp.asarray(pos),
+                                     jc, **kw)
+    tc = tattn.init_cache(B, s_max, 2, 8)
+    _, tc = tattn.prefill_into_cache(m, _t(x), torch.from_numpy(pos), tc,
+                                     **kw)
+    assert tc.length == int(jc.length) == s_max
+    x1 = rng.normal(size=(B, 1, 32)).astype(np.float32)
+    _, jc2 = jattn.decode_attention(p, jnp.asarray(x1), jc, **kw)
+    assert int(jc2.length) == s_max + 1
+    assert not np.array_equal(np.asarray(jc2.k[:, -1]),
+                              np.asarray(jc.k[:, -1]))   # clamped write
+    with pytest.raises(ValueError, match="KV cache full"):
+        tattn.decode_attention(m, _t(x1), tc, **kw)
+
+
+def test_kv_cache_is_written_in_place(rng):
+    """The port writes k/v into the cache's storage: a cache object the
+    caller kept shares it with the next one (the reference's arrays are
+    immutable, so its older cache stays as it was)."""
+    p, m, kw = _attn_pair(rng, bias=False)
+    B, s_max = 2, 6
+    x = rng.normal(size=(B, 3, 32)).astype(np.float32)
+    pos = np.tile(np.arange(3, dtype=np.int32), (B, 1))
+    tc = tattn.init_cache(B, s_max, 2, 8)
+    _, kept = tattn.prefill_into_cache(m, _t(x), torch.from_numpy(pos), tc,
+                                       **kw)
+    before = kept.k.clone()
+    x1 = rng.normal(size=(B, 1, 32)).astype(np.float32)
+    _, nxt = tattn.decode_attention(m, _t(x1), kept, **kw)
+    assert (kept.length, nxt.length) == (3, 4)
+    assert nxt.k.data_ptr() == kept.k.data_ptr() == tc.k.data_ptr()
+    assert not torch.equal(kept.k, before)             # slot 3 written
+    assert torch.equal(kept.k[:, :3], before[:, :3])
+    jc = jattn.KVCache(k=jnp.zeros((B, s_max, 2, 8)),
+                       v=jnp.zeros((B, s_max, 2, 8)), length=jnp.int32(0))
+    _, jkept = jattn.prefill_into_cache(p, jnp.asarray(x), jnp.asarray(pos),
+                                        jc, **kw)
+    jbefore = np.asarray(jkept.k).copy()
+    jattn.decode_attention(p, jnp.asarray(x1), jkept, **kw)
+    np.testing.assert_array_equal(np.asarray(jkept.k), jbefore)
