@@ -110,6 +110,24 @@ Phases:
      teacher-forced forward, local_topk launched; reported: prefill ms,
      decode ms a step beside the weight-read bound, tokens/s, selection
      iterations and host syncs a step, peak memory;
+  3g2. serve_families: the moe, hybrid, vlm, audio and ssm families,
+     one model at a time, f32 seeded: granite-moe-3b at full width and
+     depth (32 layers, d 1536, 40 experts top-8, vocabulary 49,155),
+     xlstm-125m and seamless-m4t-v2 full (1,024 stub frames),
+     pixtral-12b at 4 of 40 layers (256 stub patch embeds), phi3.5-moe
+     at 2 of 32 layers, jamba at d_model 2048 with one 8-layer
+     super-block and 16 experts; 8 prompts of 128 tokens, 32 new,
+     through Server.generate over 8 vocabulary shards at top_k 50, both
+     samplers: each step's top-k equal to a stable sort of its row, the
+     samplers' tokens equal, local_topk launched; prefill and 4 decode
+     steps within 1e-3 x max |logit| of the f64 twin, which replays the
+     f32 run's MoE routing (the slots f64 would route otherwise
+     reported); decode against teacher forcing for xlstm, seamless and
+     pixtral; jamba's chunked Mamba state against the exact recurrence
+     in f64 (reported); reported: prefill ms, decode ms a step beside
+     the weight-read bound, tokens/s, one profiled step's device time,
+     busy share and launches, peak memory; then three train_loop steps
+     with remat of granite at 2 layers and of xlstm, finite and moving;
   3h. serve_knn_lm: the kNN-LM example (repro_torch.examples.
      knn_lm_serve) at full width: qwen2-0.5b decoding while a static
      KnnServer (k = 8, route exact) serves a datastore of 2^22 keys x 896
@@ -2876,6 +2894,322 @@ def phase_serve_lm(dev, gpu, results):
     torch.cuda.empty_cache()
 
 
+# phase serve_families: each arch with its cut, in the order run; the
+# sizes fit f32 weights and the f64 twin on one 80 GB card
+FAM_RUNS = (
+    ("granite-moe-3b-a800m", {}),
+    ("xlstm-125m", {}),
+    ("seamless-m4t-large-v2", {}),
+    ("pixtral-12b", dict(n_layers=4)),
+    ("phi3.5-moe-42b-a6.6b", dict(n_layers=2)),
+    # one MoE layer of the full width is 38.7 GB: d_model 8192 -> 2048
+    ("jamba-1.5-large-398b", dict(d_model=2048, n_heads=16, n_kv_heads=2,
+                                  head_dim=128, d_ff=6144, n_layers=8,
+                                  n_experts=16, moe_top_k=2)),
+)
+FAM_CONTINUOUS = ("xlstm-125m", "seamless-m4t-large-v2", "pixtral-12b")
+FAM_BATCH, FAM_PROMPT, FAM_NEW = 8, 128, 32
+FAM_F64_STEPS = 4             # decode steps held against the f64 twin
+FAM_TRAIN = (("granite-moe-3b-a800m", dict(n_layers=2)), ("xlstm-125m", {}))
+FAM_TRAIN_STEPS = 3
+
+
+def family_config(arch, cut):
+    import dataclasses
+    import repro_torch.configs as configs
+    return dataclasses.replace(configs.get(arch), **cut)
+
+
+class RouteLog:
+    """Wraps ``repro_torch.models.moe.route``: in ``record`` mode it keeps
+    each call's expert ids; in ``replay`` mode it hands them back in the
+    same order, the gates computed from the call's own probabilities, and
+    counts the (token, k) slots where the call's own routing differs."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.route
+        self.ids, self.mode, self.at, self.flips = [], None, 0, 0
+
+    def __call__(self, probs, top_k):
+        gate, idx = self.orig(probs, top_k)
+        if self.mode == "record":
+            self.ids.append(idx.clone())
+        elif self.mode == "replay":
+            want = self.ids[self.at]
+            self.at += 1
+            self.flips += int((idx != want).sum())
+            gate = probs.gather(-1, want)
+            gate, idx = gate / gate.sum(-1, keepdim=True), want
+        return gate, idx
+
+    def __enter__(self):
+        self.moe.route = self
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.orig
+
+
+def mamba_clip_gap(p64, batch, api, dev):
+    """The f64 prefill's chunked (clipped) final SSM state of each Mamba
+    layer against the exact recurrence over the same layer input, token
+    by token: ``[max |chunked - exact| / max |exact|]`` a layer."""
+    import torch
+    from repro_torch.models import mamba
+    inputs, orig = [], mamba.mamba_prefill
+
+    def keep(p, x, cache, **kw):
+        inputs.append((p, x.clone()))
+        return orig(p, x, cache, **kw)
+    cfg = api.cfg
+    mamba.mamba_prefill = keep
+    try:
+        api.prefill(p64, batch, api.init_cache(
+            FAM_BATCH, FAM_PROMPT + 8, dtype=torch.float64, device=dev))
+    finally:
+        mamba.mamba_prefill = orig
+    gaps = []
+    with torch.no_grad():
+        for p, x in inputs:
+            kw = dict(expand=cfg.mamba_expand, d_state=cfg.mamba_d_state,
+                      d_conv=cfg.mamba_d_conv, dtype=x.dtype, device=dev)
+            chunked = mamba.init_mamba_cache(x.shape[0], cfg.d_model, **kw)
+            mamba.mamba_prefill(p, x, chunked, d_state=cfg.mamba_d_state)
+            exact = mamba.init_mamba_cache(x.shape[0], cfg.d_model, **kw)
+            for t in range(x.shape[1]):
+                mamba.mamba_decode_step(p, x[:, t:t + 1], exact,
+                                        d_state=cfg.mamba_d_state)
+            gaps.append(float((chunked.ssm - exact.ssm).abs().max()
+                              / exact.ssm.abs().max()))
+    return gaps
+
+
+def family_run(dev, gpu, arch, cut, launches):
+    """serve_families for one arch: checked runs under both samplers,
+    the f64 twin, teacher forcing or the Mamba clip, a timed run and a
+    profiled step.  Returns its record."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import build_model
+    from repro_torch.runtime import ServeConfig, Server
+
+    cfg = family_config(arch, cut)
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0, device=dev)
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    rng = np.random.default_rng(22)
+    prompt = rng.integers(0, cfg.vocab, (FAM_BATCH, FAM_PROMPT)).astype(
+        np.int32)
+    batch = {"tokens": prompt, **stub_inputs(cfg, rng, FAM_BATCH)}
+    P = cfg.num_prefix_embeds if cfg.family == "vlm" else 0
+    max_seq = P + FAM_PROMPT + FAM_NEW + 8
+
+    def server(sampler, observe=None):
+        return Server(api, params, ServeConfig(
+            max_seq=max_seq, top_k=LM_TOP_K, temperature=LM_TEMP,
+            sampler=sampler), shards=LM_SHARDS, observe=observe)
+
+    gens, logged = {}, {}
+    for sampler in ("selection", "gather"):
+        steps, bad = [], []
+
+        def observe(logits, res):
+            srt = torch.sort(logits, dim=-1, descending=True, stable=True)
+            if not (torch.equal(res.indices.long(),
+                                srt.indices[:, :LM_TOP_K])
+                    and torch.equal(res.values, srt.values[:, :LM_TOP_K])):
+                bad.append(len(steps))
+            steps.append(logits.clone())
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        gen, _ = server(sampler, observe).generate(batch, FAM_NEW, key=1)
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        if counts["local_topk"] < 1:
+            raise PhaseError(f"serve_families {arch} {sampler}: local_topk "
+                             f"never launched")
+        if bad:
+            raise PhaseError(f"serve_families {arch} {sampler}: the top-k of "
+                             f"steps {bad} differs from a stable sort")
+        launches[f"fam_{arch}_{sampler}"] = counts
+        gens[sampler], logged[sampler] = gen, steps
+    if not np.array_equal(gens["selection"], gens["gather"]):
+        raise PhaseError(f"serve_families {arch}: the samplers drew other "
+                         f"tokens")
+    gen, steps = gens["selection"], logged.pop("selection")
+    del logged
+
+    # prefill and the first decode steps against the f64 twin, which
+    # replays the f32 run's routing
+    def check_run(model, dtype, routes, mode):
+        routes.mode = mode
+        cache = api.init_cache(FAM_BATCH, max_seq, dtype=dtype, device=dev)
+        out = [api.prefill(model, batch, cache)[0]]
+        for i in range(FAM_F64_STEPS):
+            lg, cache = api.decode_step(model, torch.as_tensor(
+                gen[:, i], device=dev), cache)
+            out.append(lg)
+        routes.mode = None
+        return out
+    with RouteLog() as routes:
+        got = check_run(params, torch.float32, routes, "record")
+        p64 = copy.deepcopy(params).double()
+        want = check_run(p64, torch.float64, routes, "replay")
+    f64_err = [float((g.double() - w).abs().max() / w.abs().max())
+               for g, w in zip(got, want)]
+    if max(f64_err) > LM_F64_REL:
+        raise PhaseError(f"serve_families {arch}: logits vs f64 {f64_err} "
+                         f"above {LM_F64_REL} x max |logit|")
+    rec = dict(cut=cut, weight_bytes=weight_bytes, f64_max_rel_err=f64_err,
+               route_calls=len(routes.ids), f64_route_flips=routes.flips,
+               max_abs_logit=float(want[0].abs().max()))
+    pre32 = got[0]
+    del got, want
+    msg = (f"prefill + {FAM_F64_STEPS} decode steps vs f64 max rel "
+           f"{max(f64_err):.3g}")
+    if cfg.n_experts:
+        msg += (f" (routing of {len(routes.ids)} calls replayed; f64 would "
+                f"have routed {routes.flips} slots otherwise)")
+    if cfg.family == "hybrid":
+        rec["mamba_clip_gap"] = gaps = mamba_clip_gap(p64, batch, api, dev)
+        msg += f"; Mamba chunked vs exact final state, rel {max(gaps):.3g}"
+    del p64
+    torch.cuda.empty_cache()
+    if arch in FAM_CONTINUOUS:
+        ext = dict(batch, tokens=np.concatenate([prompt, gen[:, :-1]], 1))
+        with torch.no_grad():
+            full, _ = api.forward(params, ext)
+        pre_err = float((pre32 - full[:, P + FAM_PROMPT - 1]).abs().max())
+        dec_err = max(float((s - full[:, P + FAM_PROMPT + i]).abs().max())
+                      for i, s in enumerate(steps))
+        del full
+        if pre_err > PREFILL_TOL or dec_err > DECODE_TOL:
+            raise PhaseError(f"serve_families {arch}: vs teacher forcing "
+                             f"prefill {pre_err}, decode {dec_err}")
+        rec.update(prefill_err=pre_err, decode_err=dec_err)
+        msg += f"; vs teacher forcing prefill {pre_err:.3g}, decode " \
+               f"{dec_err:.3g}"
+    del steps
+    log(f"  [{gpu}] serve_families {arch}: {FAM_NEW - 1} decode steps a "
+        f"sampler, each top-{LM_TOP_K} equal to a stable sort, the samplers' "
+        f"tokens equal; {msg}")
+
+    # a timed run (no comparisons), then one profiled serve_step
+    again, stats = server("selection").generate(batch, FAM_NEW, key=1)
+    if not np.array_equal(again, gen):
+        raise PhaseError(f"serve_families {arch}: the timed run drew other "
+                         f"tokens")
+    cache = api.init_cache(FAM_BATCH, max_seq, device=dev)
+    lg, cache = api.prefill(params, batch, cache)
+    tok = torch.argmax(lg, -1).to(torch.int32)
+    wall, dev_ms, nlaunch, by_kernel = profiled_step(
+        lambda: api.serve_step(params, tok, cache, 7, shards=LM_SHARDS,
+                               top_k=LM_TOP_K, temperature=LM_TEMP))
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:4])
+    rec.update(
+        prefill_ms=stats["prefill_s"] * 1e3,
+        decode_ms_per_step=stats["decode_s"] / (FAM_NEW - 1) * 1e3,
+        tok_per_s=stats["tok_per_s"],
+        weight_read_bound_ms=weight_bytes / PEAK_BYTES_S * 1e3,
+        profiled_wall_ms=wall, profiled_device_ms=dev_ms,
+        device_busy_share=dev_ms / wall, launches_per_step=nlaunch,
+        top_device_ms={k[:60]: v for k, v in top.items()},
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"  [{gpu}] serve_families {arch}: prefill {FAM_BATCH}x"
+        f"{P + FAM_PROMPT} {rec['prefill_ms']:.3f} ms; decode "
+        f"{rec['decode_ms_per_step']:.3f} ms a step (weight-read bound "
+        f"{rec['weight_read_bound_ms']:.3f} ms for {weight_bytes} bytes); "
+        f"{stats['tok_per_s']:.1f} tokens/s; one profiled step {dev_ms:.3f} "
+        f"ms of device time in {wall:.3f} ms ({100 * dev_ms / wall:.1f}% "
+        f"busy), {nlaunch} launches; peak memory "
+        f"{rec['max_memory_allocated']} bytes")
+    return rec
+
+
+def family_train(dev, gpu, arch, cut):
+    """Three ``train_loop`` steps with remat: the loss finite, every
+    parameter tensor moved."""
+    import math
+    import torch
+    from repro_torch.data import MarkovTokens
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import (MetricLogger, TrainConfig,
+                                     init_opt_state, train_loop)
+    cfg = family_config(arch, cut)
+    api = build_model(cfg)
+    params = api.init_params(0, device=dev, train=True)
+    start = {n: p.detach().clone() for n, p in params.named_parameters()}
+    tcfg = TrainConfig(grad_accum=2, peak_lr=1e-3, warmup_steps=1,
+                       total_steps=FAM_TRAIN_STEPS, remat=True)
+    opt = AdamW()
+    data = MarkovTokens(cfg.vocab, seed=0, branch=2, n_contexts=13)
+
+    def make_batch(step):
+        t, l = data.batch(step, FAM_BATCH, FAM_PROMPT)
+        return {"tokens": t, "labels": l}
+    logger = MetricLogger()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, _, step = train_loop(
+        api=api, tcfg=tcfg, optimizer=opt, params=params,
+        opt_state=init_opt_state(api, tcfg, opt, params),
+        make_batch=make_batch, num_steps=FAM_TRAIN_STEPS, logger=logger,
+        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [r["loss"] for r in logger.history if "loss" in r]
+    still = [n for n, p in params.named_parameters()
+             if torch.equal(p.detach(), start[n])]
+    if step != FAM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise PhaseError(f"serve_families train {arch}: steps {step}, "
+                         f"losses {losses}")
+    if still:
+        raise PhaseError(f"serve_families train {arch}: {still[:4]} did not "
+                         f"move")
+    log(f"  [{gpu}] serve_families train {arch} {cut}: {step} steps of "
+        f"{FAM_BATCH}x{FAM_PROMPT} with remat, losses {losses}, every "
+        f"parameter moved, {wall:.3f} s")
+    return dict(cut=cut, losses=losses, wall_s=wall)
+
+
+def phase_serve_families(dev, gpu, results):
+    """The moe, hybrid, vlm, audio and ssm families (FAM_RUNS: granite-
+    moe-3b at full width and depth, the others at the cuts listed),
+    f32 seeded, B = 8 prompts of 128 tokens (the vlm's after 256 stub
+    patch embeds, the audio's over 1,024 stub frames), 32 new tokens
+    through Server.generate over 8 vocabulary shards at top_k 50, both
+    samplers: each step's top-k equal to a stable sort of its row, the
+    samplers' tokens equal, local_topk launched; prefill and 4 decode
+    steps within 1e-3 x max |logit| of the f64 twin (which replays the
+    f32 run's MoE routing); decode against teacher forcing for the
+    continuous families; jamba's chunked Mamba state against the exact
+    recurrence in f64 (reported); timings and one profiled step; then
+    three train_loop steps of granite at 2 layers and xlstm.  One model
+    at a time, freed before the next."""
+    import gc
+    import torch
+    launches, out = {}, {}
+    for arch, cut in FAM_RUNS:
+        out[arch] = family_run(dev, gpu, arch, cut, launches)
+        gc.collect()
+        torch.cuda.empty_cache()
+    train = {arch: family_train(dev, gpu, arch, cut)
+             for arch, cut in FAM_TRAIN}
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["serve_families"] = dict(
+        runs=out, train=train, launches=launches,
+        shape=dict(batch=FAM_BATCH, prompt=FAM_PROMPT, new=FAM_NEW,
+                   shards=LM_SHARDS, top_k=LM_TOP_K, temperature=LM_TEMP))
+
+
 def brute_f64(keys, q, l, chunk=1 << 18):
     """The l + 1 nearest keys of each query ``q`` (B, d), in f64 over all
     of ``keys`` (n, d) on the card, chunk by chunk: ``((B, l+1) f64
@@ -4032,6 +4366,7 @@ def main(argv=None) -> int:
               ("serve_maintained", phase_serve_maintained),
               ("serve_predict", phase_serve_predict),
               ("serve_lm", phase_serve_lm),
+              ("serve_families", phase_serve_families),
               ("serve_knn_lm", phase_serve_knn_lm),
               ("train", phase_train),
               ("timing", phase_timing)]
@@ -4064,7 +4399,8 @@ def main(argv=None) -> int:
                 log(f"  local_topk blocks per SM at l={L}: {bps}")
             elif name in ("serve", "serve_routed", "serve_large_l",
                           "serve_store", "serve_maintained", "serve_predict",
-                          "serve_lm", "serve_knn_lm", "train", "profile"):
+                          "serve_lm", "serve_families", "serve_knn_lm",
+                          "train", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -4091,6 +4427,7 @@ def main(argv=None) -> int:
     counts.update(results["serve_predict"]["launches"])
     counts.update(results["serve_maintained"]["launches"])
     counts.update(results["serve_lm"]["launches"])
+    counts.update(results["serve_families"]["launches"])
     counts.update(results["serve_knn_lm"]["launches"])
     counts.update(results["train"]["launches"])
     kernels = []

@@ -11,9 +11,10 @@ and valid, ``(k*cap, ...)`` with shard j owning slots ``[j*cap,
 them, the role weights play elsewhere.
 
 A reference LM's parameter tree (``repro.models.ModelApi.init_params``,
-as numpy arrays) becomes the port's ``Transformer`` state dict by
-:func:`params_from_jax`: the stacked layers are unstacked and the dummy
-heads the reference pads its head axis with are dropped.  The same map
+as numpy arrays) becomes the port's model state dict by
+:func:`params_from_jax`, for every family: the stacked layers (and
+super-blocks) are unstacked, and the dummy heads and dummy experts the
+reference pads its head and expert axes with are dropped.  The same map
 carries a gradient tree across, and :func:`opt_state_from_jax` a
 reference ``AdamWState``.
 """
@@ -156,16 +157,25 @@ def real_heads(n_phys: int, n_kv_phys: int, n_kv: int, group: int):
 
 
 def params_from_jax(tree, cfg) -> dict:
-    """A dense reference model's parameter tree -> the port's
-    ``models.transformer.Transformer`` state dict (CPU f32 tensors).
+    """A reference model's parameter tree -> the port's state dict (CPU
+    f32 tensors): a ``models.transformer.Transformer``'s, or for the
+    audio family a ``models.encdec.EncDec``'s.
 
-    ``tree``: ``{"embed": {"table"}, "final_ln": {"scale"},
-    "blocks": {"sub0": {...}}, ["lm_head": {"table"}]}`` as numpy
-    arrays, every leaf of ``blocks/sub0`` stacked over ``cfg.n_layers``.
-    The columns of ``wq``/``bq`` and the rows of ``wo`` that belong to
-    the dummy heads of ``cfg.head_pad_to`` (and the KV columns of
-    ``kv_head_pad_to``) are dropped, keeping the real heads in order.
+    ``tree``: the reference's ``init_params`` tree as numpy arrays.
+    Decoder-only: ``{"embed", "final_ln", "blocks": {"sub{j}": ...},
+    ["lm_head"]}``, every leaf of ``blocks/sub{j}`` stacked over the
+    super-blocks, so layer ``sb * p + j`` (p =
+    ``transformer.superblock_size(cfg)``) is ``blocks/sub{j}[sb]``.
+    Encoder-decoder: ``enc_blocks`` and ``dec_blocks`` stacked over
+    their layers, ``enc_ln``; the decoder's ``self`` becomes
+    ``self_attn``.  Dropped on the way: the columns of ``wq``/``bq``
+    and the rows of ``wo`` that belong to the dummy heads of
+    ``cfg.head_pad_to`` (and the KV columns of ``kv_head_pad_to``),
+    keeping the real heads in order, and the expert weights of the
+    dummy experts of ``cfg.expert_pad_to``, keeping the first
+    ``n_experts``.
     """
+    from repro_torch.models.transformer import superblock_size
     hd = cfg.head_dim
     heads = real_heads(cfg.n_heads_phys, cfg.n_kv_phys, cfg.n_kv_heads,
                        cfg.head_group)
@@ -178,34 +188,53 @@ def params_from_jax(tree, cfg) -> dict:
     def t(x):
         return torch.from_numpy(np.array(x, np.float32))
 
+    def attention(p, a, i):
+        out = {p + "wq": t(cols(np.asarray(a["wq"][i]), heads)),
+               p + "wk": t(cols(np.asarray(a["wk"][i]), kv)),
+               p + "wv": t(cols(np.asarray(a["wv"][i]), kv)),
+               p + "wo": t(cols(np.asarray(a["wo"][i]).T, heads).T)}
+        if "bq" in a:
+            out[p + "bq"] = t(cols(np.asarray(a["bq"][i]), heads))
+            out[p + "bk"] = t(cols(np.asarray(a["bk"][i]), kv))
+            out[p + "bv"] = t(cols(np.asarray(a["bv"][i]), kv))
+        return out
+
+    def layer(p, sub, i):
+        out = {}
+        for name, leaves in sub.items():
+            q = p + {"self": "self_attn"}.get(name, name) + "."
+            if name in ("attn", "self", "cross"):
+                out.update(attention(q, leaves, i))
+                continue
+            for leaf, x in leaves.items():
+                x = np.asarray(x[i])
+                if name == "moe" and leaf != "router":
+                    x = x[:cfg.n_experts]
+                out[q + leaf] = t(x)
+        return out
+
     out = {"embed.table": t(tree["embed"]["table"]),
            "final_ln.scale": t(tree["final_ln"]["scale"])}
     if "lm_head" in tree:
         out["lm_head.table"] = t(tree["lm_head"]["table"])
-    sub = tree["blocks"]["sub0"]
-    a, f = sub["attn"], sub["ffn"]
+    if cfg.is_encdec:
+        out["enc_ln.scale"] = t(tree["enc_ln"]["scale"])
+        for i in range(cfg.n_enc_layers):
+            out.update(layer(f"enc_blocks.{i}.", tree["enc_blocks"], i))
+        for i in range(cfg.n_layers):
+            out.update(layer(f"dec_blocks.{i}.", tree["dec_blocks"], i))
+        return out
+    p = superblock_size(cfg)
     for i in range(cfg.n_layers):
-        p = f"blocks.{i}."
-        out[p + "ln1.scale"] = t(sub["ln1"]["scale"][i])
-        out[p + "ln2.scale"] = t(sub["ln2"]["scale"][i])
-        out[p + "attn.wq"] = t(cols(np.asarray(a["wq"][i]), heads))
-        out[p + "attn.wk"] = t(cols(np.asarray(a["wk"][i]), kv))
-        out[p + "attn.wv"] = t(cols(np.asarray(a["wv"][i]), kv))
-        wo = np.asarray(a["wo"][i])
-        out[p + "attn.wo"] = t(cols(wo.T, heads).T)
-        if "bq" in a:
-            out[p + "attn.bq"] = t(cols(np.asarray(a["bq"][i]), heads))
-            out[p + "attn.bk"] = t(cols(np.asarray(a["bk"][i]), kv))
-            out[p + "attn.bv"] = t(cols(np.asarray(a["bv"][i]), kv))
-        for name in ("w_gate", "w_up", "w_down"):
-            out[p + "ffn." + name] = t(f[name][i])
+        out.update(layer(f"blocks.{i}.", tree["blocks"][f"sub{i % p}"],
+                         i // p))
     return out
 
 
 def opt_state_from_jax(state, cfg):
-    """A dense reference model's ``AdamWState`` (numpy leaves) -> the
-    port's ``optim.AdamWState``: the moments mapped by
-    :func:`params_from_jax` (the dummy heads' entries dropped) and kept
+    """A reference model's ``AdamWState`` (numpy leaves) -> the port's
+    ``optim.AdamWState``: the moments mapped by :func:`params_from_jax`
+    (the dummy heads' and experts' entries dropped) and kept
     in their dtype, f32 or bf16; ``count`` an int32 host tensor."""
     from repro_torch.optim import AdamWState
 

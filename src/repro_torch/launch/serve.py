@@ -10,8 +10,10 @@ point shards for the l-NN service), and ``--device`` is the card unless
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
       --shards 8
 
-  # reduced, on the CPU:
+  # reduced, on the CPU (any --arch of repro_torch.configs.registry()):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --reduced --tokens 4 --batch 2 --shards 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
       --reduced --tokens 4 --batch 2 --shards 2 --device cpu
 
   # the paper's artifact: distributed l-NN queries over a sharded corpus
@@ -37,9 +39,26 @@ from repro_torch.models import build_model
 from repro_torch.runtime import ServeConfig, Server
 
 
+def stub_inputs(cfg, rng, batch: int) -> dict:
+    """The modality stubs of the reference's launcher: random
+    ``prefix_embeds`` (vlm) or ``frames`` (audio) for ``batch`` rows."""
+    out = {}
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = rng.normal(
+            size=(batch, cfg.num_prefix_embeds, cfg.d_model)).astype(
+                np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.normal(
+            size=(batch, cfg.frontend_frames, cfg.d_model)).astype(
+                np.float32)
+    return out
+
+
 def serve_lm(args):
-    """Seeded random model, random prompts, ``Server.generate``; returns
-    ``(generated tokens, stats)``."""
+    """Seeded random model, random prompts (with the family's stub),
+    ``Server.generate``; returns ``(generated tokens, stats)``.  The
+    cache holds the vlm prefix too (the reference's launcher leaves it
+    out of ``max_seq``)."""
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -49,7 +68,9 @@ def serve_lm(args):
     batch = {"tokens": rng.integers(0, cfg.vocab,
                                     (args.batch, args.prompt)).astype(
                                         np.int32)}
-    scfg = ServeConfig(max_seq=args.prompt + args.tokens + 8,
+    batch.update(stub_inputs(cfg, rng, args.batch))
+    prefix = cfg.num_prefix_embeds if cfg.family == "vlm" else 0
+    scfg = ServeConfig(max_seq=prefix + args.prompt + args.tokens + 8,
                        top_k=args.top_k, sampler=args.sampler,
                        num_pivots=args.num_pivots)
     params = api.init_params(args.seed, device=dev)

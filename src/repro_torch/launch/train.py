@@ -4,7 +4,8 @@ Port of ``repro.launch.train``, single process on one device:
 ``--device`` is the card unless ``cpu`` is given (the reference's
 ``--mesh`` debug mesh is not ported).
 
-  # qwen2-0.5b reduced, on the CPU:
+  # qwen2-0.5b reduced, on the CPU (any --arch of the registry; vlm and
+  # audio get the reference's random stubs, prefix_embeds or frames):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --steps 200 --batch 8 --seq 64 --device cpu
 
@@ -22,10 +23,13 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
+
 import repro_torch.configs as configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import MarkovTokens
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import stub_inputs
 from repro_torch.models import build_model
 from repro_torch.optim import AdamW
 from repro_torch.runtime import (MetricLogger, TrainConfig, init_opt_state,
@@ -70,7 +74,11 @@ def main(argv=None):
 
     def make_batch(step):
         t, l = data.batch(step, args.batch, args.seq)
-        return {"tokens": t, "labels": l}
+        # the family's stub, seeded by step, so a replayed step after a
+        # restart gets the same batch
+        rng = np.random.default_rng([args.seed, step])
+        return {"tokens": t, "labels": l,
+                **stub_inputs(cfg, rng, args.batch)}
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     logger = MetricLogger()

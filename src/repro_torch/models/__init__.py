@@ -1,4 +1,4 @@
-"""The LM stack's models, dense family (port of ``repro.models``)."""
+"""The LM stack's models, every family (port of ``repro.models``)."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import ModelApi, build_model

@@ -1,11 +1,13 @@
-"""GQA attention: chunked-causal prefill, cached decode.
+"""GQA attention: chunked-causal prefill, cached decode, cross-attention.
 
-Port of ``repro.models.attention`` without cross-attention.  Query head
-h reads KV head ``h // (n_heads // n_kv)``; the scores contract the
-grouped query against the ``(B, S, KV, hd)`` keys directly (no repeated
-copy of the cache).  Scores and softmax run in f32 (f64 for an f64
-model, ``layers.compute_dtype``); the prefill takes queries in chunks
-of ``q_chunk``, so the live score block is ``(B, H, q_chunk, S)``.
+Port of ``repro.models.attention``.  Query head h reads KV head ``h //
+(n_heads // n_kv)``; the scores contract the grouped query against the
+``(B, S, KV, hd)`` keys directly (no repeated copy of the cache).
+Scores and softmax run in f32 (f64 for an f64 model,
+``layers.compute_dtype``); the prefill takes queries in chunks of
+``q_chunk``, so the live score block is ``(B, H, q_chunk, S)``.  The
+encoder calls ``causal_attention(causal=False)``; the decoder of the
+encoder-decoder family reads the encoder states by ``cross_attention``.
 
 The port holds the real heads only: the reference's dummy heads, which
 pad the head axis to tile its mesh (``head_pad_to``), are dropped when
@@ -89,29 +91,33 @@ def _gqa_mix(probs, v):
     return o.reshape(B, Sq, KV * g * v.shape[-1])
 
 
-def _causal_attend(q, k, v, positions, *, q_chunk):
-    """Chunked-query causal softmax attention; returns ``(B, S, H*hd)``
-    in the compute dtype."""
+def _causal_attend(q, k, v, positions, *, q_chunk, causal: bool = True):
+    """Chunked-query softmax attention, causal unless ``causal=False``;
+    returns ``(B, S, H*hd)`` in the compute dtype."""
     S = q.shape[1]
     c = min(q_chunk, S)
     outs = []
     for s0 in range(0, S, c):
         s = _gqa_scores(q[:, s0:s0 + c], k)           # (B, KV, g, c, S)
-        pq = positions[:, s0:s0 + c]
-        mask = pq[:, None, None, :, None] >= positions[:, None, None, None, :]
-        s = s.masked_fill(~mask, float("-inf"))
+        if causal:
+            pq = positions[:, s0:s0 + c]
+            mask = (pq[:, None, None, :, None]
+                    >= positions[:, None, None, None, :])
+            s = s.masked_fill(~mask, float("-inf"))
         outs.append(_gqa_mix(torch.softmax(s, dim=-1), v))
     return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
 
 
 def causal_attention(p: Attention, x, positions, *, n_heads, n_kv, head_dim,
-                     rope_theta, q_chunk: int = DEFAULT_Q_CHUNK):
+                     rope_theta, q_chunk: int = DEFAULT_Q_CHUNK,
+                     causal: bool = True):
     """Full-sequence attention.  x: ``(B, S, D)``; positions: ``(B, S)``
-    absolute positions (RoPE and the causal mask)."""
+    absolute positions (RoPE and the causal mask).  ``causal=False``
+    lets every position see every other (the encoder's)."""
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
-    out = _causal_attend(q, k, v, positions, q_chunk=q_chunk)
+    out = _causal_attend(q, k, v, positions, q_chunk=q_chunk, causal=causal)
     return out.to(x.dtype) @ p.wo
 
 
@@ -127,8 +133,12 @@ def prefill_into_cache(p: Attention, x, positions, cache: KVCache, *,
                        n_heads, n_kv, head_dim, rope_theta,
                        q_chunk: int = DEFAULT_Q_CHUNK):
     """Causal attention over the prompt, writing its k/v into the cache
-    at ``[0, S)``."""
+    at ``[0, S)``.  A prompt longer than the cache raises ``ValueError``
+    (the reference fails to trace its write)."""
     S = x.shape[1]
+    if S > cache.k.shape[1]:
+        raise ValueError(f"prefill of {S} positions does not fit the KV "
+                         f"cache of {cache.k.shape[1]}")
     q, k, v = _project_qkv(p, x, n_heads, n_kv, head_dim)
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
@@ -159,3 +169,18 @@ def decode_attention(p: Attention, x, cache: KVCache, *, n_heads, n_kv,
     s = s.masked_fill(s_pos > t, float("-inf"))
     o = _gqa_mix(torch.softmax(s, dim=-1), cache.v)
     return o.to(x.dtype) @ p.wo, KVCache(cache.k, cache.v, t + 1)
+
+
+# ---- cross attention (encoder-decoder) --------------------------------------
+
+def cross_attention(p: Attention, x, enc, *, n_heads, n_kv, head_dim):
+    """x ``(B, Sq, D)`` queries over the encoder states ``enc`` ``(B, Se,
+    D)``: no rotation (the positions live in the encoder states) and no
+    mask."""
+    B, Sq, _ = x.shape
+    Se = enc.shape[1]
+    q = (x @ p.wq).reshape(B, Sq, n_heads, head_dim)
+    k = (enc @ p.wk).reshape(B, Se, n_kv, head_dim)
+    v = (enc @ p.wv).reshape(B, Se, n_kv, head_dim)
+    o = _gqa_mix(torch.softmax(_gqa_scores(q, k), dim=-1), v)
+    return o.to(x.dtype) @ p.wo

@@ -11,11 +11,11 @@ the reference's do.  Families:
   audio   — encoder-decoder transformer, stub frame-embedding encoder input
   ssm     — xLSTM (alternating mLSTM / sLSTM blocks)
 
-The port runs the dense family (``models/model.py`` ``build_model``).
-``head_pad_to`` / ``kv_head_pad_to`` stay fields: they describe the
-reference's physical layout (dummy heads that tile its mesh), which
-``convert.params_from_jax`` reads to drop the dummy heads; the port
-itself runs the real heads only.
+``head_pad_to`` / ``kv_head_pad_to`` and ``expert_pad_to`` stay fields:
+they describe the reference's physical layout (dummy heads and experts
+that tile its mesh), which ``convert.params_from_jax`` reads to drop
+them; the port itself runs the real heads and experts only, with the
+reference's init scale over the padded shapes.
 """
 
 from __future__ import annotations

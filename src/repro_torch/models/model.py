@@ -8,11 +8,14 @@ padding up to a multiple of k) and the next token comes from
 gather baseline); with ``shards=None`` it is plain top-k sampling over
 the whole row, the reference's no-mesh path.
 
-The parameters are a :class:`~repro_torch.models.transformer.Transformer`
-module; its device is where every step runs.  The serving entry points
-run without autograd; ``loss_fn`` is the training step's, on a module
-made with ``init_params(train=True)``.  Families other than dense raise
-``NotImplementedError`` in :func:`build_model`.
+The parameters are a module: a
+:class:`~repro_torch.models.transformer.Transformer` for the
+decoder-only families (dense, moe, hybrid, vlm, ssm), an
+:class:`~repro_torch.models.encdec.EncDec` for the audio family; its
+device is where every step runs.  A batch may carry the modality stubs,
+``prefix_embeds`` (vlm) and ``frames`` (audio), as the reference's does.
+The serving entry points run without autograd; ``loss_fn`` is the
+training step's, on a module made with ``init_params(train=True)``.
 """
 
 from __future__ import annotations
@@ -25,17 +28,8 @@ import torch
 from repro_torch.core import topk as topk_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig
-
-# where the port's queue of work takes up each family it does not run yet
-_LATER = {
-    "moe": "ROADMAP.md queue 1, item 8b (moe: granite, phi3.5)",
-    "vlm": "ROADMAP.md queue 1, item 8b (vlm: pixtral)",
-    "hybrid": "ROADMAP.md queue 1, item 8b (hybrid: jamba, with mamba.py)",
-    "ssm": "ROADMAP.md queue 1, item 8b (ssm: xlstm)",
-    "audio": "ROADMAP.md queue 1, item 8b (audio: seamless)",
-}
 
 
 def _tokens(x, device) -> torch.Tensor:
@@ -44,47 +38,74 @@ def _tokens(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
 
 
+def _inputs(params, batch: dict) -> dict:
+    """``batch``'s tokens (int64), labels and modality stubs (the model's
+    dtype) and mask as tensors on the model's device."""
+    table = params.embed.table
+    out = {}
+    for k in ("tokens", "labels"):
+        if k in batch:
+            out[k] = _tokens(batch[k], table.device)
+    for k in ("prefix_embeds", "frames"):
+        if batch.get(k) is not None:
+            out[k] = torch.as_tensor(batch[k], device=table.device).to(
+                table.dtype)
+    if batch.get("mask") is not None:
+        out["mask"] = torch.as_tensor(batch["mask"], device=table.device)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     cfg: ModelConfig
 
     # ---- parameters -------------------------------------------------------
-    def init_params(self, seed: int = 0, device=None,
-                    train: bool = False) -> transformer.Transformer:
+    def init_params(self, seed: int = 0, device=None, train: bool = False):
         """A seeded random f32 model on ``device`` (the card when None):
-        for serving, no autograd; with ``train``, trainable parameters."""
+        for serving, no autograd; with ``train``, trainable parameters.
+        On the meta device the module is built and left unfilled."""
         dev = resolve_device(device)
-        model = transformer.Transformer(self.cfg, device=dev)
-        g = torch.Generator(device=dev)
-        g.manual_seed(int(seed))
-        transformer.init_params(model, g)
+        cls = encdec.EncDec if self.cfg.is_encdec else transformer.Transformer
+        model = cls(self.cfg, device=dev)
+        if dev.type != "meta":
+            g = torch.Generator(device=dev)
+            g.manual_seed(int(seed))
+            transformer.init_params(model, g)
         return model.requires_grad_(train).train(train)
 
     # ---- steps ------------------------------------------------------------
     def loss_fn(self, params, batch, remat: bool = True):
         """``(loss, {"ce", "aux"})`` of ``batch`` (``tokens``, ``labels``,
-        optional ``mask``; numpy or tensors) under the model ``params``."""
-        dev = params.embed.table.device
-        b = {"tokens": _tokens(batch["tokens"], dev),
-             "labels": _tokens(batch["labels"], dev)}
-        if batch.get("mask") is not None:
-            b["mask"] = torch.as_tensor(batch["mask"], device=dev)
+        optional ``mask``, the family's stub; numpy or tensors) under the
+        model ``params``."""
+        b = _inputs(params, batch)
+        if self.cfg.is_encdec:
+            return encdec.loss_fn(params, b, remat=remat)
         return transformer.loss_fn(params, b, remat=remat)
 
     def forward(self, params, batch):
-        """``(logits (B, S, V), aux_loss)`` over ``batch["tokens"]``."""
-        return transformer.forward(params, _tokens(
-            batch["tokens"], params.embed.table.device))
+        """``(logits (B, S, V), aux_loss)`` over ``batch["tokens"]`` (and
+        the vlm prefix, whose positions the logits include)."""
+        b = _inputs(params, batch)
+        if self.cfg.is_encdec:
+            return encdec.forward(params, b["tokens"], b["frames"])
+        return transformer.forward(params, b["tokens"],
+                                   b.get("prefix_embeds"))
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        return transformer.prefill(params, _tokens(
-            batch["tokens"], params.embed.table.device), cache)
+        b = _inputs(params, batch)
+        if self.cfg.is_encdec:
+            return encdec.prefill(params, b["tokens"], b["frames"], cache)
+        return transformer.prefill(params, b["tokens"], cache,
+                                   b.get("prefix_embeds"))
 
     @torch.no_grad()
     def decode_step(self, params, token, cache):
-        return transformer.decode_step(params, _tokens(
-            token, params.embed.table.device), cache)
+        tok = _tokens(token, params.embed.table.device)
+        if self.cfg.is_encdec:
+            return encdec.decode_step(params, tok, cache)
+        return transformer.decode_step(params, tok, cache)
 
     @torch.no_grad()
     def serve_step(self, params, token, cache, key: int, *, shards=None,
@@ -118,17 +139,13 @@ class ModelApi:
 
     # ---- caches -----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int, dtype=torch.float32,
-                   device=None) -> list:
-        return transformer.init_cache(self.cfg, batch, s_max, dtype=dtype,
-                                      device=resolve_device(device))
+                   device=None):
+        """The decoder's cache: a list of per-layer caches, or for the
+        audio family ``{"self": [...], "enc_out"}``."""
+        mod = encdec if self.cfg.is_encdec else transformer
+        return mod.init_cache(self.cfg, batch, s_max, dtype=dtype,
+                              device=resolve_device(device))
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:
-    """The dense family's API; other families raise, naming the queue
-    item that ports them."""
-    family = "audio" if cfg.is_encdec else cfg.family
-    if family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: the port does not run family {family!r} yet; "
-            f"{_LATER.get(family, 'ROADMAP.md queue 1, item 8b')} ports it")
     return ModelApi(cfg=cfg)

@@ -35,8 +35,9 @@ class Server:
     """``api``: a ``models.ModelApi``; ``params``: its model, whose device
     the server runs on; ``shards``: vocabulary shards of the sampler
     (None: the no-mesh path).  ``observe`` (optional) is handed to every
-    ``serve_step`` (``(logits, TopKResult)`` per decode step).  The KV
-    cache is f32."""
+    ``serve_step`` (``(logits, TopKResult)`` per decode step).  The
+    decoder's cache is f32 and holds ``scfg.max_seq`` positions, the vlm
+    prefix's among them."""
 
     def __init__(self, api, params, scfg: ServeConfig, *,
                  shards: Optional[int] = None, observe=None):
@@ -55,9 +56,11 @@ class Server:
 
     def generate(self, batch: dict, max_new_tokens: int,
                  key: Optional[int] = None):
-        """``batch``: ``{"tokens": (B, S) int}``.  Returns ``(generated
-        (B, max_new_tokens) int32 numpy, stats)``; stats as the
-        reference's: ``prefill_s``, ``decode_s``, ``tok_per_s``."""
+        """``batch``: ``{"tokens": (B, S) int}``, with the family's stub
+        (``prefix_embeds`` or ``frames``), all handed to the prefill.
+        Returns ``(generated (B, max_new_tokens) int32 numpy, stats)``;
+        stats as the reference's: ``prefill_s``, ``decode_s``,
+        ``tok_per_s``."""
         key = 0 if key is None else int(key)
         scfg = self.scfg
         B = batch["tokens"].shape[0]

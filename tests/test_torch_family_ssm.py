@@ -1,0 +1,51 @@
+"""The ssm family (xlstm-125m: mLSTM, and sLSTM at the odd layers, no
+FFN), reduced, on the port against the JAX package: forward logits and
+aux, the loss and its gradients, prefill and decode, decode against
+teacher forcing, one train step, and greedy generation.  Cases and
+tolerances: ``tests/torch_family_cases.py``."""
+
+import pytest
+import torch
+
+import torch_family_cases as cases
+
+torch.set_num_threads(1)
+
+ARCHS = ["xlstm-125m"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_equals_reference(arch, rng):
+    cases.forward(arch, rng)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_gradients_equal_reference(arch, rng):
+    cases.loss_and_gradients(arch, rng)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_equal_reference(arch, rng):
+    cases.prefill_and_decode(arch, rng)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_matches_teacher_forcing(arch, rng):
+    cases.decode_matches_teacher_forcing(arch, rng)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_equals_reference(arch, rng):
+    cases.train_step(arch, rng)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_equals_reference_at_top1(arch, rng):
+    cases.generate_equals_reference(arch, rng, shards=None)
+
+
+def test_layer_pattern():
+    """xlstm reduced: sLSTM at the odd layers, no FFN."""
+    model = cases.pair("xlstm-125m")[3]
+    assert [b.mixer for b in model.blocks] == ["mlstm", "slstm"] * 2
+    assert {b.ffn_kind for b in model.blocks} == {None}

@@ -1,4 +1,6 @@
-"""The port's LM stack (dense family) against the JAX reference.
+"""The port's LM stack against the JAX reference: configs, every
+family's module and parameter count, the layers, and the dense family's
+whole models (the other families: ``tests/test_torch_family_*.py``).
 
 Each layer runs through its JAX function and its port on the same numpy
 inputs; whole models run from the reference's seeded parameters carried
@@ -30,6 +32,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttr
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.mlp import MLP
 
 torch.set_num_threads(1)
@@ -67,20 +70,59 @@ def test_registry_and_configs_equal_reference():
 
 
 @pytest.mark.parametrize("arch", OTHERS)
-def test_build_model_refuses_other_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        build_model(tconfigs.get(arch))
-
-
-@pytest.mark.parametrize("arch", DENSE)
-def test_parameter_count_at_full_width(arch):
-    """The port's module holds ``param_count()`` parameters, the real
-    heads only, plus the final norm's scale, which the analytic count
-    leaves out (built on the meta device, no memory)."""
+def test_build_model_builds_every_family(arch):
+    """``build_model`` takes each family; ``init_params`` on the meta
+    device builds its module (a Transformer, or an EncDec for audio)
+    without memory."""
     cfg = tconfigs.get(arch)
-    model = ttr.Transformer(cfg, device="meta")
-    assert (sum(p.numel() for p in model.parameters())
-            == cfg.param_count() + cfg.d_model)
+    api = build_model(cfg)
+    model = api.init_params(device="meta")
+    assert isinstance(model, EncDec if cfg.is_encdec else ttr.Transformer)
+    assert all(p.is_meta for p in model.parameters())
+    kinds = {blk.mixer for blk in getattr(model, "blocks", [])}
+    want = {"granite-moe-3b-a800m": {"attn"},
+            "phi3.5-moe-42b-a6.6b": {"attn"},
+            "jamba-1.5-large-398b": {"attn", "mamba"},
+            "pixtral-12b": {"attn"}, "seamless-m4t-large-v2": set(),
+            "xlstm-125m": {"mlstm", "slstm"}}[arch]
+    assert kinds == want
+
+
+def _dummy_elements(cfg) -> int:
+    """Elements of the reference's tree that ``convert.params_from_jax``
+    drops: the dummy heads of every attention (the decoder's cross
+    attention has no biases) and the dummy experts of every MoE layer."""
+    d, hd = cfg.d_model, cfg.head_dim
+    dq = (cfg.n_heads_phys - cfg.n_heads) * hd
+    dkv = (cfg.n_kv_phys - cfg.n_kv_heads) * hd
+    attn = 2 * d * dq + 2 * d * dkv
+    bias = dq + 2 * dkv if cfg.qkv_bias else 0
+    if cfg.is_encdec:
+        n = (cfg.n_enc_layers + cfg.n_layers) * (attn + bias)
+        return n + cfg.n_layers * attn
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    if cfg.family == "ssm":
+        n_attn = 0
+    dummy_experts = (cfg.n_experts_phys - cfg.n_experts) * 3 * d * cfg.d_ff
+    return n_attn * (attn + bias) + n_moe * dummy_experts
+
+
+@pytest.mark.parametrize("arch", DENSE + OTHERS)
+def test_parameter_count_at_full_width(arch):
+    """The port's module holds the reference's parameters less the dummy
+    heads and dummy experts it drops (built on the meta device, no
+    memory; the reference's tree from ``param_shapes()``, which
+    allocates nothing).  For the dense family that is ``param_count()``
+    plus the final norm's scale, which the analytic count leaves out."""
+    cfg = tconfigs.get(arch)
+    model = build_model(cfg).init_params(device="meta")
+    got = sum(p.numel() for p in model.parameters())
+    shapes = jbuild(jconfigs.get(arch)).param_shapes()
+    want = sum(math.prod(x.shape) for x in jax.tree.leaves(shapes))
+    assert got == want - _dummy_elements(cfg)
+    if arch in DENSE:
+        assert got == cfg.param_count() + cfg.d_model
 
 
 def test_seeded_init_follows_the_reference_rules():
@@ -102,6 +144,44 @@ def test_seeded_init_follows_the_reference_rules():
     assert torch.equal(again.blocks[1].attn.wv, model.blocks[1].attn.wv)
     other = build_model(cfg).init_params(4, device="cpu")
     assert not torch.equal(other.blocks[1].attn.wv, model.blocks[1].attn.wv)
+
+
+def test_seeded_init_of_the_other_families():
+    """The reference's init rules for the new parameters
+    (``src/repro/models/creator.py``): Mamba's ``a_log`` log(1..d_state)
+    and ``dt_bias`` the softplus inverse of values in [1e-3, 1e-1],
+    ``conv_b`` zeros, ``d_skip`` ones; the xLSTM gates' weights and
+    biases zeros but the forget bias, ones; an expert weight's fan_in
+    over the padded experts (granite: 48 physical for 40)."""
+    jamba = dataclasses.replace(tconfigs.get("jamba-1.5-large-398b").reduced(),
+                                mamba_d_state=16)
+    mb = build_model(jamba).init_params(1, device="cpu").blocks[0].mamba
+    assert torch.equal(mb.a_log, torch.log(torch.arange(1, 17.0)).expand(
+        mb.a_log.shape))
+    dt = torch.nn.functional.softplus(mb.dt_bias)
+    assert float(dt.min()) >= 1e-3 * (1 - 1e-5)
+    assert float(dt.max()) <= 1e-1 * (1 + 1e-5)
+    assert float(dt.log().std()) == pytest.approx(
+        (math.log(1e-1) - math.log(1e-3)) / math.sqrt(12), rel=0.1)
+    assert float(mb.conv_b.abs().max()) == 0 and bool((mb.d_skip == 1).all())
+    assert float(mb.conv_w.std()) == pytest.approx(0.5, rel=0.1)  # 1/sqrt(4)
+    x = build_model(tconfigs.get("xlstm-125m").reduced()).init_params(
+        1, device="cpu")
+    ml, sl = x.blocks[0].mlstm, x.blocks[1].slstm
+    for z in (ml.w_i, ml.b_i, ml.w_f, sl.b_gates):
+        assert float(z.abs().max()) == 0
+    assert bool((ml.b_f == 1).all())
+    cfg = dataclasses.replace(tconfigs.get("granite-moe-3b-a800m").reduced(),
+                              d_model=128, d_ff=256, n_experts=8,
+                              expert_pad_to=12)
+    moe = build_model(cfg).init_params(2, device="cpu").blocks[0].moe
+    assert moe.w_gate.shape[0] == 8
+    assert float(moe.w_gate.std()) == pytest.approx(
+        1 / math.sqrt(12 * 128), rel=0.05)
+    assert float(moe.w_down.std()) == pytest.approx(
+        1 / math.sqrt(12 * 256), rel=0.05)
+    assert float(moe.router.std()) == pytest.approx(1 / math.sqrt(128),
+                                                    rel=0.1)
 
 
 # ---- layers ----------------------------------------------------------------
