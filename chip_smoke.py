@@ -154,6 +154,22 @@ Phases:
      launched; reported: step walls and tokens/s beside the products'
      and AdamW's bounds, one profiled step, peak memory, the checkpoint's
      snapshot, write and restore walls and bytes;
+  3j. mesh: the mesh path.  The dry-run of all ten archs x their shapes x
+     the (16, 16) and (2, 16, 16) meshes (``launch.dryrun --all --mesh
+     both``, its counts in worker processes, before the phase's card
+     work and beside no other phase): every cell OK or SKIP, one line a
+     cell; qwen2-0.5b at full width trained 5 steps through
+     ``launch.train`` unsharded and on a 1 x 1 NCCL mesh (phase train's
+     knobs) under deterministic algorithms, each run counted by
+     ``launch.cost``: the losses equal within 1e-6 relative, the FLOPs 5 x
+     the dry-run's meta count of one step, and the card's peak memory
+     within [0.67, 1.5] x the dry-run's predicted peak; qwen2-0.5b served
+     on the 1 x 1 mesh (B = 8, 128-token prompts, 16 new tokens, both
+     samplers): tokens equal to the unsharded port's, each top-k a stable
+     sort, local_topk launched; the examples quickstart,
+     distributed_topk_demo and streaming_ingest on the card with their
+     own checks; past 420 s the phase dumps every thread's stack and
+     exits;
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -3792,6 +3808,231 @@ def train_run(dev, gpu, api, cfg, ckpt_dir, n_params, base_mem):
                    ckpt_every=TRAIN_CKPT_EVERY, fail_at=TRAIN_FAIL_AT))
 
 
+MESH_SERVE = dict(batch=8, prompt=128, tokens=16, top_k=50)
+MESH_TRAIN_STEPS = 5
+MESH_LOSS_REL = 1e-6          # the 1 x 1 mesh's losses vs the unsharded
+MESH_PEAK_BAND = (0.67, 1.5)  # measured peak / predicted peak
+MESH_DRYRUN_JOBS = min(8, os.cpu_count() or 1)
+MESH_DEADLINE_S = 420         # the phase dumps every thread's stack and
+                              # exits past this
+
+
+def phase_mesh(dev, gpu, results):
+    """The mesh path on the card.  (1) The dry-run of all ten archs x
+    their shapes x the (16, 16) and (2, 16, 16) meshes (``launch.dryrun
+    --all --mesh both``, its counts in worker processes on the host,
+    before the card's work, so no wall of this script is taken beside
+    it): every cell OK or SKIP, one line a cell.  (2) qwen2-0.5b at full
+    width trained 5 steps through ``launch.train`` unsharded and on a 1 x
+    1 NCCL mesh (phase train's knobs: 8 x 128 tokens in 2 microbatches,
+    remat, AdamW's defaults) under deterministic algorithms, each run
+    counted by ``launch.cost``: the losses equal (within 1e-6 relative),
+    the FLOPs 5 x the dry-run's meta count of one step, and the card's
+    peak memory over the run within [0.67, 1.5] x the dry-run's
+    predicted peak.  (3) qwen2-0.5b served on the 1 x 1 mesh (B = 8,
+    128-token prompts, 16 new tokens, both samplers): the tokens equal
+    the unsharded port's, each step's top-k equals a stable sort of its
+    row, local_topk launched.  (4) The three examples on the card with
+    their own checks."""
+    import contextlib
+    import faulthandler
+    import io
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch.examples import (distributed_topk_demo, quickstart,
+                                      streaming_ingest)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import debug_mesh
+    from repro_torch.models import build_model, creator
+    from repro_torch.runtime import ServeConfig, Server
+
+    out, launches = {}, {}
+    # the card; the CPU only in a rehearsal of the phase
+    on = None if dev.type == "cuda" else "cpu"
+    devarg = [] if on is None else ["--device", on]
+    t_phase = time.perf_counter()
+    faulthandler.dump_traceback_later(MESH_DEADLINE_S, exit=True)
+    try:
+        # (1) the dry-run's cells
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cells = dryrun.main(["--all", "--mesh", "both", "--jobs",
+                                 str(MESH_DRYRUN_JOBS)])
+        dry_s = time.perf_counter() - t0
+        status = {}
+        for c in cells:
+            status[c["status"]] = status.get(c["status"], 0) + 1
+            if c["status"] == "OK":
+                m, r = c["memory"], c["roofline"]
+                log(f"  [{gpu}] dryrun {c['cell']}: OK fits={m['fits']} "
+                    f"device bytes {m['total']} (params {m['params']}, "
+                    f"activations {m['activations']}) compute "
+                    f"{r['compute_s']:.4g} s memory {r['memory_s']:.4g} s "
+                    f"collective {r['collective_s']:.4g} s "
+                    f"({r['dominant']})")
+            else:
+                log(f"  [{gpu}] dryrun {c['cell']}: {c['status']} "
+                    f"{c.get('reason') or c.get('error')}")
+        want_cells = 10 * 4 * 2
+        if len(cells) != want_cells or status.get("FAIL"):
+            raise PhaseError(f"mesh: dry-run cells {status}, {len(cells)} "
+                             f"of {want_cells}")
+        out["dryrun"] = dict(status=status, wall_s=dry_s,
+                             jobs=MESH_DRYRUN_JOBS,
+                             cells={c["cell"]: c for c in cells})
+        log(f"  [{gpu}] mesh dry-run: {status} over {len(cells)} cells in "
+            f"{dry_s:.1f} s ({MESH_DRYRUN_JOBS} worker processes)")
+
+        # (2) training, unsharded and on the 1 x 1 mesh, each run counted
+        cfg = configs.get(LM_ARCH)
+        pred, _, resident = dryrun.count_step(
+            cfg, "train", TRAIN_BATCH, TRAIN_SEQ, grad_accum=TRAIN_ACCUM,
+            dtype=torch.float32)
+        predicted_peak = resident + pred.peak_bytes
+        args = ["--steps", str(MESH_TRAIN_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--grad-accum",
+                str(TRAIN_ACCUM), "--lr", str(TRAIN_LR)] + devarg
+        walls, losses, counted = {}, {}, {}
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        torch.use_deterministic_algorithms(True)
+        try:
+            for name, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+                # what earlier phases still hold is not this run's
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(io.StringIO()), \
+                        cost.CostMode() as m:
+                    _, losses[name] = tlaunch.main(args + extra)
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                counted[name] = dict(
+                    flops=m.flops, bytes=m.bytes, ops=m.ops, base=base,
+                    max_memory_allocated=torch.cuda.max_memory_allocated()
+                    - base)
+                torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                      losses["plain"]))
+        if len(losses["mesh"]) != MESH_TRAIN_STEPS or rel > MESH_LOSS_REL:
+            raise PhaseError(f"mesh: the 1x1 mesh's losses {losses['mesh']}"
+                             f" against the unsharded {losses['plain']}")
+        ratio = {}
+        for name, c in counted.items():
+            if c["flops"] != MESH_TRAIN_STEPS * pred.flops:
+                raise PhaseError(f"mesh: the {name} run's FLOPs "
+                                 f"{c['flops']} on the card against "
+                                 f"{MESH_TRAIN_STEPS} x the dry-run's "
+                                 f"{pred.flops}")
+            ratio[name] = c["max_memory_allocated"] / predicted_peak
+            if not MESH_PEAK_BAND[0] <= ratio[name] <= MESH_PEAK_BAND[1]:
+                raise PhaseError(f"mesh: the {name} run's peak memory {c} "
+                                 f"against the predicted {predicted_peak} "
+                                 f"({ratio[name]:.3f})")
+        log(f"  [{gpu}] mesh train: {MESH_TRAIN_STEPS} steps of qwen2-0.5b "
+            f"at full width, 8x128 in 2 microbatches, on the 1x1 NCCL mesh "
+            f"and unsharded: losses {losses['mesh']} (largest relative gap "
+            f"{rel:.3g}); launcher walls {walls} s, counted")
+        log(f"  [{gpu}] mesh train step: FLOPs {pred.flops} on the meta "
+            f"device; on the card {MESH_TRAIN_STEPS} x that, unsharded and "
+            f"on the mesh; predicted peak {predicted_peak} bytes (resident "
+            f"{resident} + transient {pred.peak_bytes}), measured "
+            f"{counted['plain']['max_memory_allocated']} unsharded, "
+            f"{counted['mesh']['max_memory_allocated']} on the mesh "
+            f"(ratios {ratio})")
+        out["train"] = dict(losses=losses, max_rel=rel, launcher_s=walls,
+                            counted=counted, predicted=pred.as_dict(),
+                            predicted_peak=predicted_peak,
+                            resident=resident, peak_ratio=ratio)
+
+        # (3) serving on the 1 x 1 mesh against the unsharded port
+        api = build_model(cfg)
+        rng = np.random.default_rng(22)
+        sb = {"tokens": rng.integers(0, cfg.vocab, (
+            MESH_SERVE["batch"], MESH_SERVE["prompt"])).astype(np.int32)}
+        scfg_kw = dict(max_seq=MESH_SERVE["prompt"] + MESH_SERVE["tokens"]
+                       + 8, top_k=MESH_SERVE["top_k"])
+        gens, serve_s = {}, {}
+        for sampler in ("selection", "gather"):
+            for name, spec in (("plain", None), ("mesh", "1x1")):
+                bad, nsteps = [], [0]
+
+                def observe(logits, res):
+                    srt = torch.sort(logits, dim=-1, descending=True,
+                                     stable=True)
+                    k = MESH_SERVE["top_k"]
+                    if not (torch.equal(res.indices.long(), srt.indices[:, :k])
+                            and torch.equal(res.values, srt.values[:, :k])):
+                        bad.append(nsteps[0])
+                    nsteps[0] += 1
+                with debug_mesh(spec, on) as (mdev, mesh):
+                    params = api.init_params(0, device=mdev)
+                    if mesh is not None:
+                        creator.shard_model(params, mesh)
+                    srv = Server(api, params, ServeConfig(
+                        sampler=sampler, **scfg_kw),
+                        shards=None if mesh is not None else 1,
+                        observe=observe)
+                    torch.cuda.synchronize()
+                    kops.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    gens[(sampler, name)], _ = srv.generate(
+                        sb, MESH_SERVE["tokens"], key=1)
+                    torch.cuda.synchronize()
+                    serve_s[f"{sampler}_{name}"] = time.perf_counter() - t0
+                    counts = kops.launch_counts()
+                    del srv, params
+                if bad or nsteps[0] != MESH_SERVE["tokens"] - 1:
+                    raise PhaseError(f"mesh serve {sampler} {name}: top-k of "
+                                     f"steps {bad} differs from a stable sort")
+                if counts["local_topk"] < 1:
+                    raise PhaseError(f"mesh serve {sampler} {name}: "
+                                     f"local_topk never launched")
+                if name == "mesh":
+                    launches[f"mesh_serve_{sampler}"] = counts
+            if not np.array_equal(gens[(sampler, "mesh")],
+                                  gens[(sampler, "plain")]):
+                raise PhaseError(f"mesh serve {sampler}: the 1x1 mesh's "
+                                 f"tokens differ from the unsharded port's")
+        if not np.array_equal(gens[("selection", "mesh")],
+                              gens[("gather", "mesh")]):
+            raise PhaseError("mesh serve: the samplers drew other tokens")
+        log(f"  [{gpu}] mesh serve: qwen2-0.5b B={MESH_SERVE['batch']} x "
+            f"{MESH_SERVE['prompt']} + {MESH_SERVE['tokens']} tokens, both "
+            f"samplers on the 1x1 mesh: tokens equal to the unsharded "
+            f"port's, every top-{MESH_SERVE['top_k']} equal to a stable "
+            f"sort; walls { {k: round(v, 3) for k, v in serve_s.items()} } "
+            f"s; launches {launches}")
+        out["serve"] = dict(walls_s=serve_s, tokens=np.asarray(
+            gens[("selection", "mesh")]).tolist())
+        torch.cuda.empty_cache()
+
+        # (4) the examples on the card
+        ex = {}
+        for name, mod in (("quickstart", quickstart),
+                          ("distributed_topk_demo", distributed_topk_demo),
+                          ("streaming_ingest", streaming_ingest)):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(devarg)
+            ex[name] = time.perf_counter() - t0
+            tail = buf.getvalue().strip().splitlines()[-1]
+            log(f"  [{gpu}] example {name}: {ex[name]:.3f} s; {tail}")
+        out["examples_s"] = ex
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["mesh"] = out
+
 def lm_timing(timing, dev, results):
     """Phase 4 at the LM path's shapes: l2_distance and distance_topk over
     serve_knn_lm's datastore (B = 8, 2^22 x 896, l = 8), local_topk on
@@ -4359,6 +4600,12 @@ def main(argv=None) -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     results = {"gpu": gpu, "device": torch.cuda.get_device_name(0)}
+    return run_phases(args, dev, gpu, results)
+
+
+def run_phases(args, dev, gpu, results) -> int:
+    """Every phase in turn, then the kernels line and the device line."""
+    import torch
     phases = [("build", None), ("kernels", phase_kernels),
               ("serve", phase_serve), ("serve_routed", phase_serve_routed),
               ("serve_large_l", phase_serve_large_l),
@@ -4369,6 +4616,7 @@ def main(argv=None) -> int:
               ("serve_families", phase_serve_families),
               ("serve_knn_lm", phase_serve_knn_lm),
               ("train", phase_train),
+              ("mesh", phase_mesh),
               ("timing", phase_timing)]
     if args.profile:
         phases.append(("profile", phase_profile))
@@ -4400,7 +4648,7 @@ def main(argv=None) -> int:
             elif name in ("serve", "serve_routed", "serve_large_l",
                           "serve_store", "serve_maintained", "serve_predict",
                           "serve_lm", "serve_families", "serve_knn_lm",
-                          "train", "profile"):
+                          "train", "mesh", "profile"):
                 fn(dev, gpu, results)
             else:
                 fn(dev, results)
@@ -4430,6 +4678,7 @@ def main(argv=None) -> int:
     counts.update(results["serve_families"]["launches"])
     counts.update(results["serve_knn_lm"]["launches"])
     counts.update(results["train"]["launches"])
+    counts.update(results["mesh"]["launches"])
     kernels = []
     for name, meta in KERNELS.items():
         t = results["timing"][name]

@@ -73,3 +73,10 @@ class Prefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=2.0)
+
+
+def lm_batch_specs() -> dict:
+    """The specs of the standard LM batch dict (split on its batch axes)."""
+    from repro_torch.models import sharding as shd
+    return {"tokens": shd.spec("batch", None),
+            "labels": shd.spec("batch", None)}

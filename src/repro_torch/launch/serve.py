@@ -1,10 +1,15 @@
 """Serving driver: LM generation with the distributed-selection sampler,
 or the paper's standalone distributed l-NN service.
 
-Port of ``repro.launch.serve``; ``--shards K`` takes the place of the
-reference's ``--mesh dxm`` (K vocabulary shards for the LM sampler, K
-point shards for the l-NN service), and ``--device`` is the card unless
-``cpu`` is given.
+Port of ``repro.launch.serve``; ``--shards K`` runs the LM sampler over
+K vocabulary shards on one device (and the l-NN service over K point
+shards), and ``--device`` is the card unless ``cpu`` is given.
+``--mesh DxM`` serves the LM (dense family) on a (data, model) mesh of
+D*M ranks started by ``torchrun`` (NCCL, one card a rank; gloo with
+``--device cpu``): the parameters and the KV cache are DTensors laid out
+by the sharding rules, each step's logits are gathered once to every
+rank, and the sampler runs over M vocabulary shards, so the tokens are
+those of ``--shards M`` on one device.
 
   # LM decode, qwen2-0.5b at full width, 8 vocabulary shards:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
@@ -15,6 +20,13 @@ point shards for the l-NN service), and ``--device`` is the card unless
       --reduced --tokens 4 --batch 2 --shards 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \
       --reduced --tokens 4 --batch 2 --shards 2 --device cpu
+
+  # on a 4 x 2 mesh of gloo ranks, and on the card's 1 x 1 mesh:
+  PYTHONPATH=src torchrun --nproc_per_node=8 -m repro_torch.launch.serve \
+      --arch qwen2-0.5b --reduced --tokens 4 --batch 4 --mesh 4x2 \
+      --device cpu
+  PYTHONPATH=src torchrun --nproc_per_node=1 -m repro_torch.launch.serve \
+      --arch qwen2-0.5b --mesh 1x1
 
   # the paper's artifact: distributed l-NN queries over a sharded corpus
   PYTHONPATH=src python -m repro_torch.launch.serve --arch knn-service \
@@ -28,6 +40,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch import convert
@@ -35,7 +48,8 @@ from repro_torch.core import knn as knn_mod
 from repro_torch.core.topk import generator
 from repro_torch.data import gaussian_clusters
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.launch.mesh import debug_mesh
+from repro_torch.models import build_model, creator
 from repro_torch.runtime import ServeConfig, Server
 
 
@@ -58,12 +72,20 @@ def serve_lm(args):
     """Seeded random model, random prompts (with the family's stub),
     ``Server.generate``; returns ``(generated tokens, stats)``.  The
     cache holds the vlm prefix too (the reference's launcher leaves it
-    out of ``max_seq``)."""
+    out of ``max_seq``).  Under ``--mesh`` every rank returns the same
+    tokens and rank 0 prints them."""
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     api = build_model(cfg)
-    dev = resolve_device(args.device)
+    if args.mesh and cfg.family != "dense":
+        raise ValueError(f"--mesh serves the dense family; {args.arch} is "
+                         f"{cfg.family}")
+    with debug_mesh(args.mesh, args.device) as (dev, mesh):
+        return _serve_lm(args, cfg, api, dev, mesh)
+
+
+def _serve_lm(args, cfg, api, dev, mesh):
     rng = np.random.default_rng(args.seed)
     batch = {"tokens": rng.integers(0, cfg.vocab,
                                     (args.batch, args.prompt)).astype(
@@ -74,10 +96,13 @@ def serve_lm(args):
                        top_k=args.top_k, sampler=args.sampler,
                        num_pivots=args.num_pivots)
     params = api.init_params(args.seed, device=dev)
+    if mesh is not None:
+        creator.shard_model(params, mesh)
     server = Server(api, params, scfg, shards=args.shards)
     gen, stats = server.generate(batch, args.tokens, key=args.seed + 1)
-    print("generated tokens:\n", gen)
-    print({k: round(v, 4) for k, v in stats.items()})
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print("generated tokens:\n", gen)
+        print({k: round(v, 4) for k, v in stats.items()})
     return gen, stats
 
 
@@ -126,10 +151,17 @@ def parse_args(argv=None):
     ap.add_argument("--sampler", default="selection",
                     choices=["selection", "gather"])
     ap.add_argument("--num-pivots", type=int, default=1)
-    ap.add_argument("--shards", type=int, default=None,
-                    help="vocabulary shards of the LM sampler (none: the "
-                         "no-mesh path), or point shards of the l-NN "
-                         "service (default 8)")
+    # a mesh samples over its model axis: the two options are one choice
+    shards_or_mesh = ap.add_mutually_exclusive_group()
+    shards_or_mesh.add_argument(
+        "--shards", type=int, default=None,
+        help="vocabulary shards of the LM sampler (none: plain top-k), or "
+             "point shards of the l-NN service (default 8)")
+    shards_or_mesh.add_argument(
+        "--mesh", default=None,
+        help="'DxM': serve the LM on a data x model mesh of D*M ranks "
+             "(torchrun --nproc_per_node=D*M), sampling over M vocabulary "
+             "shards")
     ap.add_argument("--device", default=None,
                     help="torch device; the card when omitted")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,8 +1,11 @@
 """Training driver.
 
-Port of ``repro.launch.train``, single process on one device:
-``--device`` is the card unless ``cpu`` is given (the reference's
-``--mesh`` debug mesh is not ported).
+Port of ``repro.launch.train``: ``--device`` is the card unless ``cpu``
+is given.  ``--mesh DxM`` trains the dense family on a (data, model)
+mesh of D*M ranks started by ``torchrun`` (NCCL, one card a rank; gloo
+on the CPU with ``--device cpu``): the parameters and moments are
+DTensors laid out by the sharding rules (``models/creator.py``), the
+batch is split over ``data``, and the losses are the unsharded model's.
 
   # qwen2-0.5b reduced, on the CPU (any --arch of the registry; vlm and
   # audio get the reference's random stubs, prefix_embeds or frames):
@@ -13,10 +16,17 @@ Port of ``repro.launch.train``, single process on one device:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 30 --batch 8 --seq 128 --grad-accum 2 --ckpt-dir /tmp/ckpt
 
+  # on a 4 x 2 mesh of gloo ranks, and on the card's 1 x 1 mesh (dense
+  # family):
+  PYTHONPATH=src torchrun --nproc_per_node=8 -m repro_torch.launch.train \\
+      --mesh 4x2 --device cpu --reduced --steps 3 --batch 8 --seq 32
+  PYTHONPATH=src torchrun --nproc_per_node=1 -m repro_torch.launch.train \\
+      --mesh 1x1 --steps 5 --batch 8 --seq 128 --grad-accum 2
+
 Wires together: config registry -> ModelApi -> seeded trainable model on
-the device -> synthetic Markov data -> microbatched train_step ->
-fault-tolerant loop with async checkpoints (resuming from the latest
-one in ``--ckpt-dir``).
+the device (sharded on the mesh) -> synthetic Markov data -> microbatched
+train_step -> fault-tolerant loop with async checkpoints (resuming from
+the latest one in ``--ckpt-dir``).
 """
 
 from __future__ import annotations
@@ -24,13 +34,14 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch.distributed as dist
 
 import repro_torch.configs as configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import MarkovTokens
-from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import debug_mesh
 from repro_torch.launch.serve import stub_inputs
-from repro_torch.models import build_model
+from repro_torch.models import build_model, creator
 from repro_torch.optim import AdamW
 from repro_torch.runtime import (MetricLogger, TrainConfig, init_opt_state,
                                  train_loop)
@@ -52,6 +63,9 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--device", default=None,
                     help="torch device; the card when omitted")
+    ap.add_argument("--mesh", default=None,
+                    help="'DxM': train on a data x model mesh of D*M ranks "
+                         "(torchrun --nproc_per_node=D*M)")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
 
@@ -63,8 +77,14 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     api = build_model(cfg)
-    dev = resolve_device(args.device)
+    if args.mesh and cfg.family != "dense":
+        raise ValueError(f"--mesh trains the dense family; {args.arch} is "
+                         f"{cfg.family}")
+    with debug_mesh(args.mesh, args.device) as (dev, mesh):
+        return _train(args, cfg, api, dev, mesh)
 
+
+def _train(args, cfg, api, dev, mesh):
     tcfg = TrainConfig(grad_accum=args.grad_accum, peak_lr=args.lr,
                        warmup_steps=max(args.steps // 20, 5),
                        total_steps=args.steps,
@@ -80,9 +100,16 @@ def main(argv=None):
         return {"tokens": t, "labels": l,
                 **stub_inputs(cfg, rng, args.batch)}
 
+    def build_state():
+        params = api.init_params(args.seed, device=dev, train=True)
+        if mesh is not None:
+            creator.shard_model(params, mesh)
+        return params
+
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
-    logger = MetricLogger()
-    params = api.init_params(args.seed, device=dev, train=True)
+    logger = MetricLogger(quiet=not lead)
+    params = build_state()
     opt_state = init_opt_state(api, tcfg, optimizer, params)
     start = 0
     if mgr is not None and mgr.latest_step() is not None:
@@ -95,8 +122,9 @@ def main(argv=None):
         ckpt_manager=mgr, ckpt_every=args.ckpt_every, start_step=start,
         logger=logger, device=dev)
     losses = [r["loss"] for r in logger.history if "loss" in r]
-    print(f"done: steps={step} first_loss={losses[0]:.4f} "
-          f"last_loss={losses[-1]:.4f}")
+    if lead:
+        print(f"done: steps={step} first_loss={losses[0]:.4f} "
+              f"last_loss={losses[-1]:.4f}")
     return step, losses
 
 

@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import compute_dtype, rope
+from repro_torch.models.sharding import constrain
 
 DEFAULT_Q_CHUNK = 512
 
@@ -67,9 +68,12 @@ def _project_qkv(p: Attention, x, n_heads, n_kv, head_dim):
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv, head_dim),
-            v.reshape(B, S, n_kv, head_dim))
+    return (constrain(q.reshape(B, S, n_heads, head_dim),
+                      "batch", "seq", "heads", None),
+            constrain(k.reshape(B, S, n_kv, head_dim),
+                      "batch", "seq", "heads", None),
+            constrain(v.reshape(B, S, n_kv, head_dim),
+                      "batch", "seq", "heads", None))
 
 
 def _gqa_scores(q, k):
@@ -118,7 +122,7 @@ def causal_attention(p: Attention, x, positions, *, n_heads, n_kv, head_dim,
     q = rope(q, positions, rope_theta)
     k = rope(k, positions, rope_theta)
     out = _causal_attend(q, k, v, positions, q_chunk=q_chunk, causal=causal)
-    return out.to(x.dtype) @ p.wo
+    return constrain(out.to(x.dtype) @ p.wo, "batch", "seq", None)
 
 
 def init_cache(batch: int, s_max: int, n_kv: int, head_dim: int,

@@ -217,3 +217,38 @@ class ModelConfig:
             "mamba_d_state": min(self.mamba_d_state, 8),
         }
         return dataclasses.replace(self, **scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One cell of the assigned (arch x shape) matrix."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig):
+    """The shape set an architecture actually runs: long_500k only for
+    the sub-quadratic families; every arch has a decoder, so the decode
+    shapes always apply."""
+    out = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.sub_quadratic:
+        out.append(LONG_500K)
+    return tuple(out)
+
+
+def skipped_shapes_for(cfg: ModelConfig):
+    return tuple(s for s in ALL_SHAPES if s not in shapes_for(cfg))

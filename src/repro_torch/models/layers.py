@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models.sharding import constrain
+
 
 def compute_dtype(x: torch.Tensor) -> torch.dtype:
     """f32, or f64 for f64 inputs: the precision the reference keeps for
@@ -44,14 +46,14 @@ class RMSNorm(nn.Module):
 # ---- embedding / unembedding -----------------------------------------------
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``(V, d)`` table, int tokens ``(...)`` -> ``(..., d)`` rows."""
-    return table[tokens.long()]
+    """``(V, d)`` table, int tokens ``(B, S)`` -> ``(B, S, d)`` rows."""
+    return constrain(table[tokens.long()], "batch", "seq", None)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """``(..., d) x (V, d) -> (..., V)`` vocabulary logits (a tied table
     is the embedding's)."""
-    return torch.matmul(x, table.t())
+    return constrain(torch.matmul(x, table.t()), "batch", "seq", "vocab")
 
 
 # ---- rotary position embedding ---------------------------------------------
@@ -82,10 +84,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean negative log-likelihood of ``labels`` under ``logits`` (B, S,
     V), in f32 (f64 for f64 logits): logsumexp minus the label's logit.
     With ``mask`` (B, S), the sum over valid tokens over the mask's sum,
-    floored at 1."""
+    floored at 1.  Under a mesh the logits stay vocabulary-sharded; the
+    log-sum-exp and the label's logit are reduced over the shards."""
     logits = logits.to(compute_dtype(logits))
-    m = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, labels.long().unsqueeze(-1))[..., 0]
+    m = constrain(torch.logsumexp(logits, dim=-1), "batch", "seq")
+    label_logit = constrain(logits.gather(-1, labels.long().unsqueeze(-1)),
+                            "batch", "seq", None)[..., 0]
     nll = m - label_logit
     if mask is not None:
         mask = mask.to(nll.dtype)

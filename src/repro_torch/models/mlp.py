@@ -11,10 +11,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.models.sharding import constrain
+
 
 def mlp(x, w_gate, w_up, w_down):
-    h = F.silu(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    h = constrain(F.silu(x @ w_gate) * (x @ w_up), "batch", "seq", "mlp")
+    return constrain(h @ w_down, "batch", "seq", None)
 
 
 class MLP(nn.Module):

@@ -16,11 +16,22 @@ device is where every step runs.  A batch may carry the modality stubs,
 ``prefix_embeds`` (vlm) and ``frames`` (audio), as the reference's does.
 The serving entry points run without autograd; ``loss_fn`` is the
 training step's, on a module made with ``init_params(train=True)``.
+
+Under a mesh the parameters are DTensors (``creator.shard_model``) and
+every entry point runs under their mesh (``sharding.set_mesh``): the
+batch is split on its batch axes, the activations follow the rules'
+``constrain`` points, and ``prefill`` / ``decode_step`` gather the
+vocabulary-sharded logits once a step, so the sampler sees whole rows.
+The layouts of parameters, caches and inputs come without allocation
+from ``param_specs`` / ``param_shapes``, ``cache_specs`` /
+``cache_shapes`` and ``input_specs`` (``models/creator.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -28,8 +39,23 @@ import torch
 from repro_torch.core import topk as topk_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models import encdec, transformer
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import creator, encdec, transformer
+from repro_torch.models import sharding as shd
+from repro_torch.models.config import InputShape, ModelConfig
+
+
+def mesh_of(params):
+    """The live mesh the model's parameters are DTensors on, or None."""
+    t = params.embed.table
+    return t.device_mesh if shd.is_dtensor(t) else None
+
+
+def _mesh_scope(params):
+    """Make a sharded model's mesh ambient (if it is not already)."""
+    mesh = mesh_of(params)
+    if mesh is None or shd.current_mesh() is mesh:
+        return contextlib.nullcontext()
+    return shd.set_mesh(mesh)
 
 
 def _tokens(x, device) -> torch.Tensor:
@@ -40,7 +66,9 @@ def _tokens(x, device) -> torch.Tensor:
 
 def _inputs(params, batch: dict) -> dict:
     """``batch``'s tokens (int64), labels and modality stubs (the model's
-    dtype) and mask as tensors on the model's device."""
+    dtype) and mask as tensors on the model's device; for a sharded
+    model, DTensors split on their batch axes (every rank holds the same
+    whole batch, and keeps its block)."""
     table = params.embed.table
     out = {}
     for k in ("tokens", "labels"):
@@ -52,6 +80,10 @@ def _inputs(params, batch: dict) -> dict:
                 table.dtype)
     if batch.get("mask") is not None:
         out["mask"] = torch.as_tensor(batch["mask"], device=table.device)
+    mesh = mesh_of(params)
+    if mesh is not None:
+        out = {k: shd.distribute(v, shd.spec("batch", *[None] * (
+            v.dim() - 1)), mesh) for k, v in out.items()}
     return out
 
 
@@ -78,34 +110,46 @@ class ModelApi:
         """``(loss, {"ce", "aux"})`` of ``batch`` (``tokens``, ``labels``,
         optional ``mask``, the family's stub; numpy or tensors) under the
         model ``params``."""
-        b = _inputs(params, batch)
-        if self.cfg.is_encdec:
-            return encdec.loss_fn(params, b, remat=remat)
-        return transformer.loss_fn(params, b, remat=remat)
+        with _mesh_scope(params):
+            b = _inputs(params, batch)
+            if self.cfg.is_encdec:
+                return encdec.loss_fn(params, b, remat=remat)
+            return transformer.loss_fn(params, b, remat=remat)
 
     def forward(self, params, batch):
         """``(logits (B, S, V), aux_loss)`` over ``batch["tokens"]`` (and
         the vlm prefix, whose positions the logits include)."""
-        b = _inputs(params, batch)
-        if self.cfg.is_encdec:
-            return encdec.forward(params, b["tokens"], b["frames"])
-        return transformer.forward(params, b["tokens"],
-                                   b.get("prefix_embeds"))
+        with _mesh_scope(params):
+            b = _inputs(params, batch)
+            if self.cfg.is_encdec:
+                return encdec.forward(params, b["tokens"], b["frames"])
+            return transformer.forward(params, b["tokens"],
+                                       b.get("prefix_embeds"))
 
     @torch.no_grad()
     def prefill(self, params, batch, cache):
-        b = _inputs(params, batch)
-        if self.cfg.is_encdec:
-            return encdec.prefill(params, b["tokens"], b["frames"], cache)
-        return transformer.prefill(params, b["tokens"], cache,
-                                   b.get("prefix_embeds"))
+        """``(last-position logits (B, V), cache)``; the logits whole on
+        every rank under a mesh."""
+        with _mesh_scope(params):
+            b = _inputs(params, batch)
+            if self.cfg.is_encdec:
+                out = encdec.prefill(params, b["tokens"], b["frames"], cache)
+            else:
+                out = transformer.prefill(params, b["tokens"], cache,
+                                          b.get("prefix_embeds"))
+            return shd.gathered(out[0]), out[1]
 
     @torch.no_grad()
     def decode_step(self, params, token, cache):
-        tok = _tokens(token, params.embed.table.device)
-        if self.cfg.is_encdec:
-            return encdec.decode_step(params, tok, cache)
-        return transformer.decode_step(params, tok, cache)
+        """``(logits (B, V), cache)``; the logits whole on every rank under
+        a mesh (the one gather of a step)."""
+        with _mesh_scope(params):
+            tok = _inputs(params, {"tokens": token})["tokens"]
+            if self.cfg.is_encdec:
+                out = encdec.decode_step(params, tok, cache)
+            else:
+                out = transformer.decode_step(params, tok, cache)
+            return shd.gathered(out[0]), out[1]
 
     @torch.no_grad()
     def serve_step(self, params, token, cache, key: int, *, shards=None,
@@ -116,10 +160,19 @@ class ModelApi:
         ``(next tokens (B,) int32, cache)``.
 
         ``shards=k``: the sampler runs over k vocabulary shards (module
-        docstring); ``None``: plain top-k sampling over the row.
+        docstring); ``None``: plain top-k sampling over the row.  For a
+        sharded model the shards are its ``model`` axis (``None`` or that
+        axis's size; another count raises).
         ``key``: the step's int seed.  ``observe`` (optional) is called
         with the step's ``(logits (B, V), core.topk.TopKResult)``.
         """
+        mesh = mesh_of(params)
+        if mesh is not None:
+            axis = shd.mesh_axes(mesh).get("model", 1)
+            if shards not in (None, axis):
+                raise ValueError(f"shards={shards} on a mesh whose model "
+                                 f"axis is {axis}")
+            shards = axis
         logits, new_cache = self.decode_step(params, token, cache)
         look = None if observe is None else (lambda r: observe(logits, r))
         if shards is None:
@@ -139,12 +192,65 @@ class ModelApi:
 
     # ---- caches -----------------------------------------------------------
     def init_cache(self, batch: int, s_max: int, dtype=torch.float32,
-                   device=None):
+                   device=None, mesh=None):
         """The decoder's cache: a list of per-layer caches, or for the
-        audio family ``{"self": [...], "enc_out"}``."""
+        audio family ``{"self": [...], "enc_out"}``; on a live ``mesh``
+        every buffer a DTensor laid out by its cache spec."""
         mod = encdec if self.cfg.is_encdec else transformer
-        return mod.init_cache(self.cfg, batch, s_max, dtype=dtype,
-                              device=resolve_device(device))
+        cache = mod.init_cache(self.cfg, batch, s_max, dtype=dtype,
+                               device=resolve_device(device))
+        if mesh is None:
+            return cache
+        with shd.set_mesh(mesh):
+            return creator.distribute_cache(cache, mesh)
+
+    # ---- layouts (no allocation) -------------------------------------------
+    def param_specs(self) -> dict:
+        """``{parameter name: P}`` under the current rules and mesh."""
+        return creator.param_specs(self.init_params(device="meta"))
+
+    def param_shapes(self, mesh=None, dtype=torch.bfloat16) -> dict:
+        """``{parameter name: sharding.Shape}`` in ``dtype`` on ``mesh``."""
+        return creator.param_shapes(self.init_params(device="meta"), mesh,
+                                    dtype)
+
+    def cache_specs(self, batch: int, s_max: int):
+        return creator.cache_specs(self.init_cache(batch, s_max,
+                                                   device="meta"))
+
+    def cache_shapes(self, batch: int, s_max: int, mesh=None,
+                     dtype=torch.bfloat16):
+        return creator.cache_shapes(self.init_cache(
+            batch, s_max, dtype=dtype, device="meta"), mesh)
+
+    def input_specs(self, shape: InputShape, mesh=None,
+                    dtype=torch.bfloat16) -> dict[str, Any]:
+        """:class:`sharding.Shape` stand-ins for every model input of the
+        (arch x shape) cell: the decode token, or the tokens (and labels
+        for training) with the family's stub, ``prefix_embeds`` (vlm) or
+        ``frames`` (audio), in ``dtype``."""
+        cfg = self.cfg
+        gb, S = shape.global_batch, shape.seq_len
+
+        def arr(shp, dt, *axes):
+            return shd.make_shape(shp, dt, axes, mesh)
+
+        if shape.kind == "decode":
+            return {"token": arr((gb,), torch.int32, "batch")}
+        specs: dict[str, Any] = {}
+        s_text = S
+        if cfg.family == "vlm":
+            s_text = S - cfg.num_prefix_embeds
+            specs["prefix_embeds"] = arr(
+                (gb, cfg.num_prefix_embeds, cfg.d_model), dtype,
+                "batch", None, None)
+        if cfg.is_encdec:
+            specs["frames"] = arr((gb, cfg.frontend_frames, cfg.d_model),
+                                  dtype, "batch", None, None)
+        specs["tokens"] = arr((gb, s_text), torch.int32, "batch", None)
+        if shape.kind == "train":
+            specs["labels"] = arr((gb, s_text), torch.int32, "batch", None)
+        return specs
 
 
 def build_model(cfg: ModelConfig) -> ModelApi:

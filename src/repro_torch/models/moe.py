@@ -1,8 +1,10 @@
 """Mixture-of-Experts FFN: token-choice top-k routing, capacity-bounded,
 gather-based dispatch.
 
-Port of ``repro.models.moe`` on one device, where the reference's group
-count ``batch_shards()`` is 1:
+Port of ``repro.models.moe`` with one dispatch group, the reference's
+``batch_shards()`` without a mesh (``models/sharding.py`` has the
+count; dispatch in ``batch_shards()`` groups under a live mesh, with the
+reference's ``constrain`` points, is not ported yet):
 
   1. router logits -> f32 softmax -> top-k (ties to the smaller expert
      id, :func:`route`), the gate values renormalised over the chosen k;

@@ -13,6 +13,13 @@ parameters and the moments in place (``torch._foreach_*`` ops under
 ``no_grad``) and returns them; the gradients are only read.  ``count``
 is a 0-dim int32 tensor on the host, so the bias corrections need no
 device sync.
+
+Under a mesh the parameters, gradients and moments are DTensors of the
+same placements (the trainer redistributes each gradient to its
+parameter's first), so every ``_foreach_*`` op runs shard by shard;
+the global norm sums the shards' squares over the mesh.
+``state_specs`` / ``state_shapes`` give the state's layout: the moments
+shard exactly like their parameters (ZeRO).
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.models.sharding import P, Shape, gathered, is_dtensor
 
 
 class AdamWState(NamedTuple):
@@ -40,8 +49,8 @@ class AdamW(NamedTuple):
 
     def init(self, params: dict) -> AdamWState:
         def zeros():
-            return {k: torch.zeros(p.shape, dtype=self.moment_dtype,
-                                   device=p.device)
+            return {k: torch.zeros_like(p, dtype=self.moment_dtype,
+                                        requires_grad=False)
                     for k, p in params.items()}
         return AdamWState(count=torch.zeros((), dtype=torch.int32),
                           m=zeros(), v=zeros())
@@ -82,6 +91,19 @@ class AdamW(NamedTuple):
                 x.copy_(x32)
         return params, AdamWState(count=count, m=state.m, v=state.v)
 
+    def state_specs(self, param_specs: dict) -> AdamWState:
+        """The state's specs: the moments like their parameters."""
+        return AdamWState(count=P(), m=dict(param_specs),
+                          v=dict(param_specs))
+
+    def state_shapes(self, param_shapes: dict) -> AdamWState:
+        """``sharding.Shape`` stand-ins for the state (no allocation): the
+        moments in ``moment_dtype``, laid out like their parameters."""
+        mom = {k: Shape(s.shape, self.moment_dtype, s.spec, s.local)
+               for k, s in param_shapes.items()}
+        return AdamWState(count=Shape((), torch.int32, None, ()), m=mom,
+                          v=dict(mom))
+
     def _moment(self, stored, g, b, squared):
         """``b * mom + (1 - b) * g`` (or ``g * g``) in f32, written back to
         the stored moments; returns an f32 copy of what was stored.  The
@@ -90,9 +112,19 @@ class AdamW(NamedTuple):
         if squared:
             torch._foreach_mul_(new, g)
         torch._foreach_add_(new, [x.float() for x in stored], alpha=b)
-        torch._foreach_copy_(stored, new)
+        foreach_copy_(stored, new)
         return (new if self.moment_dtype == torch.float32
                 else [x.float() for x in stored])
+
+
+def foreach_copy_(dst: list, src: list):
+    """``torch._foreach_copy_``; one ``copy_`` a tensor for DTensors,
+    which have no sharding rule for it."""
+    if dst and is_dtensor(dst[0]):
+        for d, s in zip(dst, src):
+            d.copy_(s)
+    else:
+        torch._foreach_copy_(dst, src)
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -100,4 +132,7 @@ def global_norm(tree) -> torch.Tensor:
     together, as a 0-dim tensor on their device."""
     leaves = list(tree.values()) if isinstance(tree, dict) else list(tree)
     norms = torch._foreach_norm([x.float() for x in leaves])
+    # a DTensor's norm is reduced over its shards: the whole norm on
+    # every rank
+    norms = [gathered(n) for n in norms]
     return torch.linalg.vector_norm(torch.stack(norms))

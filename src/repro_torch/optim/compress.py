@@ -16,7 +16,7 @@ import torch
 
 
 def init_residual(params: dict) -> dict:
-    return {k: torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
+    return {k: torch.zeros_like(p, dtype=torch.bfloat16, requires_grad=False)
             for k, p in params.items()}
 
 

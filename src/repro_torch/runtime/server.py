@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.topk import fold_in
+from repro_torch.models.model import mesh_of
 
 
 @dataclasses.dataclass
@@ -34,7 +35,9 @@ class ServeConfig:
 class Server:
     """``api``: a ``models.ModelApi``; ``params``: its model, whose device
     the server runs on; ``shards``: vocabulary shards of the sampler
-    (None: the no-mesh path).  ``observe`` (optional) is handed to every
+    (None: plain top-k; a model sharded on a mesh, whose cache is laid
+    out by its specs, samples over its ``model`` axis, and another count
+    raises).  ``observe`` (optional) is handed to every
     ``serve_step`` (``(logits, TopKResult)`` per decode step).  The
     decoder's cache is f32 and holds ``scfg.max_seq`` positions, the vlm
     prefix's among them."""
@@ -64,7 +67,8 @@ class Server:
         key = 0 if key is None else int(key)
         scfg = self.scfg
         B = batch["tokens"].shape[0]
-        cache = self.api.init_cache(B, scfg.max_seq, device=self.device)
+        cache = self.api.init_cache(B, scfg.max_seq, device=self.device,
+                                    mesh=mesh_of(self.params))
         self._sync()
         t0 = time.perf_counter()
         logits, cache = self.api.prefill(self.params, batch, cache)

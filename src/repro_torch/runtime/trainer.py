@@ -14,6 +14,13 @@ Step construction (``make_train_step``):
   * optional bf16 compression with error feedback (optim/compress.py),
     the warmup-cosine learning rate, then AdamW in place.
 
+Under a mesh (the parameters DTensors, ``creator.shard_model``) each
+microbatch is split on its batch axes, and each gradient, which comes
+back ``Partial`` over the batch axes, is redistributed to its
+parameter's placements before it is accumulated: the reduce-scatter
+that GSPMD inserts for the reference.  The loss and ce are read whole
+on every rank, so every rank runs the same collectives.
+
 Loop (``train_loop``):
   * auto-restart: on a step failure the loop loads the latest checkpoint
     into the live parameters and optimizer tensors and replays from
@@ -32,7 +39,9 @@ import torch
 
 from repro_torch.checkpoint.serialization import tree_map
 from repro_torch.device import resolve_device
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.optim import AdamW, compress as compress_mod, warmup_cosine
+from repro_torch.optim.adamw import foreach_copy_
 from repro_torch.runtime import metrics as metrics_mod
 
 
@@ -61,6 +70,7 @@ def make_train_step(api, tcfg: TrainConfig, optimizer: AdamW):
         n = tcfg.grad_accum
         named = dict(params.named_parameters())
         leaves = list(named.values())
+        sharded = is_dtensor(leaves[0])
         b = len(batch["tokens"]) // n
         acc = [torch.zeros_like(p, dtype=tcfg.accum_dtype) for p in leaves]
         loss, ce = 0.0, []
@@ -68,13 +78,17 @@ def make_train_step(api, tcfg: TrainConfig, optimizer: AdamW):
             mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
             l, aux = api.loss_fn(params, mb, remat=tcfg.remat)
             g = [x.float() for x in torch.autograd.grad(l, leaves)]
+            if sharded:
+                g = [x.redistribute(p.device_mesh, p.placements)
+                     for x, p in zip(g, leaves)]
+                l, aux = l.full_tensor(), {"ce": aux["ce"].full_tensor()}
             with torch.no_grad():
                 torch._foreach_div_(g, n)
                 if tcfg.accum_dtype == torch.float32:
                     torch._foreach_add_(acc, g)
                 else:
                     torch._foreach_add_(g, [a.float() for a in acc])
-                    torch._foreach_copy_(acc, g)
+                    foreach_copy_(acc, g)
             del g
             loss = loss + l.detach() / n
             ce.append(aux["ce"].detach() / n)
@@ -109,10 +123,20 @@ def checkpoint_tree(params, opt_state) -> dict:
 def restore_into(ckpt_manager, step: int, params, opt_state):
     """Load checkpoint ``step`` into the live parameters and optimizer
     tensors (``copy_``, staged on the host), so every holder of them
-    sees the restored values."""
+    sees the restored values; a DTensor gets its own block."""
     live = checkpoint_tree(params, opt_state)
-    tree_map(lambda dst, src: dst.copy_(src), live,
+    tree_map(lambda dst, src: dst.copy_(_like(src, dst)), live,
              ckpt_manager.restore(step, live, device="cpu"))
+
+
+def _like(src: torch.Tensor, dst):
+    """The whole host tensor ``src`` laid out as ``dst`` is (a DTensor's
+    own block on its device), ready for ``dst.copy_``."""
+    if not is_dtensor(dst):
+        return src
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(src.to(dst.device), dst.device_mesh,
+                             dst.placements, src_data_rank=None)
 
 
 def train_loop(
