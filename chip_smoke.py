@@ -126,8 +126,16 @@ Phases:
      pixtral; jamba's chunked Mamba state against the exact recurrence
      in f64 (reported); reported: prefill ms, decode ms a step beside
      the weight-read bound, tokens/s, one profiled step's device time,
-     busy share and launches, peak memory; then three train_loop steps
-     with remat of granite at 2 layers and of xlstm, finite and moving;
+     busy share and launches, peak memory; then the same model sharded
+     in place on a 1 x 1 NCCL mesh: prefill and 4 decode steps under
+     both samplers, the tokens those of the unsharded run (the sampler's
+     draw does not depend on its shard count), the logits within 1e-6 x
+     max |logit| of its logged ones, each top-k a stable sort,
+     local_topk launched, a decode step's ms beside the unsharded; then
+     three train_loop steps with remat of each family at 2 layers
+     (xlstm full, phi3.5 with 4 experts) under deterministic algorithms,
+     unsharded and from the same init on the mesh: finite, moving, the
+     mesh's losses within 1e-6 relative of the unsharded;
   3h. serve_knn_lm: the kNN-LM example (repro_torch.examples.
      knn_lm_serve) at full width: qwen2-0.5b decoding while a static
      KnnServer (k = 8, route exact) serves a datastore of 2^22 keys x 896
@@ -156,9 +164,10 @@ Phases:
      snapshot, write and restore walls and bytes;
   3j. mesh: the mesh path.  The dry-run of all ten archs x their shapes x
      the (16, 16) and (2, 16, 16) meshes (``launch.dryrun --all --mesh
-     both``, its counts in worker processes, before the phase's card
-     work and beside no other phase): every cell OK or SKIP, one line a
-     cell; qwen2-0.5b at full width trained 5 steps through
+     both`` in a process of its own with its count workers, started
+     with the phase and beside its card work, read at its end): every
+     cell OK or SKIP, one line a cell; qwen2-0.5b at full width trained
+     5 steps through
      ``launch.train`` unsharded and on a 1 x 1 NCCL mesh (phase train's
      knobs) under deterministic algorithms, each run counted by
      ``launch.cost``: the losses equal within 1e-6 relative, the FLOPs 5 x
@@ -168,8 +177,11 @@ Phases:
      samplers): tokens equal to the unsharded port's, each top-k a stable
      sort, local_topk launched; the examples quickstart,
      distributed_topk_demo and streaming_ingest on the card with their
-     own checks; past 420 s the phase dumps every thread's stack and
-     exits;
+     own checks; ``launch.serve --arch granite-moe-3b-a800m --mesh 1x1``
+     at full width (8 x 128 + 8 tokens, both samplers: tokens in the
+     vocabulary and equal, local_topk launched) and ``launch.train --arch
+     xlstm-125m --mesh 1x1`` (5 steps of 8 x 128, losses falling); past
+     420 s the phase dumps every thread's stack and exits;
   4. time each kernel, its plain version and one PyTorch yardstick call
      (where one computes the same function) with CUDA events at the
      serving shapes, beside the least time the card could take for the
@@ -2926,8 +2938,17 @@ FAM_RUNS = (
 FAM_CONTINUOUS = ("xlstm-125m", "seamless-m4t-large-v2", "pixtral-12b")
 FAM_BATCH, FAM_PROMPT, FAM_NEW = 8, 128, 32
 FAM_F64_STEPS = 4             # decode steps held against the f64 twin
-FAM_TRAIN = (("granite-moe-3b-a800m", dict(n_layers=2)), ("xlstm-125m", {}))
+# trained 3 steps unsharded and on the 1 x 1 mesh; phi3.5-moe's 16 experts
+# of 2 layers (5.4e9 parameters) would need 5 x 21.7 GB in f32 with
+# AdamW, so it trains 4 of them
+FAM_TRAIN = (("granite-moe-3b-a800m", dict(n_layers=2)), ("xlstm-125m", {}),
+             ("jamba-1.5-large-398b", dict(FAM_RUNS[5][1], n_layers=2)),
+             ("phi3.5-moe-42b-a6.6b", dict(n_layers=2, n_experts=4)),
+             ("pixtral-12b", dict(n_layers=2)),
+             ("seamless-m4t-large-v2", dict(n_layers=2, n_enc_layers=2)))
 FAM_TRAIN_STEPS = 3
+FAM_MESH_NEW = 5              # prefill + 4 decode steps on the 1 x 1 mesh
+FAM_MESH_LOGIT_REL = 1e-6     # the mesh's logits vs unsharded, x max |logit|
 
 
 def family_config(arch, cut):
@@ -3001,10 +3022,11 @@ def mamba_clip_gap(p64, batch, api, dev):
     return gaps
 
 
-def family_run(dev, gpu, arch, cut, launches):
+def family_run(dev, gpu, arch, cut, launches, mesh):
     """serve_families for one arch: checked runs under both samplers,
     the f64 twin, teacher forcing or the Mamba clip, a timed run and a
-    profiled step.  Returns its record."""
+    profiled step, then the same model on the 1 x 1 ``mesh``
+    (:func:`family_mesh`).  Returns its record."""
     import copy
     import numpy as np
     import torch
@@ -3111,6 +3133,9 @@ def family_run(dev, gpu, arch, cut, launches):
         rec.update(prefill_err=pre_err, decode_err=dec_err)
         msg += f"; vs teacher forcing prefill {pre_err:.3g}, decode " \
                f"{dec_err:.3g}"
+    # the stream the 1 x 1 mesh must reproduce (family_mesh)
+    stream = dict(tokens=gen[:, :FAM_MESH_NEW],
+                  logits=[pre32] + steps[:FAM_MESH_NEW - 1])
     del steps
     log(f"  [{gpu}] serve_families {arch}: {FAM_NEW - 1} decode steps a "
         f"sampler, each top-{LM_TOP_K} equal to a stable sort, the samplers' "
@@ -3145,23 +3170,125 @@ def family_run(dev, gpu, arch, cut, launches):
         f"ms of device time in {wall:.3f} ms ({100 * dev_ms / wall:.1f}% "
         f"busy), {nlaunch} launches; peak memory "
         f"{rec['max_memory_allocated']} bytes")
+    del cache, lg
+    rec["mesh"] = family_mesh(dev, gpu, arch, api, params, batch, max_seq,
+                              mesh, launches, stream,
+                              rec["decode_ms_per_step"])
     return rec
 
 
-def family_train(dev, gpu, arch, cut):
-    """Three ``train_loop`` steps with remat: the loss finite, every
-    parameter tensor moved."""
+def family_mesh(dev, gpu, arch, api, params, batch, max_seq, mesh,
+                launches, stream, unsharded_ms):
+    """The arch's model, already on the card, sharded in place on the 1 x
+    1 NCCL ``mesh`` (``creator.shard_model``): prefill and 4 decode steps
+    (Server.generate, key 1 as the unsharded run) under both samplers.
+    The mesh samples over its ``model`` axis, 1 shard, and the unsharded
+    run over 8; both samplers' top-k is exact (each step checked against
+    a stable sort) and their draw comes from a generator of its own
+    (``core.topk.topk_sample``: ``fold_in(seed, 1)``), so the shard
+    count does not change the stream: the mesh's tokens must equal the
+    unsharded run's ``stream``, its prefill and decode logits be within
+    1e-6 x max |logit| of the logged ones; local_topk launched on every
+    run.  Returns the record with a mesh decode step's ms beside
+    ``unsharded_ms``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import creator
+    from repro_torch.models import sharding as shd
+    from repro_torch.runtime import ServeConfig, Server
+
+    with shd.set_mesh(mesh):
+        creator.shard_model(params, mesh)
+    err, bitwise, ms = {}, True, {}
+
+    def compare(what, got, want):
+        nonlocal bitwise
+        d = float((got - want).abs().max() / want.abs().max())
+        err[what] = max(err.get(what, 0.0), d)
+        bitwise = bitwise and torch.equal(got, want)
+
+    for sampler in ("selection", "gather"):
+        steps, bad = [], []
+
+        def observe(lg, res):
+            srt = torch.sort(lg, dim=-1, descending=True, stable=True)
+            if not (torch.equal(res.indices.long(), srt.indices[:, :LM_TOP_K])
+                    and torch.equal(res.values, srt.values[:, :LM_TOP_K])):
+                bad.append(len(steps))
+            steps.append(lg.clone())
+        srv = Server(api, params, ServeConfig(
+            max_seq=max_seq, top_k=LM_TOP_K, temperature=LM_TEMP,
+            sampler=sampler), observe=observe)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        gen, stats = srv.generate(batch, FAM_MESH_NEW, key=1)
+        torch.cuda.synchronize()
+        launches[f"fam_mesh_{arch}_{sampler}"] = counts = kops.launch_counts()
+        if bad or len(steps) != FAM_MESH_NEW - 1:
+            raise PhaseError(f"serve_families mesh {arch} {sampler}: top-k "
+                             f"of steps {bad} differs from a stable sort")
+        if counts["local_topk"] < 1:
+            raise PhaseError(f"serve_families mesh {arch} {sampler}: "
+                             f"local_topk never launched")
+        if not np.array_equal(gen, stream["tokens"]):
+            raise PhaseError(f"serve_families mesh {arch} {sampler}: the "
+                             f"1x1 mesh's tokens differ from the unsharded "
+                             f"run's")
+        for got, want in zip(steps, stream["logits"][1:]):
+            compare(sampler, got, want)
+        ms[sampler] = stats["decode_s"] / (FAM_MESH_NEW - 1) * 1e3
+    cache = api.init_cache(FAM_BATCH, max_seq, device=dev, mesh=mesh)
+    compare("prefill", api.prefill(params, batch, cache)[0],
+            stream["logits"][0])
+    if max(err.values()) > FAM_MESH_LOGIT_REL:
+        raise PhaseError(f"serve_families mesh {arch}: logits vs unsharded "
+                         f"{err} above {FAM_MESH_LOGIT_REL} x max |logit|")
+    rec = dict(logit_rel_err=err, bit_for_bit=bitwise,
+               decode_ms_per_step=ms, unsharded_decode_ms_per_step=unsharded_ms,
+               tokens=FAM_MESH_NEW)
+    log(f"  [{gpu}] serve_families mesh {arch}: prefill + "
+        f"{FAM_MESH_NEW - 1} decode steps a sampler on the 1x1 NCCL mesh, "
+        f"tokens equal to the unsharded run's, logits max rel {err} (bit "
+        f"for bit: {bitwise}), every top-{LM_TOP_K} a stable sort, "
+        f"local_topk launched; decode ms a step "
+        f"{ {k: round(v, 3) for k, v in ms.items()} } on the mesh (1 shard),"
+        f" {unsharded_ms:.3f} unsharded (8 shards, timed)")
+    return rec
+
+
+def fingerprints(params) -> dict:
+    """Each parameter's f64 sum and L2 norm on the card (its own block on
+    a mesh): a step that moves a tensor changes them (a second copy of
+    the larger models would not fit beside their optimizer state)."""
+    import torch
+    from repro_torch.models import sharding as shd
+    with torch.no_grad():
+        return {n: torch.stack([
+            t.sum(dtype=torch.float64),
+            torch.linalg.vector_norm(t, dtype=torch.float64)])
+            for n, t in ((n, shd.local(p.detach()))
+                         for n, p in params.named_parameters())}
+
+
+def family_train(dev, gpu, arch, cut, mesh):
+    """Three ``train_loop`` steps with remat (8 x 128 tokens in 2
+    microbatches, the family's stub inputs seeded by step as the launcher
+    makes them), unsharded and then from the same init on the 1 x 1
+    ``mesh``, under deterministic algorithms: the losses finite and equal
+    within MESH_LOSS_REL, every parameter tensor moved in both."""
     import math
+    import numpy as np
     import torch
     from repro_torch.data import MarkovTokens
-    from repro_torch.models import build_model
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import build_model, creator
+    from repro_torch.models import sharding as shd
     from repro_torch.optim import AdamW
     from repro_torch.runtime import (MetricLogger, TrainConfig,
                                      init_opt_state, train_loop)
     cfg = family_config(arch, cut)
     api = build_model(cfg)
-    params = api.init_params(0, device=dev, train=True)
-    start = {n: p.detach().clone() for n, p in params.named_parameters()}
     tcfg = TrainConfig(grad_accum=2, peak_lr=1e-3, warmup_steps=1,
                        total_steps=FAM_TRAIN_STEPS, remat=True)
     opt = AdamW()
@@ -3169,30 +3296,60 @@ def family_train(dev, gpu, arch, cut):
 
     def make_batch(step):
         t, l = data.batch(step, FAM_BATCH, FAM_PROMPT)
-        return {"tokens": t, "labels": l}
-    logger = MetricLogger()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params, _, step = train_loop(
-        api=api, tcfg=tcfg, optimizer=opt, params=params,
-        opt_state=init_opt_state(api, tcfg, opt, params),
-        make_batch=make_batch, num_steps=FAM_TRAIN_STEPS, logger=logger,
-        device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    losses = [r["loss"] for r in logger.history if "loss" in r]
-    still = [n for n, p in params.named_parameters()
-             if torch.equal(p.detach(), start[n])]
-    if step != FAM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise PhaseError(f"serve_families train {arch}: steps {step}, "
-                         f"losses {losses}")
-    if still:
-        raise PhaseError(f"serve_families train {arch}: {still[:4]} did not "
-                         f"move")
-    log(f"  [{gpu}] serve_families train {arch} {cut}: {step} steps of "
-        f"{FAM_BATCH}x{FAM_PROMPT} with remat, losses {losses}, every "
-        f"parameter moved, {wall:.3f} s")
-    return dict(cut=cut, losses=losses, wall_s=wall)
+        return {"tokens": t, "labels": l, **stub_inputs(
+            cfg, np.random.default_rng([0, step]), FAM_BATCH)}
+
+    def run(sharded):
+        params = api.init_params(0, device=dev, train=True)
+        if sharded:
+            with shd.set_mesh(mesh):
+                creator.shard_model(params, mesh)
+        start = fingerprints(params)
+        logger = MetricLogger(quiet=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _, step = train_loop(
+            api=api, tcfg=tcfg, optimizer=opt, params=params,
+            opt_state=init_opt_state(api, tcfg, opt, params),
+            make_batch=make_batch, num_steps=FAM_TRAIN_STEPS, logger=logger,
+            device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [r["loss"] for r in logger.history if "loss" in r]
+        still = [n for n, f in fingerprints(params).items()
+                 if torch.equal(f, start[n])]
+        name = "1x1" if sharded else "unsharded"
+        if step != FAM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise PhaseError(f"serve_families train {arch} {name}: steps "
+                             f"{step}, losses {losses}")
+        if still:
+            raise PhaseError(f"serve_families train {arch} {name}: "
+                             f"{still[:4]} did not move")
+        del params, start
+        torch.cuda.empty_cache()
+        return losses, wall
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        losses, wall = run(False)
+        mesh_losses, mesh_wall = run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses))
+    if rel > MESH_LOSS_REL:
+        raise PhaseError(f"serve_families train {arch}: the 1x1 mesh's "
+                         f"losses {mesh_losses} against the unsharded "
+                         f"{losses}")
+    log(f"  [{gpu}] serve_families train {arch} {cut}: {FAM_TRAIN_STEPS} "
+        f"steps of {FAM_BATCH}x{FAM_PROMPT} with remat, deterministic, "
+        f"losses {losses}; on the 1x1 mesh {mesh_losses} (largest relative "
+        f"gap {rel:.3g}); every parameter moved; walls {wall:.3f} s "
+        f"unsharded, {mesh_wall:.3f} s on the mesh")
+    return dict(cut=cut, losses=losses, wall_s=wall, mesh_losses=mesh_losses,
+                mesh_wall_s=mesh_wall, mesh_max_rel=rel)
 
 
 def phase_serve_families(dev, gpu, results):
@@ -3207,23 +3364,36 @@ def phase_serve_families(dev, gpu, results):
     f32 run's MoE routing); decode against teacher forcing for the
     continuous families; jamba's chunked Mamba state against the exact
     recurrence in f64 (reported); timings and one profiled step; then
-    three train_loop steps of granite at 2 layers and xlstm.  One model
-    at a time, freed before the next."""
+    the same model on a 1 x 1 NCCL mesh against itself unsharded
+    (:func:`family_mesh`).  One model at a time, freed before the next.
+    Then three train_loop steps of each FAM_TRAIN cut, unsharded and on
+    the mesh (:func:`family_train`).  One process group for the phase."""
     import gc
     import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_debug_mesh
+    kind = "cuda" if dev.type == "cuda" else "cpu"
+    made = init_distributed(kind, 1)[1]
     launches, out = {}, {}
-    for arch, cut in FAM_RUNS:
-        out[arch] = family_run(dev, gpu, arch, cut, launches)
-        gc.collect()
-        torch.cuda.empty_cache()
-    train = {arch: family_train(dev, gpu, arch, cut)
-             for arch, cut in FAM_TRAIN}
-    gc.collect()
-    torch.cuda.empty_cache()
+    try:
+        mesh = make_debug_mesh(1, 1, kind)
+        for arch, cut in FAM_RUNS:
+            out[arch] = family_run(dev, gpu, arch, cut, launches, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        train = {}
+        for arch, cut in FAM_TRAIN:
+            train[arch] = family_train(dev, gpu, arch, cut, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        if made:
+            dist.destroy_process_group()
     results["serve_families"] = dict(
         runs=out, train=train, launches=launches,
         shape=dict(batch=FAM_BATCH, prompt=FAM_PROMPT, new=FAM_NEW,
-                   shards=LM_SHARDS, top_k=LM_TOP_K, temperature=LM_TEMP))
+                   shards=LM_SHARDS, top_k=LM_TOP_K, temperature=LM_TEMP,
+                   mesh_new=FAM_MESH_NEW))
 
 
 def brute_f64(keys, q, l, chunk=1 << 18):
@@ -3812,17 +3982,44 @@ MESH_SERVE = dict(batch=8, prompt=128, tokens=16, top_k=50)
 MESH_TRAIN_STEPS = 5
 MESH_LOSS_REL = 1e-6          # the 1 x 1 mesh's losses vs the unsharded
 MESH_PEAK_BAND = (0.67, 1.5)  # measured peak / predicted peak
+# count workers of the dry-run, beside the card's work (which waits on it
+# at the phase's end)
 MESH_DRYRUN_JOBS = min(8, os.cpu_count() or 1)
 MESH_DEADLINE_S = 420         # the phase dumps every thread's stack and
                               # exits past this
+MESH_FAMILY_SERVE = dict(arch="granite-moe-3b-a800m", batch=8, prompt=128,
+                         tokens=8)
+MESH_FAMILY_TRAIN = dict(arch="xlstm-125m", steps=5, batch=8, seq=128)
+
+
+def start_dryrun(out_dir):
+    """``launch.dryrun --all --mesh both`` in a process of its own (its
+    count workers beneath it), each cell's record written under
+    ``out_dir/cells``, its standard error to ``out_dir/stderr.txt``; the
+    process dies with this one."""
+    import signal
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+
+    def die_with_parent():
+        import ctypes
+        ctypes.CDLL("libc.so.6").prctl(1, signal.SIGKILL)   # PDEATHSIG
+
+    with open(out_dir / "stderr.txt", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--jobs", str(MESH_DRYRUN_JOBS),
+             "--results-dir", str(out_dir / "cells")], cwd=str(ROOT),
+            env=env, stdout=subprocess.DEVNULL, stderr=err,
+            preexec_fn=die_with_parent)
 
 
 def phase_mesh(dev, gpu, results):
     """The mesh path on the card.  (1) The dry-run of all ten archs x
     their shapes x the (16, 16) and (2, 16, 16) meshes (``launch.dryrun
-    --all --mesh both``, its counts in worker processes on the host,
-    before the card's work, so no wall of this script is taken beside
-    it): every cell OK or SKIP, one line a cell.  (2) qwen2-0.5b at full
+    --all --mesh both``, its counts in worker processes on the host),
+    started in the background at the phase's start and read at its end,
+    so it overlaps only this phase's card work (every wall of parts 2-5):
+    every cell OK or SKIP, one line a cell.  (2) qwen2-0.5b at full
     width trained 5 steps through ``launch.train`` unsharded and on a 1 x
     1 NCCL mesh (phase train's knobs: 8 x 128 tokens in 2 microbatches,
     remat, AdamW's defaults) under deterministic algorithms, each run
@@ -3833,21 +4030,14 @@ def phase_mesh(dev, gpu, results):
     128-token prompts, 16 new tokens, both samplers): the tokens equal
     the unsharded port's, each step's top-k equals a stable sort of its
     row, local_topk launched.  (4) The three examples on the card with
-    their own checks."""
-    import contextlib
+    their own checks.  (5) The launchers on a non-dense arch:
+    ``launch.serve --arch granite-moe-3b-a800m --mesh 1x1`` at full width
+    (B = 8, 128-token prompts, 8 tokens, both samplers: tokens of the
+    right shape inside the vocabulary, the samplers' equal, local_topk
+    launched) and ``launch.train --arch xlstm-125m --mesh 1x1`` (5 steps
+    of 8 x 128: losses finite and falling)."""
     import faulthandler
-    import io
-    import numpy as np
-    import torch
-    import repro_torch.configs as configs
-    from repro_torch.examples import (distributed_topk_demo, quickstart,
-                                      streaming_ingest)
-    from repro_torch.kernels import ops as kops
-    from repro_torch.launch import cost, dryrun
-    from repro_torch.launch import train as tlaunch
-    from repro_torch.launch.mesh import debug_mesh
-    from repro_torch.models import build_model, creator
-    from repro_torch.runtime import ServeConfig, Server
+    import shutil
 
     out, launches = {}, {}
     # the card; the CPU only in a rehearsal of the phase
@@ -3855,13 +4045,23 @@ def phase_mesh(dev, gpu, results):
     devarg = [] if on is None else ["--device", on]
     t_phase = time.perf_counter()
     faulthandler.dump_traceback_later(MESH_DEADLINE_S, exit=True)
+    dry_dir = ROOT / "build" / "mesh_dryrun"
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    dry_dir.mkdir(parents=True)
+    dry = start_dryrun(dry_dir)
     try:
-        # (1) the dry-run's cells
+        mesh_card_work(dev, gpu, on, devarg, out, launches)
+        # (1) the dry-run's cells, counted meanwhile
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            cells = dryrun.main(["--all", "--mesh", "both", "--jobs",
-                                 str(MESH_DRYRUN_JOBS)])
-        dry_s = time.perf_counter() - t0
+        dry.wait()
+        if dry.returncode:
+            err = (dry_dir / "stderr.txt").read_text()[-2000:]
+            raise PhaseError(f"mesh: the dry-run exited {dry.returncode}: "
+                             f"{err}")
+        dry_s = time.perf_counter() - t_phase
+        dry_wait_s = time.perf_counter() - t0
+        cells = [json.loads(f.read_text())
+                 for f in sorted((dry_dir / "cells").glob("*.json"))]
         status = {}
         for c in cells:
             status[c["status"]] = status.get(c["status"], 0) + 1
@@ -3881,157 +4081,235 @@ def phase_mesh(dev, gpu, results):
             raise PhaseError(f"mesh: dry-run cells {status}, {len(cells)} "
                              f"of {want_cells}")
         out["dryrun"] = dict(status=status, wall_s=dry_s,
+                             wait_after_card_s=dry_wait_s,
                              jobs=MESH_DRYRUN_JOBS,
                              cells={c["cell"]: c for c in cells})
-        log(f"  [{gpu}] mesh dry-run: {status} over {len(cells)} cells in "
-            f"{dry_s:.1f} s ({MESH_DRYRUN_JOBS} worker processes)")
-
-        # (2) training, unsharded and on the 1 x 1 mesh, each run counted
-        cfg = configs.get(LM_ARCH)
-        pred, _, resident = dryrun.count_step(
-            cfg, "train", TRAIN_BATCH, TRAIN_SEQ, grad_accum=TRAIN_ACCUM,
-            dtype=torch.float32)
-        predicted_peak = resident + pred.peak_bytes
-        args = ["--steps", str(MESH_TRAIN_STEPS), "--batch",
-                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--grad-accum",
-                str(TRAIN_ACCUM), "--lr", str(TRAIN_LR)] + devarg
-        walls, losses, counted = {}, {}, {}
-        fill = torch.utils.deterministic.fill_uninitialized_memory
-        torch.utils.deterministic.fill_uninitialized_memory = False
-        torch.use_deterministic_algorithms(True)
-        try:
-            for name, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
-                # what earlier phases still hold is not this run's
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                with contextlib.redirect_stderr(io.StringIO()), \
-                        cost.CostMode() as m:
-                    _, losses[name] = tlaunch.main(args + extra)
-                torch.cuda.synchronize()
-                walls[name] = time.perf_counter() - t0
-                counted[name] = dict(
-                    flops=m.flops, bytes=m.bytes, ops=m.ops, base=base,
-                    max_memory_allocated=torch.cuda.max_memory_allocated()
-                    - base)
-                torch.cuda.empty_cache()
-        finally:
-            torch.use_deterministic_algorithms(False)
-            torch.utils.deterministic.fill_uninitialized_memory = fill
-        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
-                                                      losses["plain"]))
-        if len(losses["mesh"]) != MESH_TRAIN_STEPS or rel > MESH_LOSS_REL:
-            raise PhaseError(f"mesh: the 1x1 mesh's losses {losses['mesh']}"
-                             f" against the unsharded {losses['plain']}")
-        ratio = {}
-        for name, c in counted.items():
-            if c["flops"] != MESH_TRAIN_STEPS * pred.flops:
-                raise PhaseError(f"mesh: the {name} run's FLOPs "
-                                 f"{c['flops']} on the card against "
-                                 f"{MESH_TRAIN_STEPS} x the dry-run's "
-                                 f"{pred.flops}")
-            ratio[name] = c["max_memory_allocated"] / predicted_peak
-            if not MESH_PEAK_BAND[0] <= ratio[name] <= MESH_PEAK_BAND[1]:
-                raise PhaseError(f"mesh: the {name} run's peak memory {c} "
-                                 f"against the predicted {predicted_peak} "
-                                 f"({ratio[name]:.3f})")
-        log(f"  [{gpu}] mesh train: {MESH_TRAIN_STEPS} steps of qwen2-0.5b "
-            f"at full width, 8x128 in 2 microbatches, on the 1x1 NCCL mesh "
-            f"and unsharded: losses {losses['mesh']} (largest relative gap "
-            f"{rel:.3g}); launcher walls {walls} s, counted")
-        log(f"  [{gpu}] mesh train step: FLOPs {pred.flops} on the meta "
-            f"device; on the card {MESH_TRAIN_STEPS} x that, unsharded and "
-            f"on the mesh; predicted peak {predicted_peak} bytes (resident "
-            f"{resident} + transient {pred.peak_bytes}), measured "
-            f"{counted['plain']['max_memory_allocated']} unsharded, "
-            f"{counted['mesh']['max_memory_allocated']} on the mesh "
-            f"(ratios {ratio})")
-        out["train"] = dict(losses=losses, max_rel=rel, launcher_s=walls,
-                            counted=counted, predicted=pred.as_dict(),
-                            predicted_peak=predicted_peak,
-                            resident=resident, peak_ratio=ratio)
-
-        # (3) serving on the 1 x 1 mesh against the unsharded port
-        api = build_model(cfg)
-        rng = np.random.default_rng(22)
-        sb = {"tokens": rng.integers(0, cfg.vocab, (
-            MESH_SERVE["batch"], MESH_SERVE["prompt"])).astype(np.int32)}
-        scfg_kw = dict(max_seq=MESH_SERVE["prompt"] + MESH_SERVE["tokens"]
-                       + 8, top_k=MESH_SERVE["top_k"])
-        gens, serve_s = {}, {}
-        for sampler in ("selection", "gather"):
-            for name, spec in (("plain", None), ("mesh", "1x1")):
-                bad, nsteps = [], [0]
-
-                def observe(logits, res):
-                    srt = torch.sort(logits, dim=-1, descending=True,
-                                     stable=True)
-                    k = MESH_SERVE["top_k"]
-                    if not (torch.equal(res.indices.long(), srt.indices[:, :k])
-                            and torch.equal(res.values, srt.values[:, :k])):
-                        bad.append(nsteps[0])
-                    nsteps[0] += 1
-                with debug_mesh(spec, on) as (mdev, mesh):
-                    params = api.init_params(0, device=mdev)
-                    if mesh is not None:
-                        creator.shard_model(params, mesh)
-                    srv = Server(api, params, ServeConfig(
-                        sampler=sampler, **scfg_kw),
-                        shards=None if mesh is not None else 1,
-                        observe=observe)
-                    torch.cuda.synchronize()
-                    kops.reset_launch_counts()
-                    t0 = time.perf_counter()
-                    gens[(sampler, name)], _ = srv.generate(
-                        sb, MESH_SERVE["tokens"], key=1)
-                    torch.cuda.synchronize()
-                    serve_s[f"{sampler}_{name}"] = time.perf_counter() - t0
-                    counts = kops.launch_counts()
-                    del srv, params
-                if bad or nsteps[0] != MESH_SERVE["tokens"] - 1:
-                    raise PhaseError(f"mesh serve {sampler} {name}: top-k of "
-                                     f"steps {bad} differs from a stable sort")
-                if counts["local_topk"] < 1:
-                    raise PhaseError(f"mesh serve {sampler} {name}: "
-                                     f"local_topk never launched")
-                if name == "mesh":
-                    launches[f"mesh_serve_{sampler}"] = counts
-            if not np.array_equal(gens[(sampler, "mesh")],
-                                  gens[(sampler, "plain")]):
-                raise PhaseError(f"mesh serve {sampler}: the 1x1 mesh's "
-                                 f"tokens differ from the unsharded port's")
-        if not np.array_equal(gens[("selection", "mesh")],
-                              gens[("gather", "mesh")]):
-            raise PhaseError("mesh serve: the samplers drew other tokens")
-        log(f"  [{gpu}] mesh serve: qwen2-0.5b B={MESH_SERVE['batch']} x "
-            f"{MESH_SERVE['prompt']} + {MESH_SERVE['tokens']} tokens, both "
-            f"samplers on the 1x1 mesh: tokens equal to the unsharded "
-            f"port's, every top-{MESH_SERVE['top_k']} equal to a stable "
-            f"sort; walls { {k: round(v, 3) for k, v in serve_s.items()} } "
-            f"s; launches {launches}")
-        out["serve"] = dict(walls_s=serve_s, tokens=np.asarray(
-            gens[("selection", "mesh")]).tolist())
-        torch.cuda.empty_cache()
-
-        # (4) the examples on the card
-        ex = {}
-        for name, mod in (("quickstart", quickstart),
-                          ("distributed_topk_demo", distributed_topk_demo),
-                          ("streaming_ingest", streaming_ingest)):
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                mod.main(devarg)
-            ex[name] = time.perf_counter() - t0
-            tail = buf.getvalue().strip().splitlines()[-1]
-            log(f"  [{gpu}] example {name}: {ex[name]:.3f} s; {tail}")
-        out["examples_s"] = ex
+        log(f"  [{gpu}] mesh dry-run: {status} over {len(cells)} cells, done "
+            f"{dry_s:.1f} s after the phase's start ({MESH_DRYRUN_JOBS} "
+            f"worker processes beside the card's work; {dry_wait_s:.1f} s "
+            f"waited after it)")
     finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
         faulthandler.cancel_dump_traceback_later()
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     results["mesh"] = out
+
+
+def mesh_card_work(dev, gpu, on, devarg, out, launches):
+    """Parts 2-5 of :func:`phase_mesh`."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    import repro_torch.configs as configs
+    from repro_torch.examples import (distributed_topk_demo, quickstart,
+                                      streaming_ingest)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import cost, dryrun
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.launch.mesh import debug_mesh
+    from repro_torch.models import build_model, creator
+    from repro_torch.runtime import ServeConfig, Server
+    # (2) training, unsharded and on the 1 x 1 mesh, each run counted
+    cfg = configs.get(LM_ARCH)
+    pred, _, resident = dryrun.count_step(
+        cfg, "train", TRAIN_BATCH, TRAIN_SEQ, grad_accum=TRAIN_ACCUM,
+        dtype=torch.float32)
+    predicted_peak = resident + pred.peak_bytes
+    args = ["--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--grad-accum",
+            str(TRAIN_ACCUM), "--lr", str(TRAIN_LR)] + devarg
+    walls, losses, counted = {}, {}, {}
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, extra in (("plain", []), ("mesh", ["--mesh", "1x1"])):
+            # what earlier phases still hold is not this run's
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()), \
+                    cost.CostMode() as m:
+                _, losses[name] = tlaunch.main(args + extra)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            counted[name] = dict(
+                flops=m.flops, bytes=m.bytes, ops=m.ops, base=base,
+                max_memory_allocated=torch.cuda.max_memory_allocated()
+                - base)
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"],
+                                                  losses["plain"]))
+    if len(losses["mesh"]) != MESH_TRAIN_STEPS or rel > MESH_LOSS_REL:
+        raise PhaseError(f"mesh: the 1x1 mesh's losses {losses['mesh']}"
+                         f" against the unsharded {losses['plain']}")
+    ratio = {}
+    for name, c in counted.items():
+        if c["flops"] != MESH_TRAIN_STEPS * pred.flops:
+            raise PhaseError(f"mesh: the {name} run's FLOPs "
+                             f"{c['flops']} on the card against "
+                             f"{MESH_TRAIN_STEPS} x the dry-run's "
+                             f"{pred.flops}")
+        ratio[name] = c["max_memory_allocated"] / predicted_peak
+        if not MESH_PEAK_BAND[0] <= ratio[name] <= MESH_PEAK_BAND[1]:
+            raise PhaseError(f"mesh: the {name} run's peak memory {c} "
+                             f"against the predicted {predicted_peak} "
+                             f"({ratio[name]:.3f})")
+    log(f"  [{gpu}] mesh train: {MESH_TRAIN_STEPS} steps of qwen2-0.5b "
+        f"at full width, 8x128 in 2 microbatches, on the 1x1 NCCL mesh "
+        f"and unsharded: losses {losses['mesh']} (largest relative gap "
+        f"{rel:.3g}); launcher walls {walls} s, counted")
+    log(f"  [{gpu}] mesh train step: FLOPs {pred.flops} on the meta "
+        f"device; on the card {MESH_TRAIN_STEPS} x that, unsharded and "
+        f"on the mesh; predicted peak {predicted_peak} bytes (resident "
+        f"{resident} + transient {pred.peak_bytes}), measured "
+        f"{counted['plain']['max_memory_allocated']} unsharded, "
+        f"{counted['mesh']['max_memory_allocated']} on the mesh "
+        f"(ratios {ratio})")
+    out["train"] = dict(losses=losses, max_rel=rel, launcher_s=walls,
+                        counted=counted, predicted=pred.as_dict(),
+                        predicted_peak=predicted_peak,
+                        resident=resident, peak_ratio=ratio)
+
+    # (3) serving on the 1 x 1 mesh against the unsharded port
+    api = build_model(cfg)
+    rng = np.random.default_rng(22)
+    sb = {"tokens": rng.integers(0, cfg.vocab, (
+        MESH_SERVE["batch"], MESH_SERVE["prompt"])).astype(np.int32)}
+    scfg_kw = dict(max_seq=MESH_SERVE["prompt"] + MESH_SERVE["tokens"]
+                   + 8, top_k=MESH_SERVE["top_k"])
+    gens, serve_s = {}, {}
+    for sampler in ("selection", "gather"):
+        for name, spec in (("plain", None), ("mesh", "1x1")):
+            bad, nsteps = [], [0]
+
+            def observe(logits, res):
+                srt = torch.sort(logits, dim=-1, descending=True,
+                                 stable=True)
+                k = MESH_SERVE["top_k"]
+                if not (torch.equal(res.indices.long(), srt.indices[:, :k])
+                        and torch.equal(res.values, srt.values[:, :k])):
+                    bad.append(nsteps[0])
+                nsteps[0] += 1
+            with debug_mesh(spec, on) as (mdev, mesh):
+                params = api.init_params(0, device=mdev)
+                if mesh is not None:
+                    creator.shard_model(params, mesh)
+                srv = Server(api, params, ServeConfig(
+                    sampler=sampler, **scfg_kw),
+                    shards=None if mesh is not None else 1,
+                    observe=observe)
+                torch.cuda.synchronize()
+                kops.reset_launch_counts()
+                t0 = time.perf_counter()
+                gens[(sampler, name)], _ = srv.generate(
+                    sb, MESH_SERVE["tokens"], key=1)
+                torch.cuda.synchronize()
+                serve_s[f"{sampler}_{name}"] = time.perf_counter() - t0
+                counts = kops.launch_counts()
+                del srv, params
+            if bad or nsteps[0] != MESH_SERVE["tokens"] - 1:
+                raise PhaseError(f"mesh serve {sampler} {name}: top-k of "
+                                 f"steps {bad} differs from a stable sort")
+            if counts["local_topk"] < 1:
+                raise PhaseError(f"mesh serve {sampler} {name}: "
+                                 f"local_topk never launched")
+            if name == "mesh":
+                launches[f"mesh_serve_{sampler}"] = counts
+        if not np.array_equal(gens[(sampler, "mesh")],
+                              gens[(sampler, "plain")]):
+            raise PhaseError(f"mesh serve {sampler}: the 1x1 mesh's "
+                             f"tokens differ from the unsharded port's")
+    if not np.array_equal(gens[("selection", "mesh")],
+                          gens[("gather", "mesh")]):
+        raise PhaseError("mesh serve: the samplers drew other tokens")
+    log(f"  [{gpu}] mesh serve: qwen2-0.5b B={MESH_SERVE['batch']} x "
+        f"{MESH_SERVE['prompt']} + {MESH_SERVE['tokens']} tokens, both "
+        f"samplers on the 1x1 mesh: tokens equal to the unsharded "
+        f"port's, every top-{MESH_SERVE['top_k']} equal to a stable "
+        f"sort; walls { {k: round(v, 3) for k, v in serve_s.items()} } "
+        f"s; launches {launches}")
+    out["serve"] = dict(walls_s=serve_s, tokens=np.asarray(
+        gens[("selection", "mesh")]).tolist())
+    torch.cuda.empty_cache()
+
+    # (4) the examples on the card
+    ex = {}
+    for name, mod in (("quickstart", quickstart),
+                      ("distributed_topk_demo", distributed_topk_demo),
+                      ("streaming_ingest", streaming_ingest)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            mod.main(devarg)
+        ex[name] = time.perf_counter() - t0
+        tail = buf.getvalue().strip().splitlines()[-1]
+        log(f"  [{gpu}] example {name}: {ex[name]:.3f} s; {tail}")
+    out["examples_s"] = ex
+
+    # (5) the launchers on a non-dense arch
+    fs, ft = MESH_FAMILY_SERVE, MESH_FAMILY_TRAIN
+    vocab = configs.get(fs["arch"]).vocab
+    gens, walls = {}, {}
+    for sampler in ("selection", "gather"):
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            gen, stats = tserve.main([
+                "--arch", fs["arch"], "--mesh", "1x1", "--batch",
+                str(fs["batch"]), "--prompt", str(fs["prompt"]),
+                "--tokens", str(fs["tokens"]), "--sampler", sampler]
+                + devarg)
+        torch.cuda.synchronize()
+        walls[f"serve_{sampler}"] = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        gens[sampler] = gen = np.asarray(gen)
+        if gen.shape != (fs["batch"], fs["tokens"]) or gen.min() < 0 \
+                or gen.max() >= vocab:
+            raise PhaseError(f"mesh launch.serve {fs['arch']} {sampler}: "
+                             f"tokens {gen.shape} in [{gen.min()}, "
+                             f"{gen.max()}] of a {vocab} vocabulary")
+        if counts["local_topk"] < 1:
+            raise PhaseError(f"mesh launch.serve {fs['arch']} {sampler}: "
+                             f"local_topk never launched")
+        launches[f"mesh_launch_serve_{sampler}"] = counts
+        walls[f"serve_{sampler}_decode_ms_per_step"] = (
+            stats["decode_s"] / (fs["tokens"] - 1) * 1e3)
+    if not np.array_equal(gens["selection"], gens["gather"]):
+        raise PhaseError(f"mesh launch.serve {fs['arch']}: the samplers "
+                         f"drew other tokens")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        _, tl = tlaunch.main([
+            "--arch", ft["arch"], "--mesh", "1x1", "--steps",
+            str(ft["steps"]), "--batch", str(ft["batch"]), "--seq",
+            str(ft["seq"])] + devarg)
+    torch.cuda.synchronize()
+    walls["train"] = time.perf_counter() - t0
+    if len(tl) != ft["steps"] or not all(map(np.isfinite, tl)) \
+            or not tl[-1] < tl[0]:
+        raise PhaseError(f"mesh launch.train {ft['arch']}: losses {tl}")
+    log(f"  [{gpu}] mesh launchers: launch.serve --arch {fs['arch']} "
+        f"--mesh 1x1, B={fs['batch']} x {fs['prompt']} + {fs['tokens']} "
+        f"tokens, both samplers: tokens in the vocabulary and equal, "
+        f"local_topk launched; launch.train --arch {ft['arch']} --mesh "
+        f"1x1, {ft['steps']} steps of {ft['batch']}x{ft['seq']}: losses "
+        f"{tl}; walls { {k: round(v, 3) for k, v in walls.items()} }")
+    out["launchers"] = dict(walls_s=walls, train_losses=tl,
+                            tokens=gens["selection"].tolist())
+    torch.cuda.empty_cache()
 
 def lm_timing(timing, dev, results):
     """Phase 4 at the LM path's shapes: l2_distance and distance_topk over

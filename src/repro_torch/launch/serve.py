@@ -4,12 +4,13 @@ or the paper's standalone distributed l-NN service.
 Port of ``repro.launch.serve``; ``--shards K`` runs the LM sampler over
 K vocabulary shards on one device (and the l-NN service over K point
 shards), and ``--device`` is the card unless ``cpu`` is given.
-``--mesh DxM`` serves the LM (dense family) on a (data, model) mesh of
+``--mesh DxM`` serves the LM (any family) on a (data, model) mesh of
 D*M ranks started by ``torchrun`` (NCCL, one card a rank; gloo with
-``--device cpu``): the parameters and the KV cache are DTensors laid out
-by the sharding rules, each step's logits are gathered once to every
-rank, and the sampler runs over M vocabulary shards, so the tokens are
-those of ``--shards M`` on one device.
+``--device cpu``): the parameters and every layer's cache (KV, Mamba,
+mLSTM, sLSTM, the encoder's states) are DTensors laid out by the
+sharding rules, each step's logits are gathered once to every rank, and
+the sampler runs over M vocabulary shards, so the tokens are those of
+``--shards M`` on one device.
 
   # LM decode, qwen2-0.5b at full width, 8 vocabulary shards:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
@@ -27,6 +28,9 @@ those of ``--shards M`` on one device.
       --device cpu
   PYTHONPATH=src torchrun --nproc_per_node=1 -m repro_torch.launch.serve \
       --arch qwen2-0.5b --mesh 1x1
+  PYTHONPATH=src torchrun --nproc_per_node=1 -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m --mesh 1x1 --batch 8 --prompt 128 \
+      --tokens 8
 
   # the paper's artifact: distributed l-NN queries over a sharded corpus
   PYTHONPATH=src python -m repro_torch.launch.serve --arch knn-service \
@@ -78,9 +82,6 @@ def serve_lm(args):
     if args.reduced:
         cfg = cfg.reduced()
     api = build_model(cfg)
-    if args.mesh and cfg.family != "dense":
-        raise ValueError(f"--mesh serves the dense family; {args.arch} is "
-                         f"{cfg.family}")
     with debug_mesh(args.mesh, args.device) as (dev, mesh):
         return _serve_lm(args, cfg, api, dev, mesh)
 

@@ -1,11 +1,13 @@
 """Training driver.
 
 Port of ``repro.launch.train``: ``--device`` is the card unless ``cpu``
-is given.  ``--mesh DxM`` trains the dense family on a (data, model)
-mesh of D*M ranks started by ``torchrun`` (NCCL, one card a rank; gloo
-on the CPU with ``--device cpu``): the parameters and moments are
-DTensors laid out by the sharding rules (``models/creator.py``), the
-batch is split over ``data``, and the losses are the unsharded model's.
+is given.  ``--mesh DxM`` trains any family on a (data, model) mesh of
+D*M ranks started by ``torchrun`` (NCCL, one card a rank; gloo on the
+CPU with ``--device cpu``): the parameters and moments are DTensors
+laid out by the sharding rules (``models/creator.py``), the batch (and
+the family's stub) is split over ``data``, and the losses are the
+unsharded model's, but where the MoE dispatch groups tokens by batch
+shard (``models/moe.py``), as the reference's does on the same mesh.
 
   # qwen2-0.5b reduced, on the CPU (any --arch of the registry; vlm and
   # audio get the reference's random stubs, prefix_embeds or frames):
@@ -16,12 +18,16 @@ batch is split over ``data``, and the losses are the unsharded model's.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 30 --batch 8 --seq 128 --grad-accum 2 --ckpt-dir /tmp/ckpt
 
-  # on a 4 x 2 mesh of gloo ranks, and on the card's 1 x 1 mesh (dense
-  # family):
+  # on a 4 x 2 mesh of gloo ranks, and on the card's 1 x 1 mesh:
   PYTHONPATH=src torchrun --nproc_per_node=8 -m repro_torch.launch.train \\
       --mesh 4x2 --device cpu --reduced --steps 3 --batch 8 --seq 32
+  PYTHONPATH=src torchrun --nproc_per_node=8 -m repro_torch.launch.train \\
+      --arch granite-moe-3b-a800m --mesh 4x2 --device cpu --reduced \\
+      --steps 3 --batch 8 --seq 32
   PYTHONPATH=src torchrun --nproc_per_node=1 -m repro_torch.launch.train \\
       --mesh 1x1 --steps 5 --batch 8 --seq 128 --grad-accum 2
+  PYTHONPATH=src torchrun --nproc_per_node=1 -m repro_torch.launch.train \\
+      --arch xlstm-125m --mesh 1x1 --steps 5 --batch 8 --seq 128
 
 Wires together: config registry -> ModelApi -> seeded trainable model on
 the device (sharded on the mesh) -> synthetic Markov data -> microbatched
@@ -77,9 +83,6 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     api = build_model(cfg)
-    if args.mesh and cfg.family != "dense":
-        raise ValueError(f"--mesh trains the dense family; {args.arch} is "
-                         f"{cfg.family}")
     with debug_mesh(args.mesh, args.device) as (dev, mesh):
         return _train(args, cfg, api, dev, mesh)
 

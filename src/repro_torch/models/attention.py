@@ -95,6 +95,15 @@ def _gqa_mix(probs, v):
     return o.reshape(B, Sq, KV * g * v.shape[-1])
 
 
+def _out_proj(o, wo):
+    """``o (B, S, H*hd) @ wo`` as the one matrix product that
+    ``torch.matmul`` folds it into for a plain tensor, whatever strides a
+    DTensor reports for a size-1 S (which would send it to a batched
+    product and round otherwise)."""
+    B, S, _ = o.shape
+    return (o.reshape(B * S, -1) @ wo).reshape(B, S, -1)
+
+
 def _causal_attend(q, k, v, positions, *, q_chunk, causal: bool = True):
     """Chunked-query softmax attention, causal unless ``causal=False``;
     returns ``(B, S, H*hd)`` in the compute dtype."""
@@ -149,7 +158,8 @@ def prefill_into_cache(p: Attention, x, positions, cache: KVCache, *,
     out = _causal_attend(q, k, v, positions, q_chunk=q_chunk)
     cache.k[:, :S] = k.to(cache.k.dtype)
     cache.v[:, :S] = v.to(cache.v.dtype)
-    return out.to(x.dtype) @ p.wo, KVCache(cache.k, cache.v, S)
+    return (constrain(out.to(x.dtype) @ p.wo, "batch", "seq", None),
+            KVCache(cache.k, cache.v, S))
 
 
 def decode_attention(p: Attention, x, cache: KVCache, *, n_heads, n_kv,
@@ -172,7 +182,7 @@ def decode_attention(p: Attention, x, cache: KVCache, *, n_heads, n_kv,
     s_pos = torch.arange(cache.k.shape[1], device=x.device)
     s = s.masked_fill(s_pos > t, float("-inf"))
     o = _gqa_mix(torch.softmax(s, dim=-1), cache.v)
-    return o.to(x.dtype) @ p.wo, KVCache(cache.k, cache.v, t + 1)
+    return _out_proj(o.to(x.dtype), p.wo), KVCache(cache.k, cache.v, t + 1)
 
 
 # ---- cross attention (encoder-decoder) --------------------------------------
@@ -187,4 +197,4 @@ def cross_attention(p: Attention, x, enc, *, n_heads, n_kv, head_dim):
     k = (enc @ p.wk).reshape(B, Se, n_kv, head_dim)
     v = (enc @ p.wv).reshape(B, Se, n_kv, head_dim)
     o = _gqa_mix(torch.softmax(_gqa_scores(q, k), dim=-1), v)
-    return o.to(x.dtype) @ p.wo
+    return constrain(_out_proj(o.to(x.dtype), p.wo), "batch", "seq", None)

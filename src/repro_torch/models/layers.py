@@ -11,14 +11,39 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, is_dtensor, like, local
 
 
 def compute_dtype(x: torch.Tensor) -> torch.dtype:
     """f32, or f64 for f64 inputs: the precision the reference keeps for
     norms, RoPE and attention scores."""
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def _pointwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn``; a DTensor's ``fn`` runs on its
+    own block (made whole where it is a ``Partial`` sum), so the values
+    are those of ``fn`` on a plain tensor, bit for bit."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import Replicate
+    x = x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                       for p in x.placements])
+    return like(fn(local(x)), x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``F.softplus``, also on a DTensor (whose release on the card has no
+    rule for its backward)."""
+    return _pointwise(F.softplus, x)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``, also on a DTensor (no rule for its forward or
+    backward)."""
+    return _pointwise(F.logsigmoid, x)
 
 
 # ---- norms ----------------------------------------------------------------

@@ -19,13 +19,16 @@ KV cache is (``attention.py``).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from repro_torch.models.layers import compute_dtype
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import compute_dtype, softplus
+from repro_torch.models.sharding import constrain
 
 DEFAULT_CHUNK = 16
 CLIP = 35.0
@@ -62,7 +65,7 @@ def _ssm_inputs(p: Mamba, xs, *, d_state: int, log_space: bool = False):
     ct = compute_dtype(xs)
     r = p.dt_proj.shape[0]
     proj = xs @ p.x_proj                               # (..., r + 2 ds)
-    dt = F.softplus((proj[..., :r] @ p.dt_proj + p.dt_bias).to(ct))
+    dt = softplus((proj[..., :r] @ p.dt_proj + p.dt_bias).to(ct))
     Bm = proj[..., r:r + d_state].to(ct)
     Cm = proj[..., r + d_state:].to(ct)
     A = -torch.exp(p.a_log.to(ct))                     # (d_inner, ds)
@@ -88,11 +91,25 @@ def _conv1d(p: Mamba, x, tail=None):
     return out + p.conv_b, xp[:, -(d_conv - 1):]
 
 
+_SSM_PARAMS = ("x_proj", "dt_proj", "dt_bias", "a_log")
+
+
 def _chunked_ssm(p: Mamba, xs, *, d_state: int, chunk: int, h=None):
     """The selective scan over ``(B, S, d_inner)`` from state ``h`` (zeros
     when None): ``(y (B, S, d_inner) f32, final state (B, d_inner,
     d_state))``.  Each chunk's ``(B, c, d_inner, d_state)`` terms are made
-    inside its step, never at full length."""
+    inside its step, never at full length.  Under a live mesh each rank
+    scans its own rows as plain tensors with the scan's parameters
+    gathered whole (the scan is row-local; the cumulative sums' gradient
+    has no DTensor rule in every release)."""
+    if shd.is_dtensor(xs):
+        xs = shd.rows(xs)
+        w = SimpleNamespace(**dict(zip(_SSM_PARAMS, shd.whole_for_rows(
+            [getattr(p, n) for n in _SSM_PARAMS], xs.placements))))
+        y, h = _chunked_ssm(w, xs.to_local(), d_state=d_state, chunk=chunk,
+                            h=None if h is None else shd.local(
+                                shd.to_layout(h, xs)))
+        return shd.like(y, xs), shd.like(h, xs)
     B, S, di = xs.shape
     c = chunk if S % chunk == 0 else S
     if h is None:
@@ -111,12 +128,14 @@ def _chunked_ssm(p: Mamba, xs, *, d_state: int, chunk: int, h=None):
 
 def _gate_out(p: Mamba, y, xs, z, dtype):
     y = y + p.d_skip.to(y.dtype) * xs.to(y.dtype)
-    y = (y * F.silu(z.to(y.dtype))).to(dtype)
-    return y @ p.out_proj
+    y = constrain((y * F.silu(z.to(y.dtype))).to(dtype), "batch", "seq",
+                  "mlp")
+    return constrain(y @ p.out_proj, "batch", "seq", None)
 
 
 def _mamba(p: Mamba, x, *, d_state: int, chunk: int):
     xs, z = (x @ p.in_proj).chunk(2, dim=-1)           # (B, S, d_inner)
+    xs = constrain(xs, "batch", "seq", "mlp")
     xs, tail = _conv1d(p, xs)
     xs = F.silu(xs)
     y, h = _chunked_ssm(p, xs, d_state=d_state, chunk=chunk)
@@ -145,8 +164,8 @@ def mamba_prefill(p: Mamba, x, cache: MambaCache, *, d_state: int,
     """The prompt's forward, its final state and conv tail written into
     the cache."""
     out, tail, h = _mamba(p, x, d_state=d_state, chunk=chunk)
-    cache.conv.copy_(tail)
-    cache.ssm.copy_(h)
+    cache.conv.copy_(shd.to_layout(tail, cache.conv))
+    cache.ssm.copy_(shd.to_layout(h, cache.ssm))
     return out, cache
 
 
@@ -159,6 +178,6 @@ def mamba_decode_step(p: Mamba, x, cache: MambaCache, *, d_state: int):
     h = dA[:, 0] * cache.ssm + dBx[:, 0]               # (B, dI, ds)
     y = torch.einsum("bds,bs->bd", h, Cm[:, 0])[:, None]
     out = _gate_out(p, y, xs, z, x.dtype)
-    cache.conv.copy_(tail)
-    cache.ssm.copy_(h)
+    cache.conv.copy_(shd.to_layout(tail, cache.conv))
+    cache.ssm.copy_(shd.to_layout(h, cache.ssm))
     return out, cache

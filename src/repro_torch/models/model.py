@@ -50,7 +50,7 @@ def mesh_of(params):
     return t.device_mesh if shd.is_dtensor(t) else None
 
 
-def _mesh_scope(params):
+def mesh_scope(params):
     """Make a sharded model's mesh ambient (if it is not already)."""
     mesh = mesh_of(params)
     if mesh is None or shd.current_mesh() is mesh:
@@ -110,7 +110,7 @@ class ModelApi:
         """``(loss, {"ce", "aux"})`` of ``batch`` (``tokens``, ``labels``,
         optional ``mask``, the family's stub; numpy or tensors) under the
         model ``params``."""
-        with _mesh_scope(params):
+        with mesh_scope(params):
             b = _inputs(params, batch)
             if self.cfg.is_encdec:
                 return encdec.loss_fn(params, b, remat=remat)
@@ -119,7 +119,7 @@ class ModelApi:
     def forward(self, params, batch):
         """``(logits (B, S, V), aux_loss)`` over ``batch["tokens"]`` (and
         the vlm prefix, whose positions the logits include)."""
-        with _mesh_scope(params):
+        with mesh_scope(params):
             b = _inputs(params, batch)
             if self.cfg.is_encdec:
                 return encdec.forward(params, b["tokens"], b["frames"])
@@ -130,7 +130,7 @@ class ModelApi:
     def prefill(self, params, batch, cache):
         """``(last-position logits (B, V), cache)``; the logits whole on
         every rank under a mesh."""
-        with _mesh_scope(params):
+        with mesh_scope(params):
             b = _inputs(params, batch)
             if self.cfg.is_encdec:
                 out = encdec.prefill(params, b["tokens"], b["frames"], cache)
@@ -143,7 +143,7 @@ class ModelApi:
     def decode_step(self, params, token, cache):
         """``(logits (B, V), cache)``; the logits whole on every rank under
         a mesh (the one gather of a step)."""
-        with _mesh_scope(params):
+        with mesh_scope(params):
             tok = _inputs(params, {"tokens": token})["tokens"]
             if self.cfg.is_encdec:
                 out = encdec.decode_step(params, tok, cache)

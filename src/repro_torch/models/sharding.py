@@ -25,6 +25,11 @@ Under a real mesh the model's plain tensors (positions, masks) take part
 in DTensor ops as replicated values (``implicit_replication``), and
 :func:`constrain` redistributes an activation to the rules' placements,
 at the points where the reference calls ``with_sharding_constraint``.
+Code that DTensor has no rule for, or that would pay its dispatch op by
+op (the MoE dispatch, the recurrences' loops), runs on each rank's own
+block as plain tensors: :func:`local` and :func:`like` step out of a
+DTensor and back, :func:`rows` lays a tensor out by batch rows, and
+:func:`whole_for_rows` gathers the parameters such code reads.
 """
 
 from __future__ import annotations
@@ -279,6 +284,51 @@ def constrain(x, *logical_axes: Optional[str]):
     if tuple(want) == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def local(x):
+    """A DTensor's own block (autograd sees through it); anything else as
+    it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def like(block, ref, placements=None):
+    """``block``, one rank's part of a tensor laid out as the DTensor
+    ``ref`` is (or by ``placements`` on ``ref``'s mesh), as that DTensor;
+    ``block`` itself when ``ref`` is not a DTensor.  The inverse of
+    :func:`local`, with no communication."""
+    if not is_dtensor(ref):
+        return block
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(block, ref.device_mesh,
+                              placements or ref.placements, run_check=False)
+
+
+def to_layout(x, ref):
+    """The DTensor ``x`` redistributed to the placements of ``ref`` (a
+    no-op when they already agree, or without DTensors)."""
+    if not is_dtensor(x) or tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def rows(x):
+    """The DTensor ``x`` with its dim 0 split over the batch axes and every
+    other dim whole (a no-op when it is already so): the layout in which
+    each rank holds its own rows."""
+    return constrain(x, "batch", *[None] * (x.dim() - 1))
+
+
+def whole_for_rows(params, rows_placements) -> list:
+    """Whole local copies of the DTensor ``params`` for a computation on
+    each rank's rows laid out by ``rows_placements``: their gradients come
+    back ``Partial`` over the mesh dims the rows are split on (summed into
+    the parameters' shards), whole over the rest."""
+    from torch.distributed.tensor import Partial, Replicate
+    summed = [Partial() if p.is_shard() else Replicate()
+              for p in rows_placements]
+    return [p.redistribute(p.device_mesh, [Replicate()] * p.device_mesh.ndim)
+            .to_local(grad_placements=summed) for p in params]
 
 
 class Shape(NamedTuple):

@@ -48,6 +48,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, mamba, moe, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import MLP
+from repro_torch.models.sharding import constrain
 
 
 def superblock_size(cfg: ModelConfig) -> int:
@@ -197,7 +198,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> nn.Module:
 def _embed_inputs(model: Transformer, tokens, prefix_embeds=None):
     x = layers.embed(model.embed.table, tokens)
     if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], 1)
+        x = constrain(torch.cat([prefix_embeds.to(x.dtype), x], 1),
+                      "batch", "seq", None)
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)

@@ -16,18 +16,24 @@ Port of ``repro.models.xlstm``.
 Both blocks are pre-norm residual blocks with their own up and down
 projections (``d_ff = 0``: no separate FFN).  The states are written
 into their caches in place, as the KV cache is (``attention.py``).
+Under a live mesh the sLSTM's per-token loop runs on each rank's own
+rows as plain tensors (:func:`_slstm_scan_rows`), since DTensor's
+dispatch on each of its small ops would cost more than the ops.
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
-from repro_torch.models.layers import compute_dtype
+from repro_torch.models import sharding as shd
+from repro_torch.models.layers import compute_dtype, log_sigmoid
+from repro_torch.models.sharding import constrain
 
 MLSTM_CHUNK = 64
 
@@ -79,14 +85,21 @@ def _mlstm_qkvg(p: MLstm, x, n_heads: int):
     q = (xi @ p.wq).reshape(B, S, n_heads, dh)
     k = (xi @ p.wk).reshape(B, S, n_heads, dh) / math.sqrt(dh)
     v = (xi @ p.wv).reshape(B, S, n_heads, dh)
-    logf = F.logsigmoid((xi @ p.w_f).to(ct) + p.b_f.to(ct))   # (B, S, H)
+    logf = log_sigmoid((xi @ p.w_f).to(ct) + p.b_f.to(ct))   # (B, S, H)
     logi = (xi @ p.w_i).to(ct) + p.b_i.to(ct)
     return q, k, v, logf, logi, z
 
 
 def _mlstm_chunks(q, k, v, logf, logi, *, chunk: int):
     """The chunked parallel mLSTM from a zero state -> ``(B, S, H*dh)``
-    in the compute dtype."""
+    in the compute dtype.  Under a live mesh each rank runs the chunks
+    of its own rows as plain tensors (the recurrence is row-local; the
+    cumulative sums' gradient has no DTensor rule in every release)."""
+    if shd.is_dtensor(q):
+        ref = shd.rows(logf)
+        y = _mlstm_chunks(*(shd.local(shd.rows(t)) for t in (
+            q, k, v, logf, logi)), chunk=chunk)
+        return shd.like(y, ref)
     B, S, H, dh = q.shape
     ct = logf.dtype
     c = chunk if S % chunk == 0 else S
@@ -120,11 +133,15 @@ def _mlstm_chunks(q, k, v, logf, logi, *, chunk: int):
     return y.reshape(B, S, H * dh)
 
 
+def _mlstm_out(p: MLstm, y, z):
+    return constrain((y * F.silu(z)) @ p.down, "batch", "seq", None)
+
+
 def mlstm_block(p: MLstm, x, *, n_heads: int, chunk: int = MLSTM_CHUNK):
     """Chunked parallel mLSTM: x ``(B, S, D)`` -> ``(B, S, D)``."""
     q, k, v, logf, logi, z = _mlstm_qkvg(p, x, n_heads)
     y = _mlstm_chunks(q, k, v, logf, logi, chunk=chunk)
-    return (y.to(x.dtype) * F.silu(z)) @ p.down
+    return _mlstm_out(p, y.to(x.dtype), z)
 
 
 def init_mlstm_cache(batch: int, d_model: int, n_heads: int,
@@ -152,7 +169,7 @@ def mlstm_prefill(p: MLstm, x, cache: MLstmCache, *, n_heads: int,
     cache.c.copy_(cache.c * torch.exp(tot)[..., None, None] + torch.einsum(
         "bshe,bshf->bhef", kg, vc))
     cache.n.copy_(cache.n * torch.exp(tot)[..., None] + kg.sum(1))
-    return (y.to(x.dtype) * F.silu(z)) @ p.down, cache
+    return _mlstm_out(p, y.to(x.dtype), z), cache
 
 
 def mlstm_decode_step(p: MLstm, x, cache: MLstmCache, *, n_heads: int):
@@ -170,7 +187,7 @@ def mlstm_decode_step(p: MLstm, x, cache: MLstmCache, *, n_heads: int):
     y = (num / torch.clamp(den, min=1.0)[..., None]).reshape(B, 1, -1)
     cache.c.copy_(C1)
     cache.n.copy_(n1)
-    return (y.to(x.dtype) * F.silu(z)) @ p.down, cache
+    return _mlstm_out(p, y.to(x.dtype), z), cache
 
 
 # ---------------------------------------------------------------- sLSTM ----
@@ -209,7 +226,7 @@ def _slstm_step(p: SLstm, xw_t, state: SLstmCache, n_heads: int):
                       for t in gates.chunk(4, dim=-1))
     zi = torch.tanh(zi)
     o = torch.sigmoid(oi)
-    logf_m = F.logsigmoid(fi) + state.m
+    logf_m = log_sigmoid(fi) + state.m
     m_new = torch.maximum(logf_m, ii)
     i_g = torch.exp(ii - m_new)
     f_g = torch.exp(logf_m - m_new)
@@ -219,11 +236,16 @@ def _slstm_step(p: SLstm, xw_t, state: SLstmCache, n_heads: int):
     return SLstmCache(c=c_new, n=n_new, h=h_new, m=m_new)
 
 
-def _slstm_scan(p: SLstm, x, state: SLstmCache, n_heads: int):
-    """Steps over ``(B, S, D)`` from ``state`` -> ``(hs (B, S, D) in x's
-    dtype, final state)``."""
+def _slstm_scan(p: SLstm, x, state: SLstmCache | None, n_heads: int):
+    """Steps over ``(B, S, D)`` from ``state`` (zeros when None) ->
+    ``(hs (B, S, D) in x's dtype, final state)``."""
     B, S, D = x.shape
     xw = x @ p.w_gates                                  # (B, S, 4D)
+    if shd.is_dtensor(xw):
+        return _slstm_scan_rows(p, xw, state, n_heads, x.dtype)
+    if state is None:
+        state = init_slstm_state(B, D, n_heads, dtype=x.dtype,
+                                 device=x.device)
     hs = []
     for t in range(S):
         state = _slstm_step(p, xw[:, t], state, n_heads)
@@ -231,15 +253,38 @@ def _slstm_scan(p: SLstm, x, state: SLstmCache, n_heads: int):
     return torch.stack(hs, 1).to(x.dtype), state
 
 
+def _slstm_scan_rows(p: SLstm, xw, state, n_heads: int, dtype):
+    """The loop of a sharded model.  Each of its S steps is a dozen small
+    ops, and each would pay DTensor's dispatch, so every rank steps its
+    own rows (``xw``'s block on the batch axes) as plain tensors, the
+    same recurrence: the recurrent weights gathered once (their gradient
+    comes back ``Partial`` over the batch axes and is summed into the
+    parameters' shards), the outputs and the final state returned as
+    DTensors laid out by those rows."""
+    xw = shd.rows(xw)
+    w = SimpleNamespace(**dict(zip(("r_gates", "b_gates"), shd.whole_for_rows(
+        (p.r_gates, p.b_gates), xw.placements))))
+    xl = xw.to_local()
+    B, S, D = xl.shape[0], xl.shape[1], xl.shape[2] // 4
+    if state is None:
+        st = init_slstm_state(B, D, n_heads, dtype=dtype, device=xl.device)
+    else:
+        st = SLstmCache(*(shd.local(shd.to_layout(t, xw)) for t in state))
+    hs = []
+    for t in range(S):
+        st = _slstm_step(w, xl[:, t], st, n_heads)
+        hs.append(st.h.reshape(B, D))
+    return (shd.like(torch.stack(hs, 1).to(dtype), xw),
+            SLstmCache(*(shd.like(t, xw) for t in st)))
+
+
 def _slstm_out(p: SLstm, y):
-    return F.silu(y @ p.up) @ p.down
+    return constrain(F.silu(y @ p.up) @ p.down, "batch", "seq", None)
 
 
 def slstm_block(p: SLstm, x, *, n_heads: int):
     """Sequential sLSTM over ``(B, S, D)`` from the zero state."""
-    B, S, D = x.shape
-    init = init_slstm_state(B, D, n_heads, dtype=x.dtype, device=x.device)
-    return _slstm_out(p, _slstm_scan(p, x, init, n_heads)[0])
+    return _slstm_out(p, _slstm_scan(p, x, None, n_heads)[0])
 
 
 def slstm_prefill(p: SLstm, x, cache: SLstmCache, *, n_heads: int):
@@ -247,7 +292,7 @@ def slstm_prefill(p: SLstm, x, cache: SLstmCache, *, n_heads: int):
     into the cache."""
     hs, final = _slstm_scan(p, x, cache, n_heads)
     for dst, src in zip(cache, final):
-        dst.copy_(src)
+        dst.copy_(shd.to_layout(src, dst))
     return _slstm_out(p, hs), cache
 
 

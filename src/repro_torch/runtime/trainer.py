@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.checkpoint.serialization import tree_map
 from repro_torch.device import resolve_device
+from repro_torch.models.model import mesh_scope
 from repro_torch.models.sharding import is_dtensor
 from repro_torch.optim import AdamW, compress as compress_mod, warmup_cosine
 from repro_torch.optim.adamw import foreach_copy_
@@ -76,8 +77,11 @@ def make_train_step(api, tcfg: TrainConfig, optimizer: AdamW):
         loss, ce = 0.0, []
         for i in range(n):
             mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-            l, aux = api.loss_fn(params, mb, remat=tcfg.remat)
-            g = [x.float() for x in torch.autograd.grad(l, leaves)]
+            # the mesh stays ambient through the backward pass, which
+            # recomputes the remat'd layers
+            with mesh_scope(params):
+                l, aux = api.loss_fn(params, mb, remat=tcfg.remat)
+                g = [x.float() for x in torch.autograd.grad(l, leaves)]
             if sharded:
                 g = [x.redistribute(p.device_mesh, p.placements)
                      for x, p in zip(g, leaves)]

@@ -190,3 +190,79 @@ def serve_rank(rank, tmp):
                               "--mesh", "4x2", "--device", "cpu"])
         out[sampler] = np.asarray(gen).tolist()
     _write(rank, tmp, out)
+
+
+def families_rank(rank, tmp, runs, serve_argv):
+    """Every family of ``runs`` (``[(arch, launch.train arguments)]``) on
+    the (4, 2) mesh: each parameter's
+    local block against the rules (the experts on ``model``), then
+    ``launch.train --mesh 4x2`` and ``launch.serve --mesh 4x2`` under
+    both samplers, one rank program for all of them so that process
+    start and DTensor's sharding caches are paid once.  A family whose
+    ``<arch>.pt`` is in ``tmp`` trains from those weights (the JAX
+    package's init) instead of the seeded one."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import repro_torch.configs as configs
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import build_model, creator
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import sharding as shd
+
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    seeded = model_mod.ModelApi.init_params
+    out = {}
+    for arch, train_argv in runs:
+        cfg = configs.get(arch).reduced()
+        model = build_model(cfg).init_params(0, device="cpu")
+        with shd.set_mesh(mesh):
+            creator.shard_model(model, mesh)
+            want = creator.param_shapes(model, mesh, dtype=torch.float32)
+        experts = []
+        for n, p in model.named_parameters():
+            assert tuple(p.to_local().shape) == want[n].local, n
+            assert list(p.placements) == shd.placements(want[n].spec, mesh)
+            if ".moe.w_" in n:
+                experts.append(p.placements[1].is_shard(0))
+        del model
+        # every cache leaf (KV, Mamba, mLSTM, sLSTM, enc_out) laid out
+        # by its spec on the live mesh
+        api = build_model(cfg)
+        cache = api.init_cache(4, 16, device="cpu", mesh=mesh)
+        with shd.set_mesh(mesh):
+            shapes = api.cache_shapes(4, 16, mesh, dtype=torch.float32)
+        leaves = []
+        creator._cache_map(cache, lambda axes, x: leaves.append(x))
+        creator._cache_map(shapes, lambda axes, x: leaves.append(x))
+        half = len(leaves) // 2
+        for x, sh in zip(leaves[:half], leaves[half:]):
+            if isinstance(x, torch.Tensor):
+                assert tuple(x.to_local().shape) == sh.local, (arch, sh)
+                assert list(x.placements) == shd.placements(sh.spec, mesh)
+
+        init = os.path.join(tmp, f"{arch}.pt")
+        if os.path.exists(init):
+            def from_file(self, seed=0, device=None, train=False):
+                m = seeded(self, seed, device=device, train=train)
+                with torch.no_grad():
+                    m.load_state_dict(torch.load(init))
+                return m
+            model_mod.ModelApi.init_params = from_file
+        try:
+            _, losses = tlaunch.main(["--arch", arch, "--mesh", "4x2",
+                                      *train_argv])
+        finally:
+            model_mod.ModelApi.init_params = seeded
+        res = {"losses": losses, "experts": experts}
+        for sampler in ("selection", "gather"):
+            gen, _ = tserve.main(["--arch", arch, "--sampler", sampler,
+                                  "--mesh", "4x2", *serve_argv])
+            res[sampler] = np.asarray(gen).tolist()
+        # one answer on every rank: the losses (the MoE aux loss comes
+        # out of a Partial sum) and the tokens
+        every = [None] * WORLD
+        dist.all_gather_object(every, res)
+        assert all(r == res for r in every), arch
+        out[arch] = res
+    _write(rank, tmp, out)
