@@ -23,6 +23,12 @@ pruned-routing flag per shard) and ``point_candidates`` (the approx
 index's kept slots).  The mask reaches ``kops.distance_topk(valid=)`` on
 the fused path and ``kops.l2_distance(valid=)`` elsewhere.
 
+``phases`` (an :class:`repro_torch.obs.PhaseClock`, optional) marks the
+steps as they are issued: ``topl`` (1-2), ``prune`` (3), ``select`` (4,
+with its ``iterations`` and ``host_syncs``) and ``gather`` (5).  The
+last phase stays open for the caller, who marks its readback and closes
+the clock.  Marks add no sync and change no result.
+
 ``point_labels`` (``(k, m)`` f32, optional) is the prediction plane's
 per-slot payload: gathered at the slot indices the top-l step returns
 (the counterpart of the reference's ``take_along_axis``), it reaches
@@ -41,6 +47,7 @@ from repro_torch.core import sampling
 from repro_torch.core.selection import (SelectionResult, select_l_smallest,
                                         selected_mask)
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.trace import NULL_PHASES
 from repro_torch.parallel.collectives import all_gather, psum
 
 INT32_MAX = 2**31 - 1
@@ -186,12 +193,16 @@ def gather_selected(d, gid, mask, l: int):
 def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
                   use_sampling, num_pivots, gather_results, point_valid=None,
                   shard_active=None, point_candidates=None,
-                  point_labels=None) -> KnnResult:
+                  point_labels=None, phases=None) -> KnnResult:
     """Shared Algorithm 2 body: ``l_buf`` is the static per-shard buffer
     width, ``l_run`` the selection rank (an int or a ``(B,)`` tensor);
-    the masks and ``point_labels`` as in the module docstring."""
+    the masks, ``point_labels`` and ``phases`` as in the module
+    docstring.  The step is called through the module's global
+    ``local_distance_top_l``, which a caller may wrap."""
+    ph = NULL_PHASES if phases is None else phases
     valid = _point_mask(points, point_valid, shard_active, point_candidates)
     labels_top = None
+    ph.mark("topl")
     if point_labels is None:
         d, gid = local_distance_top_l(queries, points, point_ids, l_buf,
                                       valid=valid)
@@ -199,6 +210,7 @@ def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
         d, gid, labels_top = local_distance_top_l(
             queries, points, point_ids, l_buf, valid=valid,
             extra=point_labels)
+    ph.mark("prune")
     if use_sampling:
         prune = sampling.sample_prune(d, gen, l_run)
     else:
@@ -209,8 +221,11 @@ def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
             radius=torch.full((B,), float("inf"), device=d.device),
             survivors=psum(finite.sum(-1, dtype=torch.int32)),
             applied=torch.zeros(B, dtype=torch.bool, device=d.device))
+    ph.mark("select")
     sel = select_l_smallest(d, gid, l_run, gen, valid=prune.valid,
                             num_pivots=num_pivots)
+    ph.annotate(iterations=sel.iterations, host_syncs=sel.host_syncs)
+    ph.mark("gather")
     mask = selected_mask(d, gid, sel, valid=prune.valid)
     dists = ids = None
     if gather_results:
@@ -242,14 +257,16 @@ def knn_query_batched(points, point_ids, queries, l_max: int, l,
                       gen: torch.Generator, *, use_sampling: bool = True,
                       num_pivots: int = 1, gather_results: bool = True,
                       point_valid=None, shard_active=None,
-                      point_candidates=None, point_labels=None) -> KnnResult:
+                      point_candidates=None, point_labels=None,
+                      phases=None) -> KnnResult:
     """Algorithm 2 with a per-request neighbor count, the serving form.
 
     Buffers are sized by ``l_max``; ``l`` is a ``(B,)`` int tensor with
     ``0 <= l[b] <= l_max``.  All rows run in lockstep through the same
     Algorithm 1 loop.  Rows with ``l[b] == 0`` (bucket padding) select
     nothing and come back all +inf / 2**31-1.  Masks and
-    ``point_labels`` as in :func:`knn_query`.
+    ``point_labels`` as in :func:`knn_query`, ``phases`` as in the
+    module docstring.
     """
     B = queries.shape[0]
     l = torch.as_tensor(l, dtype=torch.int32, device=queries.device)
@@ -259,7 +276,7 @@ def knn_query_batched(points, point_ids, queries, l_max: int, l,
                          gather_results=gather_results,
                          point_valid=point_valid, shard_active=shard_active,
                          point_candidates=point_candidates,
-                         point_labels=point_labels)
+                         point_labels=point_labels, phases=phases)
 
 
 def knn_simple(points, point_ids, queries, l: int, *, point_valid=None,

@@ -22,16 +22,15 @@ from __future__ import annotations
 from repro_torch.obs.audit import ContractAuditor, ShadowAuditor
 from repro_torch.obs.explain import BatchCapture, ExplainRecord
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
-                                     MetricsRegistry, Window,
-                                     default_registry)
+                                     MetricsRegistry, Window)
 from repro_torch.obs.slo import SloEngine, SloObjective
-from repro_torch.obs.trace import (NULL_TRACER, NullTracer, Span, Tracer,
-                                   build_trees)
+from repro_torch.obs.trace import (NULL_PHASES, NULL_TRACER, NullTracer,
+                                   PhaseClock, Span, Tracer, build_trees)
 
 __all__ = [
     "ObsPlane", "Tracer", "NullTracer", "NULL_TRACER", "Span",
-    "build_trees", "Counter", "Gauge", "Histogram", "Window",
-    "MetricsRegistry", "default_registry", "ContractAuditor",
+    "PhaseClock", "NULL_PHASES", "build_trees", "Counter", "Gauge",
+    "Histogram", "Window", "MetricsRegistry", "ContractAuditor",
     "ShadowAuditor", "BatchCapture", "ExplainRecord", "SloEngine",
     "SloObjective",
 ]

@@ -29,7 +29,9 @@ contract verdict), ``request`` (row, l, recall_mode, content digests),
 (per-bucket keep, recompute cross-check, candidate fraction),
 ``predict`` (the label answer, its mode and confidence, and — for
 ensemble mode — the per-shard vote table and local-k split),
-``timings`` (queue/snapshot/route/kernel/resolve stage seconds), and
+``timings`` (queue/snapshot/route/kernel/resolve stage seconds, and
+``topl_device_s``, the distance + top-l step's device time by CUDA
+events, None on the CPU), and
 ``maintenance`` (whether a store commit raced the request, and which).
 :func:`deterministic_json` serializes the *stable* subset — timings,
 maintenance, and the batch id are run-volatile by nature — so the

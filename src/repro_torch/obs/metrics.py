@@ -314,19 +314,3 @@ class MetricsRegistry:
                 f.writelines(lines)
         return len(lines)
 
-
-# Process-wide default registry: the home of metrics produced by code
-# with no handle to a server's private plane (the kernels dispatcher's
-# fallback counters).  Servers get their own registry by default so two
-# servers' serving metrics never mix; both surfaces appear in
-# KnnServer.obs_snapshot().
-_DEFAULT: Optional[MetricsRegistry] = None
-_DEFAULT_LOCK = threading.Lock()
-
-
-def default_registry() -> MetricsRegistry:
-    global _DEFAULT
-    with _DEFAULT_LOCK:
-        if _DEFAULT is None:
-            _DEFAULT = MetricsRegistry()
-        return _DEFAULT

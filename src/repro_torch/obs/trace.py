@@ -1,7 +1,9 @@
 """Flight-recorder tracing: monotonic-clock spans in a ring buffer.
 
-The port's own copy of ``repro.obs.trace``.  Stdlib only: the serving
-path (`runtime/knn_server.py`), the mutable store and the background
+The port's own copy of ``repro.obs.trace``, plus the phase clock and
+the anchors.  Stdlib only at import (a :class:`PhaseClock` for the card
+imports torch for its events): the serving path
+(`runtime/knn_server.py`), the mutable store and the background
 maintenance worker import it, and it costs ~nothing when disabled.
 
 Model
@@ -36,6 +38,22 @@ object per line, for offline assembly into trees.
 ``NULL_TRACER`` is the disabled plane: every call funnels to a shared
 no-op span, no lock, no allocation — the `obs=off` arm the ≤10%
 overhead guard (tests/test_obs.py) compares against.
+
+**One clock with a device trace.**  ``Tracer.anchor()`` reads the
+monotonic clock and the Unix clock back to back, the tightest of a few
+tries; the server stamps one on each ``dispatch`` span.  A span's time
+``t`` then maps to Unix nanoseconds, the clock ``torch.profiler``
+stamps its events with, as ``time_ns + (t * 1e9 - perf_counter_ns)``
+with the pair ``[perf_counter_ns, time_ns]`` of its batch: one anchor a
+batch holds the drift between the two clocks to one batch's length.
+
+**Phases.**  A :class:`PhaseClock` marks the phases of one device batch
+(Algorithm 2's ``topl``, ``prune``, ``select``, ``gather``, then the
+server's ``readback``): a host stamp at each mark and, on the card, a
+CUDA timing event on the current stream, from a pool built once.  The
+events are read only after a readback has waited for the stream, so the
+clock adds no sync and launches nothing.  ``NULL_PHASES`` is its no-op
+stand-in.
 """
 
 from __future__ import annotations
@@ -134,6 +152,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._active = 0          # begun, not yet ended (torn-span probe)
         self.dropped = 0          # spans evicted by the ring
+        self.anchor_gap_ns = 0    # the widest anchor's read-to-read gap
 
     # ---- producing spans -------------------------------------------------
 
@@ -164,6 +183,21 @@ class Tracer:
         self._finish(span)
         return span
 
+    def anchor(self) -> list:
+        """``[perf_counter_ns, time_ns]`` read back to back: of three
+        tries, the one whose two monotonic reads around the Unix read lie
+        closest, with their midpoint (module docstring)."""
+        best = None
+        for _ in range(3):
+            a = time.perf_counter_ns()
+            u = time.time_ns()
+            b = time.perf_counter_ns()
+            if best is None or b - a < best[0]:
+                best = (b - a, (a + b) // 2, u)
+        with self._lock:
+            self.anchor_gap_ns = max(self.anchor_gap_ns, best[0])
+        return [best[1], best[2]]
+
     def _finish(self, span: Span) -> None:
         rec = {"trace": span.trace_id, "span": span.span_id,
                "parent": span.parent_id, "name": span.name,
@@ -193,12 +227,14 @@ class Tracer:
         with self._lock:
             self._ring.clear()
             self.dropped = 0
+            self.anchor_gap_ns = 0
 
     def stats(self) -> dict:
         with self._lock:
             return {"enabled": True, "capacity": self.capacity,
                     "recorded": len(self._ring), "dropped": self.dropped,
-                    "active": self._active}
+                    "active": self._active,
+                    "anchor_gap_ns": self.anchor_gap_ns}
 
     def export_jsonl(self, path_or_file) -> int:
         """Write the ring as JSONL (one span object per line); returns
@@ -232,6 +268,9 @@ class NullTracer:
     def record(self, name, t0, t1, *, parent=None, **attrs):
         return _NULL_SPAN
 
+    def anchor(self):
+        return None
+
     def spans(self):
         return []
 
@@ -250,6 +289,79 @@ class NullTracer:
 
 
 NULL_TRACER = NullTracer()
+
+
+class PhaseClock:
+    """The phases of one device batch (module docstring).
+
+    ``mark(name, **attrs)`` closes the open phase and opens ``name``;
+    ``annotate`` adds attributes to the open phase; ``close()`` closes
+    the last one with a host stamp alone.  ``phases()`` lists ``(name,
+    t0, t1, device_s, attrs)`` in order: ``device_s`` is the elapsed
+    time between the phase's two events, None where its closing mark
+    recorded none (on the CPU, for the last phase, past the pool).  Call
+    ``phases()`` only after a readback that follows the closing event
+    has returned: then every event it reads has completed.  ``reset()``
+    starts the next batch on the same events.
+    """
+
+    EVENTS = 6      # one a phase of a batch; the close records none
+
+    def __init__(self, device):
+        self._device = device
+        self._events = []
+        if device.type == "cuda":
+            import torch
+
+            self._stream = torch.cuda.current_stream
+            self._events = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(self.EVENTS)]
+        self._marks: list = []
+
+    def reset(self) -> "PhaseClock":
+        self._marks.clear()
+        return self
+
+    def mark(self, name: str, **attrs) -> None:
+        i = len(self._marks)
+        t = time.perf_counter()
+        event = self._events[i] if i < len(self._events) else None
+        if event is not None:
+            event.record(self._stream(self._device))
+        self._marks.append((name, t, event, attrs))
+
+    def annotate(self, **attrs) -> None:
+        self._marks[-1][3].update(attrs)
+
+    def close(self) -> None:
+        self._marks.append((None, time.perf_counter(), None, {}))
+
+    def phases(self) -> list:
+        out = []
+        for (name, t0, e0, attrs), (_, t1, e1, _) in zip(self._marks,
+                                                         self._marks[1:]):
+            dev = (e0.elapsed_time(e1) * 1e-3
+                   if e0 is not None and e1 is not None else None)
+            out.append((name, t0, t1, dev, attrs))
+        return out
+
+
+class _NullPhases:
+    """No phases: every mark is a no-op."""
+
+    __slots__ = ()
+
+    def mark(self, name, **attrs):
+        pass
+
+    def annotate(self, **attrs):
+        pass
+
+    def close(self):
+        pass
+
+
+NULL_PHASES = _NullPhases()
 
 
 def build_trees(records: list) -> dict:

@@ -58,7 +58,18 @@ hands to the store, so applies and maintenance cycles land beside the
 queries.  Each dispatch is one ``dispatch`` trace (``snapshot``,
 ``route``, ``kernel``, ``shadow_audit``, ``resolve``) and each request
 one ``request`` trace (``queued``, ``serve``); the spans are stamped
-from clocks the dispatch reads anyway, and add no device sync.  The
+from clocks the dispatch reads anyway, and add no device sync.
+``kernel`` is the host wall of the batch's device work, its readback
+included; its children are the phases a
+:class:`~repro_torch.obs.PhaseClock` marks (``topl``, ``prune``,
+``select``, ``gather``, ``readback``, ``predict``), each with its
+``device_s`` by CUDA events where the card gives one: the stream's time
+from the phase's first mark to the next, so a phase that syncs (the
+Algorithm 1 loop) holds a longer host wall, the wait for the work before
+it.  The clock runs on every batch, traced or not, and feeds
+``ServerStats.topl_device_s`` and ``select_s``; each ``dispatch`` span
+carries the ``anchor`` that maps its tree onto a profiler's clock
+(``obs.trace``).  The
 Theorem-1 contract audit runs on every batch; ``cfg.obs_audit_every``
 replays every Nth routed, indexed or ensemble batch on the operands it
 captured, with every shard active and every slot a candidate, and
@@ -91,8 +102,9 @@ from repro_torch.core import knn as knn_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import routing as routing_mod
-from repro_torch.obs import (BatchCapture, ContractAuditor, ExplainRecord,
-                             ObsPlane, ShadowAuditor, SloEngine)
+from repro_torch.obs import (NULL_PHASES, BatchCapture, ContractAuditor,
+                             ExplainRecord, ObsPlane, PhaseClock,
+                             ShadowAuditor, SloEngine)
 from repro_torch.obs.export import ObsHttpServer
 from repro_torch.parallel.collectives import accounting
 from repro_torch.store import index as index_mod
@@ -171,6 +183,7 @@ class _Batch(NamedTuple):
     keep_any: Optional[np.ndarray] = None  # (k, b) kept-bucket union
     local_k: Optional[np.ndarray] = None  # ensemble: (B,) local k
     votes: Optional[np.ndarray] = None    # ensemble vote: (B, C) tally
+    phases: tuple = ()                    # PhaseClock.phases()
 
 
 @dataclasses.dataclass
@@ -186,11 +199,19 @@ class ServerStats:
     # they came from, the inputs of placement_stats()' prune rate
     touched_shards: int = 0
     routed_batches: int = 0
+    # summed over the batches: the distance + top-l step's device time by
+    # CUDA events (0.0 on the CPU), and the Algorithm 1 loop's wall: on
+    # the card the stream's, from the events at its two ends, since the
+    # loop's first sync waits out the step and its host wall holds that
+    # wait; on the CPU the host's
+    topl_device_s: float = 0.0
+    select_s: float = 0.0
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
     def observe(self, bucket: int, n_real: int,
-                touched: Optional[int] = None):
+                touched: Optional[int] = None, topl_device_s: float = 0.0,
+                select_s: float = 0.0):
         with self._lock:
             self.queries += n_real
             self.batches += 1
@@ -199,6 +220,8 @@ class ServerStats:
             if touched is not None:
                 self.touched_shards += touched
                 self.routed_batches += 1
+            self.topl_device_s += topl_device_s
+            self.select_s += select_s
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -206,7 +229,9 @@ class ServerStats:
                     "padded_rows": self.padded_rows,
                     "bucket_counts": dict(self.bucket_counts),
                     "touched_shards": self.touched_shards,
-                    "routed_batches": self.routed_batches}
+                    "routed_batches": self.routed_batches,
+                    "topl_device_s": self.topl_device_s,
+                    "select_s": self.select_s}
 
 
 @dataclasses.dataclass
@@ -342,6 +367,9 @@ class KnnServer:
         self._pending: list[_Pending] = []
         self._thread: Optional[threading.Thread] = None
         self._running = False
+        # idle phase clocks, each with its CUDA events: one serves every
+        # batch unless two threads dispatch at once
+        self._clocks: list[PhaseClock] = []
         self.stats = ServerStats()
         # the observability plane: the tracer per cfg.obs_trace and this
         # server's registry, handed to the store too
@@ -560,17 +588,30 @@ class KnnServer:
         touched = self.k if act is None else int(act.sum())
         return active, cand, touched, frac, syncs, act, keep_any
 
+    def _clock(self) -> PhaseClock:
+        """An idle phase clock of the pool, reset (a new one when every
+        clock is in use); give it back to ``self._clocks``."""
+        try:
+            return self._clocks.pop().reset()
+        except IndexError:
+            return PhaseClock(self.device)
+
     def _run(self, q: np.ndarray, l_arr: np.ndarray, gen,
              backing=None, *, exact: bool = False,
-             marks: Optional[dict] = None) -> _Batch:
+             marks: Optional[dict] = None, phases=None) -> _Batch:
         """One batch on the device against ``backing`` (a
         :meth:`_capture`, taken now when omitted), read back to the
         host; ``d``/``i`` of shape ``(B, l_max)``.  ``exact``: no
         routing prologue, every shard active and every slot a candidate,
         and the exact fold for a predicting server (the shadow audit's
         replay).  ``marks`` receives ``"route"``: the prologue's
-        (start, end) clock stamps."""
+        (start, end) clock stamps.  ``phases``: a :class:`PhaseClock`
+        that the batch marks (Algorithm 2's phases, or ``topl`` alone
+        for the gather sampler and the ensemble; then ``readback`` and,
+        with labels, ``predict``) and closes; ``_Batch.phases`` lists
+        them."""
         cfg = self.cfg
+        ph = NULL_PHASES if phases is None else phases
         points, ids, valid, _, _, summ, idx, labels = (
             self._capture() if backing is None else backing)
         qt = torch.from_numpy(q).to(self.device)
@@ -586,20 +627,22 @@ class KnnServer:
             marks["route"] = (t0, time.perf_counter())
         if self._ensemble and not exact:
             return self._ensemble_run(points, ids, valid, labels, active,
-                                      act, qt, l_arr, touched, syncs)
+                                      act, qt, l_arr, touched, syncs, phases)
         masks = dict(point_valid=valid, shard_active=active,
                      point_candidates=cand)
         if cfg.sampler == "selection":
             res = knn_mod.knn_query_batched(
                 points, ids, qt, cfg.l_max, lt, gen,
                 use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots,
-                point_labels=labels, **masks)
+                point_labels=labels, phases=phases, **masks)
+            ph.mark("readback")
             d, i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
             surv = res.prune.survivors.cpu().numpy()
             syncs += res.selection.host_syncs + 3
             pred = None
             if labels is not None:
                 # the fold and one readback of (label, confidence)
+                ph.mark("predict")
                 label, conf, _ = predict_mod.exact_predict(
                     res, lt, predict=cfg.predict,
                     num_classes=cfg.num_classes)
@@ -607,28 +650,36 @@ class KnnServer:
                 pred, syncs = (lc[0], lc[1]), syncs + 1
             return _Batch(d, i, res.selection.iterations, surv, syncs,
                           touched, frac, pred, active=act,
-                          keep_any=keep_any)
+                          keep_any=keep_any, phases=_closed(phases))
+        ph.mark("topl")
         sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max, **masks)
         # per-request l: ranks >= l[b] become sentinels
         keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
                 < lt[:, None])
-        d = torch.where(keep, sd, float("inf")).cpu().numpy()
-        i = torch.where(keep, si, _ID_SENTINEL).cpu().numpy()
+        d = torch.where(keep, sd, float("inf"))
+        i = torch.where(keep, si, _ID_SENTINEL)
+        ph.mark("readback")
+        d, i = d.cpu().numpy(), i.cpu().numpy()
         return _Batch(d, i, 0, np.zeros(len(q), np.int32), 2 + syncs,
-                      touched, frac, active=act, keep_any=keep_any)
+                      touched, frac, active=act, keep_any=keep_any,
+                      phases=_closed(phases))
 
     def _ensemble_run(self, points, ids, valid, labels, active, act, qt,
-                      l_arr, touched, syncs) -> _Batch:
+                      l_arr, touched, syncs, phases=None) -> _Batch:
         """One ensemble batch: the local-k split on the host, each shard's
         masked local top-l and its vote or (sum, count) on the device with
         no sum over the shards, one readback of the ``(k, B, C)`` answers,
         and the host aggregation.  ``dists``/``ids`` are all sentinels: no
-        point leaves its shard."""
+        point leaves its shard.  ``phases`` as in :meth:`_run`: ``topl``
+        is the local top-l, ``readback`` the vote and its readback."""
         cfg = self.cfg
+        ph = NULL_PHASES if phases is None else phases
         kl = predict_mod.local_k_for(l_arr, touched, cfg.local_k, cfg.l_max)
         mask = knn_mod._point_mask(points, valid, active, None)
+        ph.mark("topl")
         d, _, labels_top = knn_mod.local_distance_top_l(
             qt, points, ids, cfg.l_max, valid=mask, extra=labels)
+        ph.mark("readback")
         klt = torch.from_numpy(kl).to(self.device)
         act = np.ones(self.k, bool) if act is None else act
         if cfg.predict == "vote":
@@ -645,7 +696,7 @@ class KnnServer:
                       np.full((b, cfg.l_max), _ID_SENTINEL, np.int32), 0,
                       np.zeros(b, np.int32), syncs + 1, touched, None,
                       (label, conf), payload, active=act, local_k=kl,
-                      votes=votes)
+                      votes=votes, phases=_closed(phases))
 
     def warmup(self):
         """Run every bucket shape once, at rank ``cfg.l`` so the Algorithm
@@ -653,10 +704,15 @@ class KnnServer:
         run too: on the card this builds the kernels and loads every CUDA
         module the path uses before the first request.  Works on an empty
         store (every answer sentinels)."""
-        for b in self.cfg.bucket_sizes:
-            self._run(np.zeros((b, self.dim), np.float32),
-                      np.full(b, min(self.cfg.l, self.cfg.l_max), np.int32),
-                      self._generator(0))
+        clock = self._clock()
+        try:
+            for b in self.cfg.bucket_sizes:
+                self._run(np.zeros((b, self.dim), np.float32),
+                          np.full(b, min(self.cfg.l, self.cfg.l_max),
+                                  np.int32),
+                          self._generator(0), phases=clock.reset())
+        finally:
+            self._clocks.append(clock)
 
     # ---- store passthrough -----------------------------------------------
 
@@ -785,9 +841,11 @@ class KnnServer:
         # the batch's trace root; a request's "serve" span names it by
         # attribute, so every tree keeps one root
         dspan = tracer.begin("dispatch", t0=t_dispatch, batch=batch_id,
-                             bucket=bucket, n_real=n)
+                             bucket=bucket, n_real=n,
+                             anchor=tracer.anchor())
         routed = cfg.route == "pruned" or cfg.search == "approx"
         marks = {}
+        clock = self._clock()
         try:
             backing = self._capture()
             generation, n_live = backing[3], backing[4]
@@ -795,7 +853,7 @@ class KnnServer:
                       if self._store is not None else (0, None))
             t_snap = time.perf_counter()
             out = self._run(q, l_arr, self._generator(batch_id), backing,
-                            marks=marks)
+                            marks=marks, phases=clock)
         except Exception as exc:
             # a failed dispatch must never strand its futures (the chunk
             # already left the queue), kill the micro-batcher thread or
@@ -806,6 +864,8 @@ class KnnServer:
                 rec.span.end(error=type(exc).__name__)
             dspan.end(error=type(exc).__name__)
             return
+        finally:
+            self._clocks.append(clock)
         t_done = time.perf_counter()
         t_route0, t_route1 = marks["route"]
         tracer.record("snapshot", t_dispatch, t_snap, parent=dspan,
@@ -815,10 +875,22 @@ class KnnServer:
                           compute=cfg.route_compute
                           if cfg.route == "pruned" else "host",
                           touched=out.touched, slack=cfg.route_slack)
-        tracer.record("kernel", t_route1 if routed else t_snap, t_done,
-                      parent=dspan, sampler=cfg.sampler,
-                      route_compute=cfg.route_compute,
-                      host_syncs=out.host_syncs)
+        # the host wall of the device work, readback included; the
+        # phases below it carry the device time
+        kspan = tracer.record("kernel", t_route1 if routed else t_snap,
+                              t_done, parent=dspan, sampler=cfg.sampler,
+                              route_compute=cfg.route_compute,
+                              host_syncs=out.host_syncs)
+        topl_device_s, select_s = None, 0.0
+        for name, p0, p1, device_s, attrs in out.phases:
+            if name == "topl":
+                topl_device_s = device_s
+            elif name == "select":
+                select_s = p1 - p0 if device_s is None else device_s
+            if tracer.enabled:
+                if device_s is not None:
+                    attrs = dict(attrs, device_s=device_s)
+                tracer.record(name, p0, p1, parent=kspan, **attrs)
 
         d, i, iters, surv, syncs = out[:5]
         rounds, messages = accounting(
@@ -827,7 +899,8 @@ class KnnServer:
             predict=cfg.predict, predict_mode=cfg.predict_mode)
         self.stats.observe(
             bucket, n,
-            touched=out.touched if cfg.route == "pruned" else None)
+            touched=out.touched if cfg.route == "pruned" else None,
+            topl_device_s=topl_device_s or 0.0, select_s=select_s)
         # the gather bill charges the static buffer width l_max per peer,
         # so its envelope is checked against that width
         audit_l = (cfg.l_max if cfg.sampler == "gather"
@@ -864,7 +937,8 @@ class KnnServer:
             votes=out.votes,
             timings={"snapshot_s": t_snap - t_dispatch,
                      "route_s": t_route1 - t_route0 if routed else None,
-                     "kernel_s": t_done - (t_route1 if routed else t_snap)},
+                     "kernel_s": t_done - (t_route1 if routed else t_snap),
+                     "topl_device_s": topl_device_s},
             maint_before=maint0[0], maint_after=maint1[0],
             maint_last=maint1[1], contract_ok=contract_ok)
         if (self._shadow is not None
@@ -1090,6 +1164,15 @@ class KnnServer:
                 chunk = self._take_chunk_locked()
             if chunk:
                 self._dispatch(chunk)
+
+
+def _closed(phases) -> tuple:
+    """Close a batch's phase clock and list its phases (none without
+    one)."""
+    if phases is None:
+        return ()
+    phases.close()
+    return tuple(phases.phases())
 
 
 def _resolve(future: Future, result=None, error=None):

@@ -983,7 +983,9 @@ def test_explain_capture_holds_no_cuda_tensor(card):
 def test_obs_adds_no_launch_or_sync_on_the_card(card):
     """Tracing, explain and an SLO on: the same kernel launches and host
     syncs as with all off; the shadow replay's launches are counted
-    apart, in the server's audit.shadow.launches.* counters."""
+    apart, in the server's audit.shadow.launches.* counters.  The phase
+    clock, on in every arm, reads the step's device time by events: more
+    than 0 and no more than the batch's host wall."""
     from repro_torch.store import MutableStore
     dim, cap = 32, 1024
     rng = np.random.default_rng(10)
@@ -1005,10 +1007,20 @@ def test_obs_adds_no_launch_or_sync_on_the_card(card):
         srv.warmup()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
+        t0 = time.perf_counter()
         res = srv.query_batch(q, ls)
+        wall = time.perf_counter() - t0
         torch.cuda.synchronize()
         runs[name] = (ops.launch_counts(), [r.host_syncs for r in res],
                       [r.ids.tobytes() for r in res])
+        snap = srv.stats.snapshot()
+        assert snap["batches"] == 1
+        assert 0.0 < snap["topl_device_s"] <= wall, (snap, wall)
+        assert res[0].explain()["timings"]["topl_device_s"] == snap[
+            "topl_device_s"]
+        if srv.obs.tracer.enabled:
+            topl = [r for r in srv.obs.tracer.spans() if r["name"] == "topl"]
+            assert topl[-1]["attrs"]["device_s"] == snap["topl_device_s"]
         shadow = srv.obs_snapshot()["metrics"]
         apart = {k: v for k, v in shadow.items()
                  if k.startswith("audit.shadow.launches.")}

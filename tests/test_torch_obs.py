@@ -23,6 +23,7 @@ Every comparison is exact: these modules are stdlib arithmetic.
 import io
 import json
 import math
+import time
 import urllib.error
 import urllib.request
 
@@ -325,6 +326,9 @@ def test_tracer_span_tree_ring_and_export():
         n = ring.export_jsonl(buf)
         names = [json.loads(x)["name"] for x in buf.getvalue().splitlines()]
         stats = ring.stats()
+        # the port's tracer also reports its anchors' widest gap (none
+        # taken here)
+        assert stats.pop("anchor_gap_ns", 0) == 0
         ring.clear()
         with pytest.raises(ValueError):
             trace.Tracer(capacity=0)
@@ -369,6 +373,65 @@ def test_build_trees_verdicts(records, match):
         else:
             with pytest.raises(ValueError, match=match):
                 trace.build_trees(recs)
+
+
+def test_phase_clock_marks_algorithm2_on_cpu_tensors():
+    """A clock through one ``knn_query_batched`` on CPU tensors: the
+    answer is the one without it; the phases come in order with no device
+    time and nest under a kernel span that ``build_trees`` accepts."""
+    from repro_torch.core import knn
+
+    g = torch.Generator().manual_seed(0)
+    pts = torch.randn(8, 64, 8, generator=g)
+    ids = torch.arange(512, dtype=torch.int32).view(8, 64)
+    q = torch.randn(4, 8, generator=g)
+    l = torch.tensor([1, 4, 16, 0])
+    plain = knn.knn_query_batched(pts, ids, q, 16, l,
+                                  torch.Generator().manual_seed(5))
+    clock = ttrace.PhaseClock(torch.device("cpu"))
+    res = knn.knn_query_batched(pts, ids, q, 16, l,
+                                torch.Generator().manual_seed(5),
+                                phases=clock)
+    clock.mark("readback")
+    res.dists.cpu()
+    clock.close()
+    assert torch.equal(res.dists, plain.dists)
+    assert torch.equal(res.ids, plain.ids)
+    assert res.selection.iterations == plain.selection.iterations
+    phases = clock.phases()
+    assert [p[0] for p in phases] == ["topl", "prune", "select", "gather",
+                                      "readback"]
+    assert all(p[3] is None for p in phases)
+    assert phases[2][4] == {"iterations": res.selection.iterations,
+                            "host_syncs": res.selection.host_syncs}
+    assert all(a[2] == b[1] for a, b in zip(phases, phases[1:]))
+    tr = ttrace.Tracer()
+    kernel = tr.record("kernel", phases[0][1], phases[-1][2])
+    for name, t0, t1, _, attrs in phases:
+        tr.record(name, t0, t1, parent=kernel, **attrs)
+    assert len(ttrace.build_trees(tr.spans())) == 1
+    assert clock.reset().phases() == []
+
+
+def test_anchor_maps_a_span_onto_the_profiler_clock():
+    """On the profiler's own thread, a span around a ``record_function``
+    range maps through its anchor to an interval holding the range's
+    kineto stamps, give or take 0.5 ms."""
+    tr = ttrace.Tracer()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        anchor = tr.anchor()
+        with tr.span("probe") as sp:
+            with torch.profiler.record_function("obs.anchor_probe"):
+                time.sleep(0.002)
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.name() == "obs.anchor_probe"][-1]
+    p_ns, u_ns = anchor
+    t0 = u_ns + sp.t0 * 1e9 - p_ns
+    t1 = u_ns + sp.t1 * 1e9 - p_ns
+    assert t0 - 5e5 <= ev.start_ns()
+    assert ev.start_ns() + ev.duration_ns() <= t1 + 5e5
+    assert 0 < tr.stats()["anchor_gap_ns"] < 5e5
 
 
 def test_obs_plane_from_config():

@@ -197,14 +197,32 @@ def _forest(srv):
     return edges, recs
 
 
-@pytest.mark.parametrize("case", ["store_pruned_approx", "store_ensemble"])
+# the port's phases of a batch, children of its "kernel" span
+PHASES = ("topl", "prune", "select", "gather", "readback", "predict")
+
+
+@pytest.mark.parametrize("case", ["store_pruned_approx", "store_ensemble",
+                                  "static_exact"])
 def test_span_forest_names_match_jax(mesh8, case):
     tsrv, jsrv, qs = _pair(mesh8, case, obs_trace=True, obs_audit_every=1)
     for srv in (tsrv, jsrv):
         srv.query_batch(qs[:3], [4, 4, 4])
         assert srv.obs.tracer.active_count() == 0
     (tedges, trecs), (jedges, _) = _forest(tsrv), _forest(jsrv)
-    assert sorted(set(tedges)) == sorted(set(jedges))
+    # the reference's forest is the port's less the phases under kernel
+    assert set(jedges) <= set(tedges)
+    assert set(tedges) - set(jedges) <= {("kernel", p) for p in PHASES}
+    kernel = [r for r in trecs if r["name"] == "kernel"][-1]
+    phases = sorted((r for r in trecs if r["parent"] == kernel["span"]),
+                    key=lambda r: r["t0"])
+    if case == "static_exact":
+        # the plain selection path: Algorithm 2's phases, then the readback
+        assert [r["name"] for r in phases] == ["topl", "prune", "select",
+                                               "gather", "readback"]
+        assert phases[2]["attrs"]["host_syncs"] >= 1
+    # on the CPU no phase has device time
+    assert phases and not any("device_s" in r.get("attrs", {})
+                              for r in phases)
     requests = [r for r in trecs if r["name"] == "request"]
     assert len(requests) == 3
     dispatch = [r for r in trecs if r["name"] == "dispatch"][-1]
