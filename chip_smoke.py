@@ -22,7 +22,9 @@ Phases:
      kernel in its three modes, bit for bit; the LM path's shapes:
      local_topk on the sampler's vocabulary rows, 64 x 18,992 at l = 50,
      with +inf tails of a padded vocabulary and bf16 logits full of ties,
-     bit for bit, and l2_distance and distance_topk at d = 896);
+     bit for bit, and l2_distance and distance_topk at d = 896;
+     l2_distance's whole-bucket loop at B = 64 and 128, d = 1,024, f32
+     and bf16, unmasked and routed, one l2_distance_wide launch a call);
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
@@ -198,7 +200,9 @@ Phases:
      and distance_topk there with each shard's slots shuffled; the LM
      path's shapes: l2_distance and distance_topk over serve_knn_lm's
      datastore (B = 8, 2^22 x 896, l = 8), local_topk on the vocabulary
-     rows beside the launch floor;
+     rows beside the launch floor; l2_distance's whole-bucket loop at B =
+     128 and d = 1,024 (the knnlm cell's width), bit-equal to the 32-row
+     loop on the bucket's 32-row slices;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -259,10 +263,18 @@ KERNELS = {
               "predict_exact_vote_approx", "maintained_approx_recall")),
 }
 # every launch counter of the port (kernels/ops.py COUNTERS)
-COUNTERS = ("l2_distance", "distance_topk", "local_topk", "route_index_mask")
+COUNTERS = ("l2_distance", "l2_distance_wide", "distance_topk", "local_topk",
+            "route_index_mask")
 # phase 4's extra numbers for the two distance kernels, on the kernels line
 MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
                "masked_bound_ms", "masked_bound_by")
+# phase 4's numbers for l2_distance's whole-bucket loop (B > 32 rows), and
+# phase 2's launches and error of its cases, on l2_distance's entry
+WIDE_KEYS = ("wide_shape", "wide_ms", "wide_kernel_ms", "wide_plain_ms",
+             "wide_library_ms", "wide_bound_ms", "wide_bound_by",
+             "wide_launches", "wide_max_abs_err")
+WIDE_M = 49_999        # phase 2's points a shard for the whole-bucket cases
+WIDE_TIMING = (128, 1 << 17, 1024)      # phase 4's (B, m a shard, d)
 # phase 4's extra numbers for local_topk: the long row's two passes and the
 # merge of distance_topk's partials (the selection path's shape)
 LTK_KEYS = ("first_pass_ms", "merge_pass_ms", "long_row_plan", "merge_ms",
@@ -463,7 +475,13 @@ def phase_kernels(dev, results):
     errs = {name: 0.0 for name in KERNELS}
     main_err = {}
     # l2_distance: main shape, ragged edges, bf16, the routed phase's mask
-    # (1 of 8 shards valid) and a random one
+    # (1 of 8 shards valid) and a random one; then the whole-bucket loop
+    # (B > 32) at the knnlm cell's width, each call one l2_distance_wide
+    # launch and the 32-row loop's calls none
+    wide_err, wide_launches = 0.0, 0
+    wide = [(b, K, WIDE_M, 1024, dt, mode) for b in (128, 64)
+            for mode in (None, "routed")
+            for dt in (torch.float32, torch.bfloat16)]
     for (b, k, m, d, dt, mode) in [(B, K, M, DIM, torch.float32, None),
                                    (13, 1, 777, 300, torch.float32, None),
                                    (4, 3, 96, 64, torch.float32, None),
@@ -471,15 +489,24 @@ def phase_kernels(dev, results):
                                    (13, 2, 777, 300, torch.bfloat16, None),
                                    (B, K, M, DIM, torch.float32, "routed"),
                                    (B, K, M, DIM, torch.bfloat16, "routed"),
-                                   (5, 3, 777, 64, torch.float32, "random")]:
+                                   (5, 3, 777, 64, torch.float32,
+                                    "random")] + wide:
         q, p = randn(b, d, dtype=dt), randn(k, m, d, dtype=dt)
         valid = None
         if mode == "routed":
             valid = routed_mask(k, m, dev)
         elif mode == "random":
             valid = torch.rand((k, m), generator=g, device=dev) > 0.4
+        n0, w0 = l2.COUNT.n, l2.COUNT_WIDE.n
         out = l2.l2_distance_cuda(q, p, valid=valid)
         torch.cuda.synchronize()
+        want_wide = int(b > l2.QUERY_TILE)
+        if (l2.COUNT.n - n0, l2.COUNT_WIDE.n - w0) != (1, want_wide):
+            raise PhaseError(f"l2_distance {(b, k, m, d, dt, mode)}: "
+                             f"{l2.COUNT.n - n0} launches, "
+                             f"{l2.COUNT_WIDE.n - w0} of the whole-bucket "
+                             f"loop; want 1, {want_wide}")
+        wide_launches += want_wide
         want = l2.l2_distance_plain(q, p)
         if valid is not None:
             want = torch.where(valid.unsqueeze(1), want,
@@ -495,9 +522,13 @@ def phase_kernels(dev, results):
         err = float(torch.where(fin, (out - want).abs(), 0).max())
         errs["l2_distance"] = max(errs["l2_distance"], err)
         main_err.setdefault("l2_distance", err)
+        if want_wide:
+            wide_err = max(wide_err, err)
         log(f"  l2_distance B={b} k={k} m={m} d={d} {dt} {mode or ''}: "
-            f"max abs {err:.3g}")
-        del out, want
+            f"max abs {err:.3g}" + (" (whole-bucket loop)" if want_wide
+                                     else ""))
+        del out, want, q, p
+    results["l2_wide"] = dict(launches=wide_launches, max_abs_err=wide_err)
 
     # distance_topk: main shape, l at 1/255/256, ragged, l > m, ties,
     # random valid mask, all-invalid, bf16
@@ -2296,9 +2327,9 @@ def capture_ensemble(srv):
     run = srv._ensemble_run
 
     def keep(points, ids, valid, labels, active, act, qt, l_arr, touched,
-             syncs):
+             syncs, phases=None):
         out = run(points, ids, valid, labels, active, act, qt, l_arr,
-                  touched, syncs)
+                  touched, syncs, phases)
         seen.append((out.payload, act, l_arr.copy(), touched))
         return out
     srv._ensemble_run = keep
@@ -4404,6 +4435,48 @@ def lm_timing(timing, dev, results):
             f"bound {b_ms:.6f} by {by})")
 
 
+def wide_timing(t, dev, results):
+    """Phase 4 for l2_distance's whole-bucket loop at the knnlm cell's
+    width (``WIDE_TIMING``: B = 128, 8 shards of 2^18, d = 1,024), into
+    l2_distance's timing ``t``: first its output against the 32-row
+    loop's on the bucket's 32-row slices (bit for bit), then the call,
+    the kernel alone, the plain version and ``cdist().square()`` beside
+    the bound: max(points, queries and output bytes / 3.35 TB/s,
+    2 B k m d / 67 TFLOP/s)."""
+    import torch
+    from repro_torch.kernels import l2_distance as l2
+    b, m, d = WIDE_TIMING
+    g = torch.Generator(device=dev)
+    g.manual_seed(29)
+    q = torch.randn((b, d), generator=g, device=dev)
+    p = torch.randn((K, m, d), generator=g, device=dev)
+    out = l2.l2_distance_cuda(q, p)
+    rows = torch.cat([l2.l2_distance_cuda(q[r:r + l2.QUERY_TILE], p)
+                      for r in range(0, b, l2.QUERY_TILE)], dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(out, rows):
+        raise PhaseError(f"l2_distance at {(b, K, m, d)}: the whole-bucket "
+                         f"loop differs from the 32-row loop")
+    del out, rows
+    qk = q.expand(K, b, d)
+    b_ms, by = bound(4 * (b * d + K * m * d + K * b * m), 2 * b * K * m * d)
+    kern = lambda: l2.l2_distance_cuda(q, p)                  # noqa: E731
+    t.update(wide_shape=[b, K, m, d], wide_ms=time_ms(kern, 20),
+             wide_kernel_ms=device_ms(kern, "l2_distance_wide_kernel",
+                                      iters=20),
+             wide_plain_ms=time_ms(lambda: l2.l2_distance_plain(q, p), 3),
+             wide_library_ms=time_ms(lambda: torch.cdist(qk, p).square(), 3),
+             wide_bound_ms=b_ms, wide_bound_by=by,
+             wide_launches=results["l2_wide"]["launches"],
+             wide_max_abs_err=results["l2_wide"]["max_abs_err"])
+    log(f"  l2_distance whole-bucket loop at {(b, K, m, d)}: "
+        f"{t['wide_ms']:.4f} ms (kernel alone {t['wide_kernel_ms']}, plain "
+        f"{t['wide_plain_ms']:.4f}, library {t['wide_library_ms']:.4f}, "
+        f"bound {b_ms:.6f} by {by}); bit-equal to the 32-row loop")
+    del q, p, qk
+    torch.cuda.empty_cache()
+
+
 def phase_profile(dev, gpu, results):
     """Where one full bucket's time goes: torch.profiler over one
     query_batch of 32 requests per sampler, after warm-up, beside the
@@ -4846,6 +4919,7 @@ def phase_timing(dev, results):
         f"prologue at B={B}: p50 and quartiles {rtm['prologue_ms']} ms; its "
         f"launch and readback alone {rtm['routing_readback_ms']} ms")
     lm_timing(timing, dev, results)
+    wide_timing(timing["l2_distance"], dev, results)
     results["timing"] = timing
 
 
@@ -4974,7 +5048,8 @@ def run_phases(args, dev, gpu, results) -> int:
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{key: t[key] for key in MASKED_KEYS + LTK_KEYS + ROUTE_KEYS
-               + LARGE_L_KEYS + STORE_KEYS + LM_KEYS if key in t}))
+               + LARGE_L_KEYS + STORE_KEYS + LM_KEYS + WIDE_KEYS
+               if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,9 @@ a ring of ``1 << 18`` spans (the window holds ~3 spans a request and
 spans are kept and passed to ``perfbench.spans.summarize``.  The result
 line is the harness's, with ``spans`` added, the readers of the spans'
 numbers among its ``metrics`` and ``anchor_gap_ns``, the tracer's widest
-anchor.  ``--program-trace 0`` leaves the server's tracer off: the
+anchor, and ``launches_per_batch``: each kernel wrapper's launches
+(``kernels.ops.launch_counts``) over the server's batches, warm-up
+included.  ``--program-trace 0`` leaves the server's tracer off: the
 harness's traced run as it is, for the tracer's cost.  Prints the line
 and appends it to ``--out``.
 """
@@ -40,6 +42,7 @@ def traced_run(cell, seed: int, seconds: float, program_trace: bool,
                device: str, t_start: float) -> dict:
     """The harness's traced run of ``cell`` (module docstring)."""
     from perfbench import harness, spans, spec, trace
+    from repro_torch.kernels import ops as kops
     from repro_torch.runtime import knn_server
 
     kept = {"records": [], "dropped": 0, "anchor_gap_ns": 0}
@@ -53,7 +56,9 @@ def traced_run(cell, seed: int, seconds: float, program_trace: bool,
             stats = self.obs.tracer.stats()
             kept.update(records=self.obs.tracer.spans(),
                         dropped=stats["dropped"],
-                        anchor_gap_ns=stats.get("anchor_gap_ns", 0))
+                        anchor_gap_ns=stats.get("anchor_gap_ns", 0),
+                        launches=kops.launch_counts(),
+                        batches=self.stats.batches)
 
     def traced_config(config):
         return service_config(config).replace(
@@ -84,6 +89,9 @@ def traced_run(cell, seed: int, seconds: float, program_trace: bool,
             line["metrics"][name] = {"value": float(value), "unit": unit}
     line["spans"] = summary
     line["anchor_gap_ns"] = kept["anchor_gap_ns"]
+    line["launches_per_batch"] = {
+        name: n / max(kept["batches"], 1)
+        for name, n in kept["launches"].items()}
     line["program_trace"] = bool(program_trace)
     return line
 

@@ -34,6 +34,8 @@ _PI = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # q, p, valid, out; B, k, m, d, dtype, blocks; stream
     "knn_l2_distance": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    # q, p, valid, out; B, k, m, d, dtype, row_tile; stream
+    "knn_l2_distance_wide": ([_P] * 4 + [_I] * 6 + [_P], _I),
     # x, ids, floor_v, floor_i, out_v, out_i; rows, m, l; per; nparts,
     # grid, dtype; stream
     "knn_local_topk": ([_P] * 6 + [_I] * 3 + [_LL] + [_I] * 3 + [_P], _I),

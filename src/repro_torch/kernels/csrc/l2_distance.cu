@@ -8,22 +8,34 @@
 // shard's (B, m) slab.  With a (k, m) valid mask, masked points come out
 // as +inf (the reference's unfused masked path, done in the kernel).
 //
-// What bounds it on an H100: at the service shapes (B <= 32, d = 64) it
-// reads 4*k*m*d bytes of points and writes a 4*B*k*m-byte output, at
-// about B/2 FLOP per byte of points: far below the f32 SIMT ridge
-// (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte) once the output is counted,
-// so it is bound by the bytes it must move, mostly the output.
+// What bounds it on an H100: it reads 4*k*m*d bytes of points, writes a
+// 4*B*k*m-byte output and does 2*B*k*m*d FLOP, B/2 FLOP per byte of
+// points.  At the small buckets (B <= 32, d = 64) that is far below the
+// f32 SIMT ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte) once the
+// output is counted: bound by the bytes, mostly the output.  At the
+// service's large buckets (B = 128, d = 1,024: 64 FLOP per byte of
+// points) it is bound by the f32 FMAs.
 //
-// Design: the shared distance main loop of distance_tile.cuh (queries
-// resident in shared memory, a 4-slab cp.async ring of point tiles, 4 x 4
-// register tiles, |p|^2 once per point, dead tiles skipped by a block
-// vote) under a persistent grid: a multiple of the SM count of blocks per
-// query tile, block x walking point tiles x, x + gridDim.x, ...  A dead
-// tile writes +inf without reading its points.  The epilogue finds a
-// thread's shard and offset once per tile (one 32-bit division where
-// k*m < 2^31) and stores 16-byte vectors with streaming stores wherever
-// its 4 points share a shard and m % 4 == 0.  f32 FMAs only.
+// Two main loops, chosen by B alone:
+// - B <= 32: the shared distance main loop of distance_tile.cuh (queries
+//   resident in shared memory, a 4-slab cp.async ring of point tiles,
+//   4 x 4 register tiles, |p|^2 once per point, dead tiles skipped by a
+//   block vote) under a persistent grid: a multiple of the SM count of
+//   blocks per query tile, block x walking point tiles x, x + gridDim.x,
+//   ...  Its 32 x d query tile grows with d (131.6 KB at d = 1,024, one
+//   4-warp block an SM), and each query tile's blocks sweep all the points.
+// - B > 32: l2_distance_wide.cuh, one block's tile spanning the bucket (64
+//   or 128 rows) with queries and points streamed along d through one
+//   ring: shared memory that does not grow with d, 8 x 8 register tiles
+//   with up to 255 registers a thread, each point byte read from device
+//   memory once a launch.
+// Both write bit-equal distances.  A dead tile writes +inf without reading
+// its points.  The epilogues find a thread's shard and offset once per
+// tile (one 32-bit division where k*m < 2^31) and store 16-byte vectors
+// with streaming stores wherever its 4 points share a shard and
+// m % 4 == 0.  f32 FMAs only.
 #include "distance_tile.cuh"
+#include "l2_distance_wide.cuh"
 
 namespace {
 
@@ -162,4 +174,28 @@ extern "C" int knn_l2_distance(const void* q, const void* p,
   }
   return launch(static_cast<const float*>(q), static_cast<const float*>(p),
                 valid, out, B, k, m, d, blocks, s);
+}
+
+// The whole-bucket loop (l2_distance_wide.cuh) for B > 32: row_tile 64 or
+// 128 query rows a block; blocks from the occupancy API.
+extern "C" int knn_l2_distance_wide(const void* q, const void* p,
+                                    const unsigned char* valid, float* out,
+                                    int B, int k, int m, int d, int dtype,
+                                    int row_tile, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using BF = __nv_bfloat16;
+  const BF *qb = static_cast<const BF*>(q), *pb = static_cast<const BF*>(p);
+  const float *qf = static_cast<const float*>(q),
+              *pf = static_cast<const float*>(p);
+  const bool bf = dtype == knn::kBF16;
+  if (row_tile == 64)
+    return bf ? knn::wide::launch<BF, 64>(qb, pb, valid, out, B, k, m, d, s)
+              : knn::wide::launch<float, 64>(qf, pf, valid, out, B, k, m,
+                                             d, s);
+  if (row_tile == 128)
+    return bf ? knn::wide::launch<BF, 128>(qb, pb, valid, out, B, k, m, d,
+                                           s)
+              : knn::wide::launch<float, 128>(qf, pf, valid, out, B, k, m,
+                                              d, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -31,8 +31,8 @@ from repro_torch.kernels import routing as _rt
 from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import MAX_L
 
-COUNTERS = {c.name: c for c in (_l2.COUNT, _dtk.COUNT, _ltk.COUNT,
-                                _rt.COUNT)}
+COUNTERS = {c.name: c for c in (_l2.COUNT, _l2.COUNT_WIDE, _dtk.COUNT,
+                                _ltk.COUNT, _rt.COUNT)}
 
 
 def _path(entry: str, t: torch.Tensor) -> str:
@@ -165,8 +165,12 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     points per chunk and ``dtk_blocks`` its persistent blocks (each walks
     its chunk in all k shards), or ``"l2+local_topk"`` where the fused
     kernel does not take ``l``, with ``ltk_passes`` local_topk's passes;
-    ``l2_blocks`` is the persistent l2_distance blocks per query tile.
-    All None on the CPU.  A width whose query tile does not fit in shared
+    ``l2_tile`` is the rows of the query tile that l2_distance takes for
+    the bucket (32: the 32-row loop; 64 or 128: the whole-bucket loop,
+    :func:`l2_distance.row_tiles`), and ``l2_blocks`` the 32-row loop's
+    persistent blocks per query tile (None where the whole-bucket loop,
+    whose blocks the occupancy API gives at launch, is taken).  All None
+    on the CPU.  A width whose query tile does not fit in shared
     memory has no kernel on the card (``unsupported``), and the wrappers
     raise on it.
     """
@@ -174,18 +178,21 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     path = "cuda" if dev.type == "cuda" else "plain"
     env = {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
            "k": k, "path": path, "dtk_path": None, "dtk_chunk": None,
-           "dtk_blocks": None, "ltk_passes": None, "l2_blocks": None,
-           "unsupported": None}
+           "dtk_blocks": None, "ltk_passes": None, "l2_tile": None,
+           "l2_blocks": None, "unsupported": None}
     if path == "plain":
         return env
     fused = fused_topk(l, dim)
-    smem = _dtk.smem(dim, l, 4) if fused else _l2.loop_smem(dim, 4)
+    smem = (_dtk.smem(dim, l, 4) if fused
+            else _l2.smem_of(bucket_b, dim, 4))
     if smem > _l2.SMEM_MAX:
         env["unsupported"] = (f"dim={dim}: {smem} bytes of shared memory a "
                               f"block > {_l2.SMEM_MAX}: no kernel")
         return env
     sms = _ltk.sm_count(dev.index or 0)
-    env.update(l2_blocks=_l2.BLOCKS_PER_SM * sms)
+    tile = _l2.row_tiles(bucket_b)[0]
+    env.update(l2_tile=tile, l2_blocks=_l2.BLOCKS_PER_SM * sms
+               if tile == _l2.QUERY_TILE else None)
     if fused:
         chunk = _dtk.chunking(bucket_b, k, m_local, dev)
         env.update(dtk_path="distance_topk", dtk_chunk=chunk,

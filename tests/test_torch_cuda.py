@@ -136,6 +136,58 @@ def test_l2_distance_kernel_masked(card, mode, dtype):
     assert torch.equal(ops.l2_distance(q, p, valid=valid), out)
 
 
+def _masked_plain(q, p, valid):
+    want = l2.l2_distance_plain(q, p)
+    if valid is None:
+        return want
+    return torch.where(valid.unsqueeze(1), want,
+                       torch.full_like(want, float("inf")))
+
+
+@pytest.mark.parametrize("mode", [None, "random", "shards", "none"])
+@pytest.mark.parametrize("km", [(1, 777), (3, 4096), (8, 777)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 300, 1024])
+@pytest.mark.parametrize("B", [33, 64, 100, 128])
+def test_l2_distance_wide_kernel(card, B, d, dtype, km, mode):
+    """The whole-bucket loop (B > 32) is bit-equal to the 32-row loop run
+    on 32-row slices of the same queries, and within F32 of the plain
+    version; masked points +inf.  Every call counts one l2_distance
+    launch; only the B > 32 call counts one of the whole-bucket loop."""
+    k, m = km
+    q = _randn(card, B, d, seed=B + d).to(dtype)
+    p = _randn(card, k, m, d, seed=k * m + d).to(dtype)
+    valid = None if mode is None else _mask(card, k, m, mode, seed=B)
+    before = (l2.COUNT.n, l2.COUNT_WIDE.n)
+    out = l2.l2_distance_cuda(q, p, valid=valid)
+    torch.cuda.synchronize()
+    assert (l2.COUNT.n, l2.COUNT_WIDE.n) == (before[0] + 1, before[1] + 1)
+    parts = [l2.l2_distance_cuda(q[i:i + l2.QUERY_TILE], p, valid=valid)
+             for i in range(0, B, l2.QUERY_TILE)]
+    torch.cuda.synchronize()
+    assert (l2.COUNT.n, l2.COUNT_WIDE.n) == (before[0] + 1 + len(parts),
+                                             before[1] + 1)
+    assert torch.equal(out, torch.cat(parts, dim=1))
+    want = _masked_plain(q, p, valid)
+    assert torch.equal(torch.isinf(out), torch.isinf(want))
+    torch.testing.assert_close(out, want, **F32)
+
+
+@pytest.mark.parametrize("B,d,mode", [(200, 96, None), (300, 64, "random"),
+                                      (129, 300, "shards")])
+def test_l2_distance_wide_kernel_several_row_tiles(card, B, d, mode):
+    """Above 128 rows the bucket is tiles of 128 (a point tile's row
+    tiles walked together): still bit-equal to the 32-row slices."""
+    k, m = 3, 777
+    q, p = _randn(card, B, d, seed=B), _randn(card, k, m, d, seed=d)
+    valid = None if mode is None else _mask(card, k, m, mode, seed=B)
+    out = l2.l2_distance_cuda(q, p, valid=valid)
+    parts = [l2.l2_distance_cuda(q[i:i + l2.QUERY_TILE], p, valid=valid)
+             for i in range(0, B, l2.QUERY_TILE)]
+    assert torch.equal(out, torch.cat(parts, dim=1))
+    torch.testing.assert_close(out, _masked_plain(q, p, valid), **F32)
+
+
 def _topk_close(v, i, rv, ri, full):
     """Kernel vs plain top-l: values within F32, +inf slots carry the
     sentinel, every id's true distance matches its value, and the id sets

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import l2_distance as tl2
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.local_topk import local_topk_plain
@@ -219,3 +220,98 @@ def test_dispatch_is_by_device_only():
         tops.local_topk(torch.zeros(2, 8, device="meta"), 3)
     env = tops.service_envelope(32, 1024, 64, 128, k=8, device="cpu")
     assert env["path"] == "plain" and env["dtk_chunk"] is None
+
+
+@pytest.mark.parametrize("B,tile,tiles", [
+    (1, 32, 1), (8, 32, 1), (32, 32, 1),       # today's 32-row tile
+    (33, 64, 1), (64, 64, 1),                  # one tile of 64
+    (65, 128, 1), (100, 128, 1), (128, 128, 1),
+    (129, 128, 2), (300, 128, 3), (512, 128, 4)])
+def test_l2_distance_row_tile_follows_rows(B, tile, tiles):
+    """l2_distance's row tile is a function of the bucket's rows alone."""
+    assert tl2.row_tiles(B) == (tile, tiles)
+
+
+class _FakeLibrary:
+    """The kernel library's two l2_distance entry points, recorded."""
+
+    def __init__(self):
+        self.calls = []
+
+    def knn_l2_distance(self, *args):
+        self.calls.append(("loop32", args))
+        return 0
+
+    def knn_l2_distance_wide(self, *args):
+        self.calls.append(("wide", args))
+        return 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrapper on CPU tensors as if they were on the card: the
+    library recorded, nothing launched."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(tl2._build, "library", lambda: lib)
+    monkeypatch.setattr(tl2._cuda, "check_cuda", lambda *a: None)
+    monkeypatch.setattr(tl2._cuda, "stream_of", lambda t: 0)
+    monkeypatch.setattr(tl2._ltk, "sm_count", lambda index: 132)
+    return lib
+
+
+@pytest.mark.parametrize("B,entry,tile", [
+    (8, "loop32", None), (32, "loop32", None), (33, "wide", 64),
+    (64, "wide", 64), (128, "wide", 128), (300, "wide", 128)])
+def test_l2_distance_launches_the_loop_of_its_rows(fake_card, B, entry,
+                                                   tile):
+    """B <= 32 calls the 32-row loop with its persistent blocks, B > 32
+    the whole-bucket loop with its row tile; every call counts one
+    l2_distance launch, the whole-bucket loop's one l2_distance_wide."""
+    q, p = torch.zeros(B, 16), torch.zeros(2, 8, 16)
+    before = (tl2.COUNT.n, tl2.COUNT_WIDE.n)
+    assert tl2.l2_distance_cuda(q, p).shape == (2, B, 8)
+    [(name, args)] = fake_card.calls
+    assert name == entry and args[4:9] == (B, 2, 8, 16, 0)
+    assert args[9] == (tl2.BLOCKS_PER_SM * 132 if tile is None else tile)
+    assert (tl2.COUNT.n - before[0], tl2.COUNT_WIDE.n - before[1]) == (
+        1, int(entry == "wide"))
+
+
+@pytest.mark.parametrize("B,accepted", [(128, True), (64, True),
+                                        (8, False), (32, False)])
+def test_l2_distance_shared_memory_check_by_path(fake_card, B, accepted):
+    """At d = 2,048 the 32-row loop's resident query tile does not fit in
+    shared memory (refused, as before); the whole-bucket loop's does not
+    grow with d (accepted)."""
+    d = 2048
+    assert (tl2.smem_of(B, d, 4) <= tl2.SMEM_MAX) == accepted
+    q, p = torch.zeros(B, d), torch.zeros(1, 4, d)
+    if accepted:
+        tl2.l2_distance_cuda(q, p)
+        assert [c[0] for c in fake_card.calls] == ["wide"]
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            tl2.l2_distance_cuda(q, p)
+        assert fake_card.calls == []
+
+
+def test_envelope_names_the_l2_distance_tile(monkeypatch):
+    """``service_envelope`` reports the row tile each bucket takes, the
+    32-row loop's blocks only where it is taken; a width the 32-row loop
+    cannot hold is unsupported only for the buckets that take it."""
+    monkeypatch.setattr(tops._ltk, "sm_count", lambda index: 132)
+    card = torch.device("cuda")
+    got = {b: tops.service_envelope(b, 1 << 20, 1024, 1024, k=8,
+                                    device=card)
+           for b in (8, 32, 64, 128)}
+    assert {b: e["l2_tile"] for b, e in got.items()} == {
+        8: 32, 32: 32, 64: 64, 128: 128}
+    assert got[8]["l2_blocks"] == tl2.BLOCKS_PER_SM * 132
+    assert got[64]["l2_blocks"] is None and got[128]["l2_blocks"] is None
+    assert all(e["unsupported"] is None for e in got.values())
+    wide = tops.service_envelope(128, 1 << 20, 2048, 1024, k=8, device=card)
+    narrow = tops.service_envelope(8, 1 << 20, 2048, 1024, k=8, device=card)
+    assert wide["unsupported"] is None and wide["l2_tile"] == 128
+    assert narrow["unsupported"] and narrow["l2_tile"] is None
+    cpu = tops.service_envelope(128, 1 << 20, 1024, 1024, k=8, device="cpu")
+    assert cpu["l2_tile"] is None
