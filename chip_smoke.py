@@ -913,7 +913,7 @@ def phase_serve(dev, gpu, results):
     launches = {name: 0 for name in COUNTERS}
     by_sampler, serve = {}, {}
     for sampler, needs in (("selection", ["distance_topk", "local_topk"]),
-                           ("gather", ["l2_distance", "local_topk"])):
+                           ("gather", ["distance_topk", "local_topk"])):
         torch.cuda.reset_peak_memory_stats()
         srv = KnnServer(points, cfg=cfg.replace(sampler=sampler), shards=K,
                         device=dev, seed=0)
@@ -1010,13 +1010,14 @@ def phase_serve_routed(dev, gpu, results):
     runs = [  # name, config, exact twin, kernels the path must launch
         ("exact_selection", cfg, None, ["distance_topk", "local_topk"]),
         ("exact_gather", cfg.replace(sampler="gather"), None,
-         ["l2_distance", "local_topk"]),
+         ["distance_topk", "local_topk"]),
         ("a_device_selection", pruned, "exact_selection",
          ["route_index_mask", "distance_topk", "local_topk"]),
         ("b_host_selection", pruned.replace(route_compute="host"),
          "exact_selection", ["distance_topk", "local_topk"]),
         ("c_device_gather", pruned.replace(sampler="gather"),
-         "exact_gather", ["route_index_mask", "l2_distance", "local_topk"]),
+         "exact_gather", ["route_index_mask", "distance_topk",
+                          "local_topk"]),
         ("d_device_approx", pruned.replace(search="approx"), None,
          ["route_index_mask", "distance_topk", "local_topk"]),
     ]
@@ -1231,7 +1232,7 @@ LOAD_CYCLES = 6               # the ingest thread's insert/flush/delete/flush
 STORE_RUNS = (
     ("store_exact_selection", {}, None, ["distance_topk", "local_topk"]),
     ("store_exact_gather", dict(sampler="gather"), None,
-     ["l2_distance", "local_topk"]),
+     ["distance_topk", "local_topk"]),
     ("store_a_device_selection",
      dict(route="pruned", route_compute="device"), "store_exact_selection",
      ["route_index_mask", "distance_topk", "local_topk"]),
@@ -1806,7 +1807,7 @@ MAINT_RUNS = (
     ("maintained_gather_slo",
      dict(sampler="gather", slo_latency_p99_s=0.5,
           slo_contract_violations=True, obs_http_port=-1),
-     ["l2_distance", "local_topk"]),
+     ["distance_topk", "local_topk"]),
     ("maintained_exact_traced", dict(obs_trace=True,
                                      obs_trace_capacity=1 << 16),
      ["distance_topk", "local_topk"]),
@@ -3538,7 +3539,7 @@ def phase_serve_knn_lm(dev, gpu, results):
     runs = (("knn_lm_selection", "selection", ex.L, KNN_LM_STEPS,
              ["distance_topk", "local_topk"]),
             ("knn_lm_gather", "gather", ex.L, KNN_LM_STEPS,
-             ["l2_distance", "local_topk"]),
+             ["distance_topk", "local_topk"]),
             ("knn_lm_large", "selection", L_LARGE, KNN_LM_LARGE_STEPS,
              ["l2_distance", "local_topk"]))
     out, launches, gens = {}, {}, {}

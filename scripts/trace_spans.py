@@ -13,9 +13,12 @@ a ring of ``1 << 18`` spans (the window holds ~3 spans a request and
 spans are kept and passed to ``perfbench.spans.summarize``.  The result
 line is the harness's, with ``spans`` added, the readers of the spans'
 numbers among its ``metrics`` and ``anchor_gap_ns``, the tracer's widest
-anchor, and ``launches_per_batch``: each kernel wrapper's launches
+anchor, ``launches_per_batch``: each kernel wrapper's launches
 (``kernels.ops.launch_counts``) over the server's batches, warm-up
-included.  ``--program-trace 0`` leaves the server's tracer off: the
+included, and ``idle_ms_per_batch``: the device's idle time inside each
+span of ``SPANS`` (Algorithm 2's phases, the gather sampler's ``merge``,
+the serving spans, and time between dispatches) over the window's
+batches.  ``--program-trace 0`` leaves the server's tracer off: the
 harness's traced run as it is, for the tracer's cost.  Prints the line
 and appends it to ``--out``.
 """
@@ -36,6 +39,10 @@ CAPACITY = 1 << 18
 # the readers of perfbench/spans.py's numbers, with their units
 READERS = {"alg.select_launches_per_batch": "launches",
            "alg.idle_share": "%", "serve.idle_share": "%"}
+# the spans the idle time a batch is listed by (perfbench/spans.py)
+SPANS = ("topl", "prune", "select", "gather", "merge", "readback",
+         "predict", "kernel", "snapshot", "route", "shadow_audit",
+         "resolve", "dispatch", "between_dispatches")
 
 
 def traced_run(cell, seed: int, seconds: float, program_trace: bool,
@@ -88,6 +95,11 @@ def traced_run(cell, seed: int, seconds: float, program_trace: bool,
         if value is not None:
             line["metrics"][name] = {"value": float(value), "unit": unit}
     line["spans"] = summary
+    if summary is not None:
+        n = max(line["batches"]["count"], 1)
+        line["idle_ms_per_batch"] = {
+            name: 1e3 * summary["idle"].get(name, 0.0) / n
+            for name in SPANS}
     line["anchor_gap_ns"] = kept["anchor_gap_ns"]
     line["launches_per_batch"] = {
         name: n / max(kept["batches"], 1)

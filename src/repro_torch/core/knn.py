@@ -4,8 +4,7 @@ Port of ``repro.core.knn``.  Per query batch, with the shard as
 dimension 0 of every per-shard tensor:
 
   1-2. distances and the per-shard top-L (Steps 8 and 2): one fused
-       distance_topk kernel on the card (``local_distance_top_l``), or
-       l2_distance then local_topk for the gather baseline
+       distance_topk kernel on the card (``local_distance_top_l``)
   3.   sample-and-prune to O(l) survivors (``core.sampling``)
   4.   Algorithm 1 selection on the survivors (``core.selection``)
   5.   per-shard winner mask, and optionally the replicated (B, l)
@@ -14,7 +13,8 @@ dimension 0 of every per-shard tensor:
 The kernels are reached through ``kernels.ops``, which dispatches by the
 tensors' device: the hand-written kernels for CUDA tensors, their plain
 versions for CPU tensors.  ``knn_simple`` is the paper's baseline
-"simple method": gather every shard's local top-l and reduce.
+"simple method": the same steps 1-2, then gather every shard's local
+top-l and reduce.
 
 Three optional masks fold into one ``(k, m)`` valid mask ahead of the
 distance step, and a masked point competes as the paper's +inf fake
@@ -25,9 +25,10 @@ the fused path and ``kops.l2_distance(valid=)`` elsewhere.
 
 ``phases`` (an :class:`repro_torch.obs.PhaseClock`, optional) marks the
 steps as they are issued: ``topl`` (1-2), ``prune`` (3), ``select`` (4,
-with its ``iterations`` and ``host_syncs``) and ``gather`` (5).  The
-last phase stays open for the caller, who marks its readback and closes
-the clock.  Marks add no sync and change no result.
+with its ``iterations`` and ``host_syncs``) and ``gather`` (5); in
+``knn_simple`` ``topl`` and ``merge`` (the gather and the reduction).
+The last phase stays open for the caller, who marks its readback and
+closes the clock.  Marks add no sync and change no result.
 
 ``point_labels`` (``(k, m)`` f32, optional) is the prediction plane's
 per-slot payload: gathered at the slot indices the top-l step returns
@@ -280,14 +281,20 @@ def knn_query_batched(points, point_ids, queries, l_max: int, l,
 
 
 def knn_simple(points, point_ids, queries, l: int, *, point_valid=None,
-               shard_active=None, point_candidates=None):
+               shard_active=None, point_candidates=None, phases=None):
     """The paper's baseline "simple method" (Section 3): local top-l, then
     gather all k*l candidates and reduce.  Returns replicated ascending
     ``(B, l)`` distances and ids; +inf slots carry 2**31-1.  Masks as in
-    :func:`knn_query`."""
+    :func:`knn_query`, ``phases`` as in the module docstring.  The local
+    step is the module's global ``local_distance_top_l``, as in
+    Algorithm 2, so no ``(k, B, m)`` matrix is built where every shard
+    holds more than l points and the fused kernel takes l."""
+    ph = NULL_PHASES if phases is None else phases
     valid = _point_mask(points, point_valid, shard_active, point_candidates)
-    d, gid = local_top_l(kops.l2_distance(queries, points, valid=valid),
-                         point_ids, l)
+    ph.mark("topl")
+    d, gid = local_distance_top_l(queries, points, point_ids, l,
+                                  valid=valid)
+    ph.mark("merge")
     k, B, _ = d.shape
     flat_d = all_gather(d).transpose(0, 1).reshape(B, k * l)
     flat_i = all_gather(gid).transpose(0, 1).reshape(B, k * l)

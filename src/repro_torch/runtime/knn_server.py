@@ -62,14 +62,14 @@ from clocks the dispatch reads anyway, and add no device sync.
 ``kernel`` is the host wall of the batch's device work, its readback
 included; its children are the phases a
 :class:`~repro_torch.obs.PhaseClock` marks (``topl``, ``prune``,
-``select``, ``gather``, ``readback``, ``predict``), each with its
-``device_s`` by CUDA events where the card gives one: the stream's time
-from the phase's first mark to the next, so a phase that syncs (the
+``select``, ``gather``, ``merge``, ``readback``, ``predict``), each with
+its ``device_s`` by CUDA events where the card gives one: the stream's
+time from the phase's first mark to the next, so a phase that syncs (the
 Algorithm 1 loop) holds a longer host wall, the wait for the work before
 it.  The clock runs on every batch, traced or not, and feeds
-``ServerStats.topl_device_s`` and ``select_s``; each ``dispatch`` span
-carries the ``anchor`` that maps its tree onto a profiler's clock
-(``obs.trace``).  The
+``ServerStats.topl_device_s``, ``select_s`` and ``merge_s``; each
+``dispatch`` span carries the ``anchor`` that maps its tree onto a
+profiler's clock (``obs.trace``).  The
 Theorem-1 contract audit runs on every batch; ``cfg.obs_audit_every``
 replays every Nth routed, indexed or ensemble batch on the operands it
 captured, with every shard active and every slot a candidate, and
@@ -203,15 +203,18 @@ class ServerStats:
     # CUDA events (0.0 on the CPU), and the Algorithm 1 loop's wall: on
     # the card the stream's, from the events at its two ends, since the
     # loop's first sync waits out the step and its host wall holds that
-    # wait; on the CPU the host's
+    # wait; on the CPU the host's; and the gather sampler's merge (the
+    # all_gather, the reduction over k*l and the per-request cut), timed
+    # as the loop is
     topl_device_s: float = 0.0
     select_s: float = 0.0
+    merge_s: float = 0.0
     _lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
     def observe(self, bucket: int, n_real: int,
                 touched: Optional[int] = None, topl_device_s: float = 0.0,
-                select_s: float = 0.0):
+                select_s: float = 0.0, merge_s: float = 0.0):
         with self._lock:
             self.queries += n_real
             self.batches += 1
@@ -222,6 +225,7 @@ class ServerStats:
                 self.routed_batches += 1
             self.topl_device_s += topl_device_s
             self.select_s += select_s
+            self.merge_s += merge_s
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -231,7 +235,8 @@ class ServerStats:
                     "touched_shards": self.touched_shards,
                     "routed_batches": self.routed_batches,
                     "topl_device_s": self.topl_device_s,
-                    "select_s": self.select_s}
+                    "select_s": self.select_s,
+                    "merge_s": self.merge_s}
 
 
 @dataclasses.dataclass
@@ -606,10 +611,10 @@ class KnnServer:
         and the exact fold for a predicting server (the shadow audit's
         replay).  ``marks`` receives ``"route"``: the prologue's
         (start, end) clock stamps.  ``phases``: a :class:`PhaseClock`
-        that the batch marks (Algorithm 2's phases, or ``topl`` alone
-        for the gather sampler and the ensemble; then ``readback`` and,
-        with labels, ``predict``) and closes; ``_Batch.phases`` lists
-        them."""
+        that the batch marks (Algorithm 2's phases, ``topl`` and
+        ``merge`` for the gather sampler, ``topl`` alone for the
+        ensemble; then ``readback`` and, with labels, ``predict``) and
+        closes; ``_Batch.phases`` lists them."""
         cfg = self.cfg
         ph = NULL_PHASES if phases is None else phases
         points, ids, valid, _, _, summ, idx, labels = (
@@ -651,8 +656,8 @@ class KnnServer:
             return _Batch(d, i, res.selection.iterations, surv, syncs,
                           touched, frac, pred, active=act,
                           keep_any=keep_any, phases=_closed(phases))
-        ph.mark("topl")
-        sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max, **masks)
+        sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max,
+                                    phases=phases, **masks)
         # per-request l: ranks >= l[b] become sentinels
         keep = (torch.arange(cfg.l_max, device=self.device)[None, :]
                 < lt[:, None])
@@ -881,12 +886,14 @@ class KnnServer:
                               t_done, parent=dspan, sampler=cfg.sampler,
                               route_compute=cfg.route_compute,
                               host_syncs=out.host_syncs)
-        topl_device_s, select_s = None, 0.0
+        topl_device_s, select_s, merge_s = None, 0.0, 0.0
         for name, p0, p1, device_s, attrs in out.phases:
             if name == "topl":
                 topl_device_s = device_s
             elif name == "select":
                 select_s = p1 - p0 if device_s is None else device_s
+            elif name == "merge":
+                merge_s = p1 - p0 if device_s is None else device_s
             if tracer.enabled:
                 if device_s is not None:
                     attrs = dict(attrs, device_s=device_s)
@@ -900,7 +907,8 @@ class KnnServer:
         self.stats.observe(
             bucket, n,
             touched=out.touched if cfg.route == "pruned" else None,
-            topl_device_s=topl_device_s or 0.0, select_s=select_s)
+            topl_device_s=topl_device_s or 0.0, select_s=select_s,
+            merge_s=merge_s)
         # the gather bill charges the static buffer width l_max per peer,
         # so its envelope is checked against that width
         audit_l = (cfg.l_max if cfg.sampler == "gather"

@@ -242,3 +242,79 @@ def test_collectives_over_the_shard_dimension():
     assert collectives.accounting(sampler="selection", iterations=5,
                                   touched=K, l_max=32,
                                   use_sampling=True) == (14, 7 * 14)
+
+
+# ---- the gather baseline: the fused step, then the merge --------------------
+
+def _no_l2(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("knn_simple built the (k, B, m) matrix")
+    monkeypatch.setattr(tknn.kops, "l2_distance", refuse)
+
+
+@pytest.mark.parametrize("l", [1, 16, 255])
+def test_knn_simple_builds_no_distance_matrix(monkeypatch, rng, pts, l):
+    """Every shard holds more than l points: the step is the fused one,
+    so knn_simple answers with l2_distance refusing every call; the
+    answer equals the one computed through the matrix."""
+    tp = torch.from_numpy(pts.reshape(K, -1, DIM))
+    tids = torch.arange(N, dtype=torch.int32).reshape(K, -1)
+    q = torch.from_numpy(rng.normal(size=(5, DIM)).astype(np.float32))
+    full = ((q[:, None, :] - tp.reshape(N, DIM)[None]) ** 2).sum(-1)
+    want = torch.sort(full, dim=1, stable=True)
+    _no_l2(monkeypatch)
+    valid = torch.ones(K, N // K, dtype=torch.bool)
+    for kw in ({}, {"point_valid": valid},
+               {"shard_active": torch.ones(K, dtype=torch.bool)}):
+        sd, si = tknn.knn_simple(tp, tids, q, l, **kw)
+        assert sd.shape == si.shape == (5, l)
+        torch.testing.assert_close(sd, want.values[:, :l])
+        assert torch.equal(si.long(), want.indices[:, :l])
+    # a shard of no more than l points is padded through the matrix
+    with pytest.raises(AssertionError, match="matrix"):
+        tknn.knn_simple(tp[:, :8], tids[:, :8], q, 8)
+
+
+def _masked_instance(rng, pts, mode):
+    """Live prefixes of unequal length in each shard (a store's tails),
+    and, in mode "routed", shards 2 and 5 routed away."""
+    m = N // K
+    used = rng.integers(m // 3, m + 1, K)
+    used[0] = m
+    valid = torch.arange(m)[None, :] < torch.from_numpy(used)[:, None]
+    active = torch.ones(K, dtype=torch.bool)
+    if mode == "routed":
+        active[[2, 5]] = False
+    chunks = [(j * m, torch.from_numpy(pts[j * m:j * m + used[j]]))
+              for j in range(K) if active[j]]
+    return valid, active, chunks
+
+
+@pytest.mark.parametrize("mode", ["live", "routed"])
+def test_knn_simple_matches_exact_and_selection(rng, pts, mode):
+    """knn_simple equals the exact top-l (perfbench's f64 reference, ties
+    to the smaller id) and the selection sampler's answer, under the
+    store's live mask, pruned-routing flags and per-request l; the
+    distances bit-equal to the selection's (one step makes both)."""
+    from perfbench.reference import exact_topl
+
+    l_max = 24
+    ls = torch.tensor([1, 24, 7, 0, 13, 24], dtype=torch.int32)
+    valid, active, chunks = _masked_instance(rng, pts, mode)
+    tp = torch.from_numpy(pts.reshape(K, -1, DIM))
+    tids = torch.arange(N, dtype=torch.int32).reshape(K, -1)
+    q = torch.from_numpy(rng.normal(size=(len(ls), DIM)).astype(np.float32))
+    masks = dict(point_valid=valid, shard_active=active)
+    sd, si = tknn.knn_simple(tp, tids, q, l_max, **masks)
+    res = tknn.knn_query_batched(tp, tids, q, l_max, ls, _gen(), **masks)
+    ref = exact_topl.scan(q, l_max, chunks)
+    assert torch.equal(si.long(), ref["top_i"])
+    torch.testing.assert_close(sd.double(), ref["top_d"], rtol=1e-5,
+                               atol=1e-4)
+    live = torch.cat([torch.arange(r0, r0 + len(p)) for r0, p in chunks])
+    assert set(si.flatten().tolist()) <= set(live.tolist())
+    for b, l in enumerate(ls.tolist()):
+        order = torch.argsort(res.dists[b], stable=True)
+        assert torch.equal(res.dists[b][order][:l], sd[b, :l])
+        assert set(res.ids[b, :l].tolist()) == set(si[b, :l].tolist())
+        assert bool(torch.isinf(res.dists[b, l:]).all())

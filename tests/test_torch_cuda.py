@@ -1081,6 +1081,36 @@ def test_obs_adds_no_launch_or_sync_on_the_card(card):
     assert runs["off"][0]["route_index_mask"] == 1
 
 
+def test_knn_simple_builds_no_distance_matrix_on_the_card(card):
+    """The gather baseline at a bucket of 128 over 8 x 2^20 points of
+    width 96, l = 100: the (k, B, m) matrix would take 4.3 GB; the step
+    is the fused distance_topk, so the peak grows by under 0.5 GB, no
+    l2_distance launches, and the distances are bit-equal to the
+    selection sampler's (one step makes both)."""
+    from repro_torch.core import knn
+
+    B, k, m, d, l = 128, 8, 1 << 20, 96, 100
+    p = _randn(card, k, m, d, seed=29)
+    q = _randn(card, B, d, seed=30)
+    ids = torch.arange(k * m, dtype=torch.int32, device=card).view(k, m)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    before = ops.COUNTERS["l2_distance"].n
+    sd, si = knn.knn_simple(p, ids, q, l)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(card) - base < 0.5e9
+    assert ops.COUNTERS["l2_distance"].n == before
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    res = knn.knn_query_batched(p, ids, q, l, l, g)
+    order = torch.argsort(res.dists, dim=1, stable=True)
+    assert torch.equal(res.dists.gather(1, order), sd)
+    assert torch.equal(torch.sort(res.ids, 1).values,
+                       torch.sort(si, 1).values)
+    assert bool((sd[:, 1:] >= sd[:, :-1]).all())
+
+
 # ---- the LM path: the vocabulary top-k and the datastore's width --------
 
 @pytest.mark.parametrize("B,V,l,mode", [

@@ -90,10 +90,12 @@ def test_server_matches_jax(mesh8, rng, pts, sampler):
             assert a.iterations <= 8 * int(np.ceil(np.log2(K * L_MAX))) + 16
             assert a.survivors >= a.l
     # the port's phase sums are its own: the step's device time (none on
-    # the CPU) and the Algorithm 1 loop's host wall (none under gather)
+    # the CPU), the Algorithm 1 loop's host wall (none under gather) and
+    # the gather merge's (none under selection)
     tsnap = tsrv.stats.snapshot()
     assert tsnap.pop("topl_device_s") == 0.0
     assert (tsnap.pop("select_s") > 0.0) == (sampler == "selection")
+    assert (tsnap.pop("merge_s") > 0.0) == (sampler == "gather")
     assert tsnap == {
         k: v for k, v in jsrv.stats.snapshot().items()
         if k != "invalid_touched"}
