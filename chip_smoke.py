@@ -24,7 +24,10 @@ Phases:
      with +inf tails of a padded vocabulary and bf16 logits full of ties,
      bit for bit, and l2_distance and distance_topk at d = 896;
      l2_distance's whole-bucket loop at B = 64 and 128, d = 1,024, f32
-     and bf16, unmasked and routed, one l2_distance_wide launch a call);
+     and bf16, unmasked and routed, one l2_distance_wide launch a call;
+     distance_topk's whole-bucket path at B = 64 and 128, d = 96, l =
+     100, f32 and bf16, unmasked and routed, one distance_topk_wide
+     launch a call, and none from the 32-row cases);
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
@@ -202,7 +205,10 @@ Phases:
      datastore (B = 8, 2^22 x 896, l = 8), local_topk on the vocabulary
      rows beside the launch floor; l2_distance's whole-bucket loop at B =
      128 and d = 1,024 (the knnlm cell's width), bit-equal to the 32-row
-     loop on the bucket's 32-row slices;
+     loop on the bucket's 32-row slices; distance_topk's whole-bucket
+     path at a reduced deep1b step (B = 128, 8 shards of 2^20, d = 96, l
+     = 100), its values and ids equal to the 32-row kernel's on the
+     bucket's 32-row slices;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -263,18 +269,23 @@ KERNELS = {
               "predict_exact_vote_approx", "maintained_approx_recall")),
 }
 # every launch counter of the port (kernels/ops.py COUNTERS)
-COUNTERS = ("l2_distance", "l2_distance_wide", "distance_topk", "local_topk",
-            "route_index_mask")
+COUNTERS = ("l2_distance", "l2_distance_wide", "distance_topk",
+            "distance_topk_wide", "local_topk", "route_index_mask")
 # phase 4's extra numbers for the two distance kernels, on the kernels line
 MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
                "masked_bound_ms", "masked_bound_by")
-# phase 4's numbers for l2_distance's whole-bucket loop (B > 32 rows), and
-# phase 2's launches and error of its cases, on l2_distance's entry
+# phase 4's numbers for the whole-bucket paths (B > 32 rows) of l2_distance
+# and of distance_topk, and phase 2's launches and error of their cases, on
+# each kernel's entry
 WIDE_KEYS = ("wide_shape", "wide_ms", "wide_kernel_ms", "wide_plain_ms",
              "wide_library_ms", "wide_bound_ms", "wide_bound_by",
              "wide_launches", "wide_max_abs_err")
 WIDE_M = 49_999        # phase 2's points a shard for the whole-bucket cases
 WIDE_TIMING = (128, 1 << 17, 1024)      # phase 4's (B, m a shard, d)
+# distance_topk's whole-bucket cases: phase 2's (m a shard, d, l), phase
+# 4's reduced deep1b step (B, m a shard, d, l)
+DTK_WIDE = (65_536, 96, 100)
+DTK_WIDE_TIMING = (128, 1 << 20, 96, 100)
 # phase 4's extra numbers for local_topk: the long row's two passes and the
 # merge of distance_topk's partials (the selection path's shape)
 LTK_KEYS = ("first_pass_ms", "merge_pass_ms", "long_row_plan", "merge_ms",
@@ -531,7 +542,11 @@ def phase_kernels(dev, results):
     results["l2_wide"] = dict(launches=wide_launches, max_abs_err=wide_err)
 
     # distance_topk: main shape, l at 1/255/256, ragged, l > m, ties,
-    # random valid mask, all-invalid, bf16
+    # random valid mask, all-invalid, bf16; then the whole-bucket path
+    # (B > 32) at deep1b's width, each call one distance_topk_wide launch
+    # and the 32-row kernel's calls none
+    dwm, dwd, dwl = DTK_WIDE
+    dtk_wide_err, dtk_wide_launches = 0.0, 0
     cases = [(B, K, M, DIM, L, torch.float32, None),
              (13, 1, 777, 300, 1, torch.float32, None),
              (13, 1, 777, 300, 255, torch.float32, None),
@@ -542,7 +557,10 @@ def phase_kernels(dev, results):
              (B, K, 65536, DIM, L, torch.bfloat16, None),
              (B, K, M, DIM, L, torch.float32, "ties"),
              (B, K, M, DIM, L, torch.float32, "routed"),
-             (B, K, M, DIM, L, torch.bfloat16, "routed")]
+             (B, K, M, DIM, L, torch.bfloat16, "routed")] + [
+        (b, K, dwm, dwd, dwl, dt, mode) for b in (128, 64)
+        for mode in (None, "routed")
+        for dt in (torch.float32, torch.bfloat16)]
     for (b, k, m, d, l, dt, mode) in cases:
         q = randn(b, d, dtype=dt)
         if mode == "ties":
@@ -557,8 +575,17 @@ def phase_kernels(dev, results):
             valid = torch.zeros((k, m), dtype=torch.bool, device=dev)
         elif mode == "routed":
             valid = routed_mask(k, m, dev)
+        n0, w0 = dtk.COUNT.n, dtk.COUNT_WIDE.n
         v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
         torch.cuda.synchronize()
+        want_wide = int(dtk.row_tile(b, d, l, p.element_size())
+                        > dtk.QUERY_TILE)
+        if (dtk.COUNT.n - n0, dtk.COUNT_WIDE.n - w0) != (1, want_wide):
+            raise PhaseError(f"distance_topk {(b, k, m, d, l, dt, mode)}: "
+                             f"{dtk.COUNT.n - n0} launches, "
+                             f"{dtk.COUNT_WIDE.n - w0} of the whole-bucket "
+                             f"path; want 1, {want_wide}")
+        dtk_wide_launches += want_wide
         rv, ri = dtk.distance_topk_plain(q, p, l, valid=valid)
         full = (ref.l2_distance_ref(q, p) if valid is None
                 else ref.masked_l2_distance_ref(q, p, valid))
@@ -586,9 +613,14 @@ def phase_kernels(dev, results):
                 raise PhaseError("a masked point surfaced")
         errs["distance_topk"] = max(errs["distance_topk"], err)
         main_err.setdefault("distance_topk", err)
+        if want_wide:
+            dtk_wide_err = max(dtk_wide_err, err)
         log(f"  distance_topk B={b} k={k} m={m} d={d} l={l} {dt} "
-            f"{mode or ''}: max abs {err:.3g}")
+            f"{mode or ''}: max abs {err:.3g}"
+            + (" (whole-bucket path)" if want_wide else ""))
         del full
+    results["dtk_wide"] = dict(launches=dtk_wide_launches,
+                               max_abs_err=dtk_wide_err)
 
     # local_topk: the gather path's two shapes, l seam, ties, bf16, rows
     # no multiple of 4 (8 in bf16) long and short, negative values with
@@ -4478,6 +4510,55 @@ def wide_timing(t, dev, results):
     torch.cuda.empty_cache()
 
 
+def dtk_wide_timing(t, dev, results):
+    """Phase 4 for distance_topk's whole-bucket path at a reduced deep1b
+    step (``DTK_WIDE_TIMING``: B = 128, 8 shards of 2^20 unit rows, d =
+    96, l = 100), into distance_topk's timing ``t``: first its values and
+    ids against the 32-row kernel's on the bucket's 32-row slices
+    (``torch.equal``), then the call (the launch and its merge), the
+    kernel alone, the plain version and ``cdist`` + ``topk`` beside the
+    bound: max(points and queries bytes / 3.35 TB/s, 2 B k m d / 67
+    TFLOP/s)."""
+    import torch
+    from repro_torch.kernels import distance_topk as dtk
+    b, m, d, l = DTK_WIDE_TIMING
+    g = torch.Generator(device=dev)
+    g.manual_seed(30)
+    q = torch.randn((b, d), generator=g, device=dev)
+    q /= q.norm(dim=-1, keepdim=True)
+    p = torch.randn((K, m, d), generator=g, device=dev)
+    p /= p.norm(dim=-1, keepdim=True)
+    v, i = dtk.distance_topk_cuda(q, p, l)
+    parts = [dtk.distance_topk_cuda(q[r:r + dtk.QUERY_TILE], p, l)
+             for r in range(0, b, dtk.QUERY_TILE)]
+    torch.cuda.synchronize()
+    if not (torch.equal(v, torch.cat([x for x, _ in parts], dim=1))
+            and torch.equal(i, torch.cat([x for _, x in parts], dim=1))):
+        raise PhaseError(f"distance_topk at {(b, K, m, d, l)}: the "
+                         f"whole-bucket path differs from the 32-row kernel")
+    del v, i, parts
+    qk = q.expand(K, b, d)
+    b_ms, by = bound(4 * (b * d + K * m * d), 2 * b * K * m * d)
+    kern = lambda: dtk.distance_topk_cuda(q, p, l)            # noqa: E731
+    t.update(wide_shape=[b, K, m, d, l], wide_ms=time_ms(kern, 10),
+             wide_kernel_ms=device_ms(kern, "distance_topk_wide_kernel",
+                                      iters=10),
+             wide_plain_ms=time_ms(lambda: dtk.distance_topk_plain(q, p, l),
+                                   2),
+             wide_library_ms=time_ms(
+                 lambda: torch.cdist(qk, p).topk(l, largest=False), 2),
+             wide_bound_ms=b_ms, wide_bound_by=by,
+             wide_launches=results["dtk_wide"]["launches"],
+             wide_max_abs_err=results["dtk_wide"]["max_abs_err"])
+    log(f"  distance_topk whole-bucket path at {(b, K, m, d, l)}: "
+        f"{t['wide_ms']:.4f} ms (kernel alone {t['wide_kernel_ms']}, plain "
+        f"{t['wide_plain_ms']:.4f}, library {t['wide_library_ms']:.4f}, "
+        f"bound {b_ms:.6f} by {by}); values and ids equal to the 32-row "
+        f"kernel's")
+    del q, p, qk
+    torch.cuda.empty_cache()
+
+
 def phase_profile(dev, gpu, results):
     """Where one full bucket's time goes: torch.profiler over one
     query_batch of 32 requests per sampler, after warm-up, beside the
@@ -4921,6 +5002,7 @@ def phase_timing(dev, results):
         f"launch and readback alone {rtm['routing_readback_ms']} ms")
     lm_timing(timing, dev, results)
     wide_timing(timing["l2_distance"], dev, results)
+    dtk_wide_timing(timing["distance_topk"], dev, results)
     results["timing"] = timing
 
 

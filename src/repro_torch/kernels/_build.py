@@ -43,6 +43,9 @@ SIGNATURES = {
     "knn_local_topk_blocks_per_sm": ([_I] * 4 + [_PI], _I),
     # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, dtype; stream
     "knn_distance_topk": ([_P] * 6 + [_I] * 7 + [_P], _I),
+    # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, dtype,
+    # row_tile, groups, cand; stream
+    "knn_distance_topk_wide": ([_P] * 6 + [_I] * 10 + [_P], _I),
     # q, ls, ops, rows_in, rows_out, idx_out, unions; B, dim, k, m, r, kb,
     # mode; slack1, errc, oversample; stream
     "knn_route_index_mask": ([_P] * 7 + [_I] * 7 + [_F] * 3 + [_P], _I),

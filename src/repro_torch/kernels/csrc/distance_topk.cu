@@ -10,31 +10,45 @@
 // blocks becomes a second pass: the points of every shard are cut into
 // the same chunks, a persistent block per (chunk, query tile) walks its
 // chunk in each of the k shards in turn (shard (chunk + i) % k at step
-// i), writes each chunk's top-l as a partial (k, B, chunks, l), and the
+// i), writes each chunk's top-l as a partial (k, B, chunks, W), and the
 // wrapper merges the partials with the local_topk kernel, ids carried.
 // Because every block visits every shard, a valid mask that leaves one
 // shard of k alive leaves every block 1/k of its work: routed-away
 // shards cost a vote on their flags, not a walk.
 //
 // What bounds it on an H100: it reads the points once (4*k*m*d bytes)
-// and does 2*B*k*m*d FLOPs; at B = 32, d = 64 that is 16 FLOP per byte,
-// under the f32 SIMT ridge of about 20, so it is bound by bytes (the
-// distance tiles never leave the chip), with the FMAs close behind.
+// and does 2*B*k*m*d FLOPs, B/2 FLOP per byte of points.  At B = 32, d =
+// 64 that is 16 FLOP per byte, under the f32 SIMT ridge of about 20, so
+// it is bound by bytes (the distance tiles never leave the chip), with
+// the FMAs close behind.  At deep1b's step (B = 128, d = 96, l = 100:
+// 2 * 128 * 96 / (96 * 4) = 64 FLOP per byte) it is bound by the f32
+// FMAs.
 //
-// Design: the distance main loop of distance_tile.cuh (queries resident,
-// a 4-slab cp.async ring of 64-point tiles, 4 x 4 register tiles, |p|^2
-// once per point, dead tiles skipped by a block vote).  Each query row
-// keeps a sorted running region of up to l entries and a candidate area
-// in shared memory (S = pow2 >= l + 64 slots); a distance becomes a
-// candidate only if its (value, id) key is below the row's threshold
-// key, the lower of the row's own l-th key and a per-(shard, row) key in
-// device memory that every block lowers with atomicMin: a block's l-th
-// key of a shard bounds the shard's l-th key from above, so points above
-// it can win no slot anywhere.  When a row's candidates could overflow,
-// one warp sorts them into its entries (bitonic, lexicographic: ties to
-// the smaller id; once the sorted run fills half the sort, only the
-// candidates are sorted and one merge pass follows) and refreshes its
-// threshold.  Such a warp merge costs tens of
+// Two paths, chosen by the bucket's shape alone (kernels/distance_topk.py
+// row_tile):
+// - B <= 32, or a bucket whose whole-bucket block does not fit in shared
+//   memory at (d, dtype): this file's kernel, a 32-row query tile;
+// - B > 32: distance_topk_wide.cuh (knn_distance_topk_wide), one block's
+//   tile spanning the bucket (64 or 128 rows) with 8 x 8 register tiles,
+//   one 8-warp block an SM, each point read into shared memory once a
+//   launch, and each row's sorted run kept in its partial in device
+//   memory (L2) beside a small candidate area in shared memory.
+// Both give the same (value, id) lists, bit for bit.
+//
+// Design of the 32-row kernel: the distance main loop of
+// distance_tile.cuh (queries resident, a 4-slab cp.async ring of 64-point
+// tiles, 4 x 4 register tiles, |p|^2 once per point, dead tiles skipped
+// by a block vote).  Each query row keeps a sorted running region of up
+// to l entries and a candidate area in shared memory (S = pow2 >= l + 64
+// slots); a distance becomes a candidate only if its (value, id) key is
+// below the row's threshold key, the lower of the row's own l-th key and
+// a per-(shard, row) key in device memory that every block lowers with
+// atomicMin: a block's l-th key of a shard bounds the shard's l-th key
+// from above, so points above it can win no slot anywhere.  When a row's
+// candidates could overflow, one warp sorts them into its entries
+// (bitonic, lexicographic: ties to the smaller id; once the sorted run
+// fills half the sort, only the candidates are sorted and one merge pass
+// follows) and refreshes its threshold.  Such a warp merge costs tens of
 // thousands of cycles on the card, so a chunk's partial is not merged
 // at its end: the block writes the row's S slots as they stand, and the
 // local_topk pass picks the l smallest of all chunks' slots.  (With one
@@ -43,6 +57,7 @@
 // which is the reference's +inf / id 2^31-1 rule: unfilled slots report
 // (+inf, 2^31-1).
 #include "distance_tile.cuh"
+#include "distance_topk_wide.cuh"
 
 namespace {
 
@@ -326,4 +341,37 @@ extern "C" int knn_distance_topk(const void* q, const void* p,
   }
   return launch(static_cast<const float*>(q), static_cast<const float*>(p),
                 valid, g, out_v, out_i, B, k, m, d, l, chunk, s);
+}
+
+// The whole-bucket path (distance_topk_wide.cuh) for B > 32: row_tile 64
+// or 128 query rows a block; groups 2 (a ring of two whole point tiles)
+// or 3 (of three slabs); cand candidate keys a row in shared memory
+// (<= 128); grid (chunks, ceil(B / row_tile)).  out: (k, B, chunks, l)
+// partials, each the chunk's l smallest ascending, (+inf, 2^31-1) past
+// its points.  chunk must be a multiple of 128.
+extern "C" int knn_distance_topk_wide(const void* q, const void* p,
+                                      const unsigned char* valid, void* gthr,
+                                      float* out_v, int* out_i, int B, int k,
+                                      int m, int d, int l, int chunk,
+                                      int dtype, int row_tile, int groups,
+                                      int cand, void* stream) {
+  namespace tw = knn::topw;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* g = static_cast<unsigned long long*>(gthr);
+  using BF = __nv_bfloat16;
+  const BF *qb = static_cast<const BF*>(q), *pb = static_cast<const BF*>(p);
+  const float *qf = static_cast<const float*>(q),
+              *pf = static_cast<const float*>(p);
+  const bool bf = dtype == knn::kBF16;
+  if (row_tile == 64)
+    return bf ? tw::launch<BF, 64>(qb, pb, valid, g, out_v, out_i, B, k, m,
+                                   d, l, groups, cand, chunk, s)
+              : tw::launch<float, 64>(qf, pf, valid, g, out_v, out_i, B, k,
+                                      m, d, l, groups, cand, chunk, s);
+  if (row_tile == 128)
+    return bf ? tw::launch<BF, 128>(qb, pb, valid, g, out_v, out_i, B, k, m,
+                                    d, l, groups, cand, chunk, s)
+              : tw::launch<float, 128>(qf, pf, valid, g, out_v, out_i, B, k,
+                                       m, d, l, groups, cand, chunk, s);
+  return (int)cudaErrorInvalidValue;
 }

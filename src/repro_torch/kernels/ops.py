@@ -32,7 +32,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._cuda import MAX_L
 
 COUNTERS = {c.name: c for c in (_l2.COUNT, _l2.COUNT_WIDE, _dtk.COUNT,
-                                _ltk.COUNT, _rt.COUNT)}
+                                _dtk.COUNT_WIDE, _ltk.COUNT, _rt.COUNT)}
 
 
 def _path(entry: str, t: torch.Tensor) -> str:
@@ -161,10 +161,13 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     launching anything: ``cuda`` on the card, ``plain`` on the CPU.
 
     On the card, ``dtk_path`` names the distance + top-l step
-    (:func:`fused_topk`): ``"distance_topk"``, with ``dtk_chunk`` the
-    points per chunk and ``dtk_blocks`` its persistent blocks (each walks
-    its chunk in all k shards), or ``"l2+local_topk"`` where the fused
-    kernel does not take ``l``, with ``ltk_passes`` local_topk's passes;
+    (:func:`fused_topk`): ``"distance_topk"``, with ``dtk_tile`` the rows
+    of the query tile it takes for the bucket (32: the 32-row kernel; 64
+    or 128: the whole-bucket path, :func:`distance_topk.row_tile`),
+    ``dtk_chunk`` the points per chunk and ``dtk_blocks`` its persistent
+    blocks (each walks its chunk in all k shards), or ``"l2+local_topk"``
+    where the fused kernel does not take ``l``, with ``ltk_passes``
+    local_topk's passes;
     ``l2_tile`` is the rows of the query tile that l2_distance takes for
     the bucket (32: the 32-row loop; 64 or 128: the whole-bucket loop,
     :func:`l2_distance.row_tiles`), and ``l2_blocks`` the 32-row loop's
@@ -177,13 +180,13 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
     env = {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
-           "k": k, "path": path, "dtk_path": None, "dtk_chunk": None,
-           "dtk_blocks": None, "ltk_passes": None, "l2_tile": None,
-           "l2_blocks": None, "unsupported": None}
+           "k": k, "path": path, "dtk_path": None, "dtk_tile": None,
+           "dtk_chunk": None, "dtk_blocks": None, "ltk_passes": None,
+           "l2_tile": None, "l2_blocks": None, "unsupported": None}
     if path == "plain":
         return env
     fused = fused_topk(l, dim)
-    smem = (_dtk.smem(dim, l, 4) if fused
+    smem = (_dtk.smem_of(bucket_b, dim, l, 4) if fused
             else _l2.smem_of(bucket_b, dim, 4))
     if smem > _l2.SMEM_MAX:
         env["unsupported"] = (f"dim={dim}: {smem} bytes of shared memory a "
@@ -194,10 +197,10 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     env.update(l2_tile=tile, l2_blocks=_l2.BLOCKS_PER_SM * sms
                if tile == _l2.QUERY_TILE else None)
     if fused:
-        chunk = _dtk.chunking(bucket_b, k, m_local, dev)
-        env.update(dtk_path="distance_topk", dtk_chunk=chunk,
-                   dtk_blocks=-(-m_local // chunk)
-                   * -(-bucket_b // _dtk.QUERY_TILE))
+        dtile = _dtk.row_tile(bucket_b, dim, l, 4)
+        chunk = _dtk.chunking(bucket_b, k, m_local, dev, dtile)
+        env.update(dtk_path="distance_topk", dtk_tile=dtile, dtk_chunk=chunk,
+                   dtk_blocks=-(-m_local // chunk) * -(-bucket_b // dtile))
     else:
         env.update(dtk_path="l2+local_topk",
                    ltk_passes=-(-min(l, m_local) // MAX_L))

@@ -241,6 +241,85 @@ def test_distance_kernels_ragged(card, m, B, masked):
     _topk_close(v, i, rv, ri, full)
 
 
+def _dtk_by_slices(q, p, l, valid):
+    """distance_topk's 32-row kernel on the 32-row slices of the queries,
+    joined along the rows."""
+    parts = [dtk.distance_topk_cuda(q[i:i + dtk.QUERY_TILE], p, l,
+                                    valid=valid)
+             for i in range(0, q.shape[0], dtk.QUERY_TILE)]
+    return (torch.cat([v for v, _ in parts], dim=1),
+            torch.cat([i for _, i in parts], dim=1))
+
+
+@pytest.mark.parametrize("km", [(1, 777), (3, 4096), (8, 20000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 10, 100, 256])
+@pytest.mark.parametrize("d", [64, 96, 100, 128])
+@pytest.mark.parametrize("B", [33, 64, 100, 128, 200])
+def test_distance_topk_wide_kernel(card, B, d, l, dtype, km):
+    """The whole-bucket path (B > 32) gives values and ids equal to the
+    32-row kernel run on 32-row slices of the same queries, unmasked,
+    under a random mask, with one shard alive and with none; values
+    within F32 of the plain version, masked points never served.  Every
+    call counts one distance_topk launch; only the B > 32 call counts one
+    of the whole-bucket path."""
+    k, m = km
+    assert dtk.row_tile(B, d, l, 4 if dtype == torch.float32 else 2) > 32
+    q = _randn(card, B, d, seed=B + d + l).to(dtype)
+    p = _randn(card, k, m, d, seed=k * m + d).to(dtype)
+    for mode in (None, "random", "one", "none"):
+        valid = None if mode is None else _mask(card, k, m, mode, seed=B + l)
+        before = (dtk.COUNT.n, dtk.COUNT_WIDE.n)
+        v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
+        torch.cuda.synchronize()
+        assert (dtk.COUNT.n, dtk.COUNT_WIDE.n) == (before[0] + 1,
+                                                   before[1] + 1)
+        sv, si = _dtk_by_slices(q, p, l, valid)
+        assert dtk.COUNT_WIDE.n == before[1] + 1
+        assert torch.equal(v, sv) and torch.equal(i, si), mode
+        rv, _ = dtk.distance_topk_plain(q, p, l, valid=valid)
+        torch.testing.assert_close(v, rv, **F32)
+        fin = torch.isfinite(v)
+        assert bool((i[~fin] == INT32_MAX).all())
+        if valid is not None:
+            live = valid.unsqueeze(1).expand(k, B, m).gather(
+                2, torch.where(fin, i, 0).long())
+            assert bool(live[fin].all())
+
+
+@pytest.mark.parametrize("B,d,l", [(128, 96, 100), (64, 64, 10),
+                                   (200, 100, 256)])
+def test_distance_topk_wide_kernel_ties(card, B, d, l):
+    """Points duplicated within a shard and across shards: equal distances
+    order by id, as the 32-row kernel orders them."""
+    k, m = 4, 6000
+    base = _randn(card, 97, d, seed=d)
+    p = base[torch.arange(m, device=card) % 97].expand(k, m, d).contiguous()
+    q = _randn(card, B, d, seed=B)
+    v, i = dtk.distance_topk_cuda(q, p, l)
+    sv, si = _dtk_by_slices(q, p, l, None)
+    assert torch.equal(v, sv) and torch.equal(i, si)
+    same = v[..., 1:] == v[..., :-1]
+    assert bool((i[..., 1:][same] > i[..., :-1][same]).all())
+    assert torch.equal(v[0], v[3]) and torch.equal(i[0], i[3])
+
+
+def test_distance_topk_wide_kernel_one_chunk(card):
+    """A bucket whose points fit one chunk: the partial is the answer, the
+    l smallest ascending, (+inf, 2**31-1) past the shard's points."""
+    B, k, m, d, l = 128, 2, 90, 96, 100
+    assert -(-m // dtk.chunking(B, k, m, card, 128)) == 1
+    q, p = _randn(card, B, d, seed=1), _randn(card, k, m, d, seed=2)
+    v, i = dtk.distance_topk_cuda(q, p, l)
+    sv, si = _dtk_by_slices(q, p, l, None)
+    assert torch.equal(v, sv) and torch.equal(i, si)
+    assert bool(torch.isinf(v[..., m:]).all())
+    assert bool((i[..., m:] == INT32_MAX).all())
+    assert torch.equal(i[..., :m].sort(-1).values,
+                       torch.arange(m, device=card, dtype=torch.int32)
+                       .expand(k, B, m))
+
+
 @pytest.mark.parametrize("shape,l,launches", [
     ((256, 65536), 128, 2),     # split rows: the first pass + its merge
     ((7, 100003), 64, 2),       # ragged rows, none 16-byte aligned

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import distance_topk as tdtk
 from repro_torch.kernels import l2_distance as tl2
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -233,7 +234,8 @@ def test_l2_distance_row_tile_follows_rows(B, tile, tiles):
 
 
 class _FakeLibrary:
-    """The kernel library's two l2_distance entry points, recorded."""
+    """The kernel library's l2_distance and distance_topk entry points,
+    recorded."""
 
     def __init__(self):
         self.calls = []
@@ -244,6 +246,14 @@ class _FakeLibrary:
 
     def knn_l2_distance_wide(self, *args):
         self.calls.append(("wide", args))
+        return 0
+
+    def knn_distance_topk(self, *args):
+        self.calls.append(("topk32", args))
+        return 0
+
+    def knn_distance_topk_wide(self, *args):
+        self.calls.append(("topk_wide", args))
         return 0
 
 
@@ -315,3 +325,116 @@ def test_envelope_names_the_l2_distance_tile(monkeypatch):
     assert narrow["unsupported"] and narrow["l2_tile"] is None
     cpu = tops.service_envelope(128, 1 << 20, 1024, 1024, k=8, device="cpu")
     assert cpu["l2_tile"] is None
+
+
+@pytest.mark.parametrize("B,d,l,elem,tile", [
+    (1, 96, 100, 4, 32), (8, 896, 8, 4, 32), (32, 96, 256, 4, 32),
+    (33, 96, 100, 4, 64), (64, 96, 1, 4, 64), (64, 128, 100, 2, 64),
+    (65, 96, 100, 4, 128), (128, 96, 100, 4, 128), (128, 96, 256, 2, 128),
+    (200, 100, 10, 4, 128), (128, 128, 100, 4, 128),
+    (128, 512, 64, 4, 32), (64, 300, 100, 4, 32), (128, 896, 8, 4, 32)])
+def test_distance_topk_row_tile_follows_shape(B, d, l, elem, tile):
+    """distance_topk's row tile is a function of (B, d, l, dtype) alone:
+    the 32-row kernel up to 32 rows and where the whole-bucket block does
+    not fit at the width, else 64 up to 64 rows and 128 above."""
+    assert tdtk.row_tile(B, d, l, elem) == tile
+    fits = tdtk.wide_layout(64 if B <= 64 else 128, d, elem) is not None
+    assert (tile > 32) == (B > 32 and fits)
+    if tile > 32:
+        assert tdtk.wide_smem(tile, d, elem) <= tdtk.WIDE_SMEM[tile]
+
+
+@pytest.mark.parametrize("d,elem,groups", [(64, 4, 2), (96, 4, 2),
+                                           (96, 2, 2), (128, 4, 3),
+                                           (256, 4, 3)])
+def test_distance_topk_wide_layout(d, elem, groups):
+    """The 128-row block holds two whole point tiles where they leave at
+    least 64 candidate keys a row (one barrier a tile), else three slabs;
+    its shared memory does not depend on l."""
+    got, cand = tdtk.wide_layout(128, d, elem)
+    assert got == groups
+    assert tdtk.WIDE_MIN_CAND[groups] <= cand <= tdtk.WIDE_MAX_CAND
+    assert tdtk.smem_of(128, d, 1, elem) == tdtk.smem_of(128, d, 256, elem)
+
+
+@pytest.mark.parametrize("B,entry,tile", [
+    (8, "topk32", 32), (32, "topk32", 32), (33, "topk_wide", 64),
+    (64, "topk_wide", 64), (128, "topk_wide", 128), (300, "topk_wide", 128)])
+def test_distance_topk_launches_the_path_of_its_rows(fake_card, B, entry,
+                                                     tile):
+    """B <= 32 calls the 32-row kernel, B > 32 the whole-bucket entry with
+    its row tile, ring groups and candidate keys; chunks follow the path.
+    Every call counts one distance_topk launch, the whole-bucket path's
+    one distance_topk_wide."""
+    k, m, d, l = 2, 3000, 96, 10
+    q, p = torch.zeros(B, d), torch.zeros(k, m, d)
+    before = (tdtk.COUNT.n, tdtk.COUNT_WIDE.n)
+    v, i = tdtk.distance_topk_cuda(q, p, l)
+    assert v.shape == i.shape == (k, B, l)
+    [(name, args)] = fake_card.calls
+    chunk = tdtk.chunking(B, k, m, torch.device("cpu"), tile)
+    assert name == entry and args[6:13] == (B, k, m, d, l, chunk, 0)
+    if entry == "topk_wide":
+        assert args[13:16] == (tile, *tdtk.wide_layout(tile, d, 4))
+        assert chunk % tdtk.WIDE_POINT_TILE == 0
+    assert (tdtk.COUNT.n - before[0], tdtk.COUNT_WIDE.n - before[1]) == (
+        1, int(entry == "topk_wide"))
+
+
+def test_distance_topk_chunking_follows_the_path(monkeypatch):
+    """One 128-row block an SM, two 64-row and two 32-row blocks: chunks
+    x query tiles fill the card's SMs that many times over."""
+    monkeypatch.setattr(tdtk._ltk, "sm_count", lambda index: 132)
+    dev, m = torch.device("cpu"), 15_625_000
+    for B, tile, blocks in [(128, 128, 132), (64, 64, 264), (32, 32, 264),
+                            (128, 32, 264), (256, 128, 132)]:
+        chunk = tdtk.chunking(B, 8, m, dev, tile)
+        assert -(-m // chunk) * -(-B // tile) == blocks
+
+
+@pytest.mark.parametrize("B,d,l,accepted", [
+    (128, 96, 256, True), (8, 96, 256, True), (128, 600, 256, False),
+    (8, 600, 256, False), (128, 600, 8, True)])
+def test_distance_topk_shared_memory_check_by_path(fake_card, B, d, l,
+                                                   accepted):
+    """The shared-memory check applies to the path launched: the
+    whole-bucket block at B > 32 where it fits, else the 32-row kernel's
+    query tile and slots, refused where they do not fit."""
+    tile = tdtk.row_tile(B, d, l, 4)
+    want = (tdtk.smem(d, l, 4) if tile == 32
+            else tdtk.wide_smem(tile, d, 4))
+    assert tdtk.smem_of(B, d, l, 4) == want
+    assert (want <= tl2.SMEM_MAX) == accepted
+    q, p = torch.zeros(B, d), torch.zeros(1, 100, d)
+    if accepted:
+        tdtk.distance_topk_cuda(q, p, l)
+        assert [c[0] for c in fake_card.calls] == [
+            "topk32" if tile == 32 else "topk_wide"]
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            tdtk.distance_topk_cuda(q, p, l)
+        assert fake_card.calls == []
+
+
+def test_envelope_names_the_distance_topk_tile(monkeypatch):
+    """``service_envelope`` reports the row tile distance_topk takes for
+    each bucket and its blocks under that tile; a width whose whole-bucket
+    block does not fit keeps the 32-row kernel; the CPU reports none."""
+    monkeypatch.setattr(tops._ltk, "sm_count", lambda index: 132)
+    card, m = torch.device("cuda"), 1 << 20
+    got = {b: tops.service_envelope(b, m, 96, 100, k=8, device=card)
+           for b in (8, 32, 64, 128)}
+    assert {b: e["dtk_tile"] for b, e in got.items()} == {
+        8: 32, 32: 32, 64: 64, 128: 128}
+    for b, e in got.items():
+        assert e["dtk_chunk"] == tdtk.chunking(b, 8, m, card,
+                                               e["dtk_tile"])
+        assert e["dtk_blocks"] == (-(-m // e["dtk_chunk"])
+                                   * -(-b // e["dtk_tile"]))
+    assert got[128]["dtk_blocks"] <= 132 < got[8]["dtk_blocks"] <= 264
+    wide_d = tops.service_envelope(128, m, 512, 64, k=8, device=card)
+    assert wide_d["dtk_tile"] == 32 and wide_d["unsupported"] is None
+    big_l = tops.service_envelope(128, m, 96, 1024, k=8, device=card)
+    assert big_l["dtk_path"] == "l2+local_topk" and big_l["dtk_tile"] is None
+    cpu = tops.service_envelope(128, m, 96, 100, k=8, device="cpu")
+    assert cpu["dtk_tile"] is None
