@@ -475,6 +475,7 @@ def phase_kernels(dev, results):
     from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import local_topk as ltk
     from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import plan
     from repro_torch.kernels import ref
 
     g = torch.Generator(device=dev)
@@ -511,7 +512,7 @@ def phase_kernels(dev, results):
         n0, w0 = l2.COUNT.n, l2.COUNT_WIDE.n
         out = l2.l2_distance_cuda(q, p, valid=valid)
         torch.cuda.synchronize()
-        want_wide = int(b > l2.QUERY_TILE)
+        want_wide = int(b > plan.QUERY_TILE)
         if (l2.COUNT.n - n0, l2.COUNT_WIDE.n - w0) != (1, want_wide):
             raise PhaseError(f"l2_distance {(b, k, m, d, dt, mode)}: "
                              f"{l2.COUNT.n - n0} launches, "
@@ -578,8 +579,8 @@ def phase_kernels(dev, results):
         n0, w0 = dtk.COUNT.n, dtk.COUNT_WIDE.n
         v, i = dtk.distance_topk_cuda(q, p, l, valid=valid)
         torch.cuda.synchronize()
-        want_wide = int(dtk.row_tile(b, d, l, p.element_size())
-                        > dtk.QUERY_TILE)
+        want_wide = int(plan.topk(b, d, l, p.element_size(), m,
+                                  ltk.sm_count(0)).wide)
         if (dtk.COUNT.n - n0, dtk.COUNT_WIDE.n - w0) != (1, want_wide):
             raise PhaseError(f"distance_topk {(b, k, m, d, l, dt, mode)}: "
                              f"{dtk.COUNT.n - n0} launches, "
@@ -4478,14 +4479,15 @@ def wide_timing(t, dev, results):
     2 B k m d / 67 TFLOP/s)."""
     import torch
     from repro_torch.kernels import l2_distance as l2
+    from repro_torch.kernels import plan
     b, m, d = WIDE_TIMING
     g = torch.Generator(device=dev)
     g.manual_seed(29)
     q = torch.randn((b, d), generator=g, device=dev)
     p = torch.randn((K, m, d), generator=g, device=dev)
     out = l2.l2_distance_cuda(q, p)
-    rows = torch.cat([l2.l2_distance_cuda(q[r:r + l2.QUERY_TILE], p)
-                      for r in range(0, b, l2.QUERY_TILE)], dim=1)
+    rows = torch.cat([l2.l2_distance_cuda(q[r:r + plan.QUERY_TILE], p)
+                      for r in range(0, b, plan.QUERY_TILE)], dim=1)
     torch.cuda.synchronize()
     if not torch.equal(out, rows):
         raise PhaseError(f"l2_distance at {(b, K, m, d)}: the whole-bucket "
@@ -4521,6 +4523,7 @@ def dtk_wide_timing(t, dev, results):
     TFLOP/s)."""
     import torch
     from repro_torch.kernels import distance_topk as dtk
+    from repro_torch.kernels import plan
     b, m, d, l = DTK_WIDE_TIMING
     g = torch.Generator(device=dev)
     g.manual_seed(30)
@@ -4529,8 +4532,8 @@ def dtk_wide_timing(t, dev, results):
     p = torch.randn((K, m, d), generator=g, device=dev)
     p /= p.norm(dim=-1, keepdim=True)
     v, i = dtk.distance_topk_cuda(q, p, l)
-    parts = [dtk.distance_topk_cuda(q[r:r + dtk.QUERY_TILE], p, l)
-             for r in range(0, b, dtk.QUERY_TILE)]
+    parts = [dtk.distance_topk_cuda(q[r:r + plan.QUERY_TILE], p, l)
+             for r in range(0, b, plan.QUERY_TILE)]
     torch.cuda.synchronize()
     if not (torch.equal(v, torch.cat([x for x, _ in parts], dim=1))
             and torch.equal(i, torch.cat([x for _, x in parts], dim=1))):

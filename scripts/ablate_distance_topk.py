@@ -54,8 +54,8 @@ CU, WIDE = "distance_topk.cu", "distance_topk_wide.cuh"
 INS = "        if (key_of(dist, nl0 + j) < th) {"
 POS = "          const int pos = run[r] + atomicAdd(&cnt[r], 1);"
 COUNT = [
-    ("using Key = unsigned long long;",
-     "using Key = unsigned long long;\n__device__ unsigned long long dbg[8];"),
+    ("using knn::Key;",
+     "using knn::Key;\n__device__ unsigned long long dbg[8];"),
     ("}  // namespace\n\n// q: (B, d)",
      '}  // namespace\nextern "C" int knn_dbg(unsigned long long* h) {\n'
      "  cudaMemcpyFromSymbol(h, dbg, 64);\n"
@@ -181,6 +181,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import distance_topk as dtk
     from repro_torch.kernels import local_topk as ltk
+    from repro_torch.kernels import plan
     nvcc = _build.find_nvcc()
     variants = dict(VARIANTS, **{n: EXTRA[n] for n in args.extra})
     procs = {n: build(n, p, nvcc) for n, p in variants.items()}
@@ -208,26 +209,22 @@ def main() -> int:
         K, M, _ = p.shape
         runs = {}
         for path in paths:
-            tile = dtk.QUERY_TILE if path == "32-row" else dtk.row_tile(
-                B, D, L, 4)
-            chunk = dtk.chunking(B, K, M, dev, tile)
-            nch = -(-M // chunk)
-            width = (L if nch == 1 or tile != dtk.QUERY_TILE
-                     else dtk.slots(L))
-            pv = torch.empty((K * B, nch, width), device=dev)
-            pi = torch.empty((K * B, nch, width), dtype=torch.int32,
-                             device=dev)
+            tp = plan.topk(B, D, L, 4, M, ltk.sm_count(0), tile=(
+                plan.QUERY_TILE if path == "32-row" else None))
+            shape = (K * B, tp.nchunks, tp.width)
+            pv = torch.empty(shape, device=dev)
+            pi = torch.empty(shape, dtype=torch.int32, device=dev)
             gthr = torch.empty((K, B), dtype=torch.int64, device=dev)
-            runs[path] = (tile, chunk, nch, pv, pi, gthr)
+            runs[path] = (tp, pv, pi, gthr)
 
         def launch(lib, path, v):
-            tile, chunk, nch, pv, pi, gthr = runs[path]
+            tp, pv, pi, gthr = runs[path]
             gthr.fill_(dtk.INF_KEY)
             a = (q.data_ptr(), p.data_ptr(), v, gthr.data_ptr(),
-                 pv.data_ptr(), pi.data_ptr(), B, K, M, D, L, chunk, 0)
+                 pv.data_ptr(), pi.data_ptr(), B, K, M, D, L, tp.chunk, 0)
             rc = (lib.knn_distance_topk(*a, stream) if path == "32-row"
                   else lib.knn_distance_topk_wide(
-                      *a, tile, *dtk.wide_layout(tile, D, 4), stream))
+                      *a, tp.tile, tp.groups, tp.cand, stream))
             if rc:
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
 
@@ -246,11 +243,11 @@ def main() -> int:
             return sorted(ts)[len(ts) // 2]
 
         for path in paths:
-            tile, chunk, nch, *_ = runs[path]
-            blocks = nch * -(-B // tile)
+            tp = runs[path][0]
+            blocks = tp.blocks
             print(f"{label} {path}: B={B} k={K} m={M} d={D} l={L}, tile "
-                  f"{tile}, chunk {chunk}, {nch} chunks, {blocks} blocks",
-                  flush=True)
+                  f"{tp.tile}, chunk {tp.chunk}, {tp.nchunks} chunks, "
+                  f"{blocks} blocks", flush=True)
             for n, lib in libs.items():
                 for mlabel, v in masks:
                     line = (f"  {n} {mlabel}: "
@@ -287,7 +284,7 @@ def main() -> int:
             got = []
             for path in paths:
                 launch(libs["base"], path, None)
-                _, _, _, pv, pi, _ = runs[path]
+                _, pv, pi, _ = runs[path]
                 got.append(ltk.merge_partials(pv, pi, L))
             same = all(torch.equal(a, b) for a, b in zip(*got))
             print(f"{label}: the two paths' merged answers torch.equal: "

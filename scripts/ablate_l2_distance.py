@@ -92,8 +92,8 @@ def main(argv=None) -> int:
         print("ablate: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
-    from repro_torch.kernels import l2_distance as l2
     from repro_torch.kernels import local_topk as ltk
+    from repro_torch.kernels import plan
     nvcc = _build.find_nvcc()
     procs = {n: build(n, VARIANTS[n], nvcc)
              for n in dict.fromkeys(args.variants)}
@@ -116,7 +116,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device=dev)
-    blocks = l2.BLOCKS_PER_SM * ltk.sm_count(0)
+    sms = ltk.sm_count(0)
+    blocks = plan.L2_BLOCKS_PER_SM * sms
     p = None
     for B, k, m, d in SHAPES:
         if p is None or p.shape != (k, m, d):
@@ -128,6 +129,7 @@ def main(argv=None) -> int:
         ref = torch.empty((k, B, m), device=dev)
         out = torch.empty_like(ref)
         a = (q.data_ptr(), p.data_ptr(), None)
+        tile = plan.l2(B, d, 4, sms).tile
         rc = libs[args.variants[0]].knn_l2_distance(
             *a, ref.data_ptr(), B, k, m, d, 0, blocks, stream)
         assert rc == 0, rc
@@ -140,8 +142,7 @@ def main(argv=None) -> int:
                 e = torch.cuda.Event(enable_timing=True)
                 s.record()
                 rc = lib.knn_l2_distance_wide(*a, out.data_ptr(), B, k, m,
-                                              d, 0, l2.row_tiles(B)[0],
-                                              stream)
+                                              d, 0, tile, stream)
                 e.record()
                 torch.cuda.synchronize()
                 assert rc == 0, (n, rc)

@@ -38,8 +38,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.kernels import _build, _cuda  # noqa: E402
-from repro_torch.kernels import l2_distance as l2  # noqa: E402
 from repro_torch.kernels import local_topk as ltk  # noqa: E402
+from repro_torch.kernels import plan  # noqa: E402
 
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 M = 1_612_899
@@ -50,8 +50,9 @@ SHAPES = [(128, 8, M, 1024), (64, 8, M, 1024), (128, 8, M, 96),
 
 def wide_tile(B: int) -> int:
     """The whole-bucket loop's row tile for ``B`` rows: the wrapper's,
-    or 64, its smallest, where the wrapper takes the 32-row loop."""
-    return max(l2.row_tiles(B)[0], 64)
+    or 64, its smallest, where the wrapper takes the 32-row loop (the tile
+    is B's alone: any width, element size and SM count give it)."""
+    return max(plan.l2(B, 64, 4, 1).tile, 64)
 
 
 def launch(lib, wide: bool, q, p, out):
@@ -62,7 +63,7 @@ def launch(lib, wide: bool, q, p, out):
     if wide:
         rc = lib.knn_l2_distance_wide(*args, wide_tile(B), stream)
     else:
-        blocks = l2.BLOCKS_PER_SM * ltk.sm_count(q.device.index or 0)
+        blocks = plan.L2_BLOCKS_PER_SM * ltk.sm_count(q.device.index or 0)
         rc = lib.knn_l2_distance(*args, blocks, stream)
     _cuda.ok("l2_distance", rc)
 
@@ -133,7 +134,8 @@ def main(argv=None) -> int:
         nbytes = 4.0 * (k * m * d + B * d + k * B * m)
         bound = 1e3 * max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
         row = {"B": B, "k": k, "m": m, "d": d, "row_tile": wide_tile(B),
-               "wrapper_tile": l2.row_tiles(B)[0], "bit_equal": equal,
+               "wrapper_tile": plan.l2(B, d, 4, 1).tile,
+               "bit_equal": equal,
                "bound_ms": bound, "loop32_ms": times[False],
                "wide_ms": times[True],
                "loop32_ms_median": statistics.median(times[False]),

@@ -1,6 +1,5 @@
-// Shared pieces of the port's Hopper kernels: composite (value, id) keys,
-// load-time conversion to f32, and a bitonic sort of (value, id) pairs in
-// shared memory for a cooperating group of threads (a block or a warp).
+// Shared pieces of the port's Hopper kernels: (value, id) order, the
+// distance key, load-time conversion to f32 and the cp.async copies.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,36 +23,43 @@ __device__ __forceinline__ bool key_lt(float av, int ai, float bv, int bi) {
   return av < bv || (av == bv && ai < bi);
 }
 
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-struct WarpSync {
-  __device__ __forceinline__ void operator()() const { __syncwarp(); }
-};
+// A distance (value, id) as one key of the distance kernels: the value's
+// bits above the id.  Distances are >= +0, so the key order is key_lt's.
+// INF_KEY is (+inf, 2^31 - 1), the key of an empty slot; the wrappers'
+// INF_KEY (kernels/distance_topk.py) equals it.  local_topk.cu keys signed
+// values, with an order-preserving map of the bits: another format.
+using Key = unsigned long long;
+constexpr Key INF_KEY = 0x7F8000007FFFFFFFull;
 
-// Sorts the first n (a power of two) pairs of (v, ix) ascending by key.
-// Threads tid in [0, nthreads) cooperate; every one of them must call it,
-// and the caller synchronises before the call.  Ends with a sync.
-template <typename Sync>
-__device__ void bitonic_sort(float* v, int* ix, int n, int tid, int nthreads,
-                             Sync sync) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = tid; t < (n >> 1); t += nthreads) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int p = i + j;
-        const bool up = (i & k) == 0;
-        const float vi = v[i], vp = v[p];
-        const int ii = ix[i], ip = ix[p];
-        const bool swap = up ? key_lt(vp, ip, vi, ii) : key_lt(vi, ii, vp, ip);
-        if (swap) {
-          v[i] = vp; v[p] = vi;
-          ix[i] = ip; ix[p] = ii;
-        }
-      }
-      sync();
-    }
-  }
+__device__ __forceinline__ Key key_of(float v, int i) {
+  return (static_cast<Key>(__float_as_uint(v)) << 32) |
+         static_cast<unsigned>(i);
+}
+__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
+
+// 16-byte cp.async copies into shared memory, one commit group each call
+// of cp_async_commit: with a source size (bytes < 16 zero-fill the rest),
+// or whole.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 inline int next_pow2(int x) {

@@ -122,20 +122,6 @@ __device__ inline Lane lane_of(int tid) {
 
 __device__ inline int swz(int p, int c) { return c ^ ((p >> 2) & 7); }
 
-__device__ inline void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ inline void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 template <typename T>
 __device__ inline T zero_of();
 template <>
@@ -304,20 +290,22 @@ __device__ __forceinline__ float dist_of(float qn, float acc, float pn) {
 
 // The first tile from g0 on (in the walk's order) with a valid point, or
 // -1; the walk's dead() runs for each tile skipped.  One vote covers the
-// WIN = NT / 4 tiles g0 .. g0 + WIN - 1: four threads a tile, each
-// testing 16 flags, ballots per warp, the first live tile read from
-// shared memory.  All threads call it.
-template <typename Walk>
-__device__ int skip_dead(const Shared& sm,
-                         const unsigned char* __restrict__ valid, Walk& w,
-                         int g0) {
-  constexpr int WIN = NT / 4;
+// WIN = NT / TPT tiles g0 .. g0 + WIN - 1: TPT threads a tile (4 for a
+// tile of 64 points, 8 for 128), each testing 16 flags of the tile's
+// range [start(g), end(g)), ballots per warp into vote[NT / 32], the
+// first live tile read from shared memory.  All NT threads call it.
+template <int NT, int TPT, typename Walk>
+__device__ int skip_dead(unsigned* vote,
+                         const unsigned char* __restrict__ valid,
+                         const Walk& w, int g0) {
+  static_assert(TPT == 4 || TPT == 8, "four or eight threads a tile");
+  constexpr int WIN = NT / TPT, LOG = TPT == 8 ? 3 : 2;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   while (g0 >= 0) {
-    const int g = w.step(g0, tid >> 2);
+    const int g = w.step(g0, tid >> LOG);
     int live = 0;
     if (g >= 0) {
-      const long long n = w.start(g) + (tid & 3) * 16, e = w.end(g);
+      const long long n = w.start(g) + (tid & (TPT - 1)) * 16, e = w.end(g);
       const unsigned char* f = valid + n;
       if (n + 16 <= e && (reinterpret_cast<size_t>(f) & 15) == 0) {
         const uint4 v = *reinterpret_cast<const uint4*>(f);
@@ -327,13 +315,13 @@ __device__ int skip_dead(const Shared& sm,
       }
     }
     const unsigned bal = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) sm.vote[warp] = bal;
+    if (lane == 0) vote[warp] = bal;
     __syncthreads();
     int first = WIN;
     for (int v = 0; v < NT / 32; ++v) {
-      const unsigned b = sm.vote[v];
+      const unsigned b = vote[v];
       if (b != 0) {
-        first = v * 8 + ((__ffs(b) - 1) >> 2);
+        first = v * (32 / TPT) + ((__ffs(b) - 1) >> LOG);
         break;
       }
     }
@@ -369,7 +357,7 @@ __device__ void stream(const Shared& sm, const T* __restrict__ p, int d,
 
   auto produce = [&](int stage) {
     if (pk == 0 && valid != nullptr && ptile >= 0)
-      ptile = skip_dead(sm, valid, w, ptile);
+      ptile = skip_dead<NT, 4>(sm.vote, valid, w, ptile);
     if (ptile >= 0) {
       copy_slab<T>(sm.ring + stage * SLAB_BYTES, p, w.start(ptile),
                    w.end(ptile), pk * BK, d, async);

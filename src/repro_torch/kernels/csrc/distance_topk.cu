@@ -24,11 +24,9 @@
 // 2 * 128 * 96 / (96 * 4) = 64 FLOP per byte) it is bound by the f32
 // FMAs.
 //
-// Two paths, chosen by the bucket's shape alone (kernels/distance_topk.py
-// row_tile):
-// - B <= 32, or a bucket whose whole-bucket block does not fit in shared
-//   memory at (d, dtype): this file's kernel, a 32-row query tile;
-// - B > 32: distance_topk_wide.cuh (knn_distance_topk_wide), one block's
+// Two paths; kernels/plan.py says which a bucket takes:
+// - this file's kernel, a 32-row query tile;
+// - distance_topk_wide.cuh (knn_distance_topk_wide), one block's
 //   tile spanning the bucket (64 or 128 rows) with 8 x 8 register tiles,
 //   one 8-warp block an SM, each point read into shared memory once a
 //   launch, and each row's sorted run kept in its partial in device
@@ -64,15 +62,9 @@ namespace {
 using namespace knn::tile;
 constexpr int NW = NT / 32;
 
-using Key = unsigned long long;
-
-// (value, id) as one key: value bits above the id.  Values are >= +0, so
-// the key order is the lexicographic (value, id) order of the reference.
-__device__ __forceinline__ Key key_of(float v, int i) {
-  return (static_cast<Key>(__float_as_uint(v)) << 32) |
-         static_cast<unsigned>(i);
-}
-__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
+using knn::Key;
+using knn::key_of;
+using knn::kmin;
 
 inline int slots(int l) { return knn::next_pow2(l + TN); }
 

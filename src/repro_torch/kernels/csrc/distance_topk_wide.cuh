@@ -84,8 +84,6 @@ using tile::ROW_BYTES;
 using wide::Quad;
 using wide::Role;
 
-using Key = unsigned long long;
-constexpr Key INF_KEY = 0x7F8000007FFFFFFFull;   // (+inf, 2^31 - 1)
 constexpr unsigned FULL = 0xffffffffu;
 
 constexpr int PT = 128;          // points per tile
@@ -96,7 +94,6 @@ template <int RT>
 struct Shape {
   static constexpr int NT = 2 * RT;            // threads a block
   static constexpr int NW = NT / 32;           // warps a block
-  static constexpr int WIN = NT / 8;           // tiles a dead-tile vote
   // one 8-warp block an SM at RT = 128, two 4-warp blocks at RT = 64
   static constexpr int MIN_BLOCKS = RT == 128 ? 1 : 2;
 };
@@ -147,11 +144,6 @@ struct Smem {
   }
 };
 
-__device__ __forceinline__ Key key_of(float v, int i) {
-  return (static_cast<Key>(__float_as_uint(v)) << 32) |
-         static_cast<unsigned>(i);
-}
-__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
 __device__ __forceinline__ Key kmax(Key a, Key b) { return a < b ? b : a; }
 
 // One stage (k, j) of a bitonic network over the N = 32 E keys of a warp,
@@ -351,6 +343,7 @@ struct Walk {
   __device__ long long end(int g) const {
     return (long long)shard(g / tpc) * m + c1;
   }
+  __device__ void dead(int) const {}
   __device__ int row(int i) const {
     return ro.r0 + (i & 3) + RT / 2 * (i >> 2);
   }
@@ -494,46 +487,6 @@ struct Walk {
   }
 };
 
-// The first tile from g0 on (in the walk's order) with a valid point, or
-// -1.  One vote covers WIN tiles: eight threads a tile, each testing 16
-// flags.  All threads call it.
-template <int RT>
-__device__ int skip_dead(unsigned* vote,
-                         const unsigned char* __restrict__ valid,
-                         const Walk<RT>& w, int g0) {
-  constexpr int NT = Shape<RT>::NT, WIN = Shape<RT>::WIN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  while (g0 >= 0) {
-    const int g = w.step(g0, tid >> 3);
-    int live = 0;
-    if (g >= 0) {
-      const long long n = w.start(g) + (tid & 7) * 16, e = w.end(g);
-      const unsigned char* f = valid + n;
-      if (n + 16 <= e && (reinterpret_cast<size_t>(f) & 15) == 0) {
-        const uint4 v = *reinterpret_cast<const uint4*>(f);
-        live = (v.x | v.y | v.z | v.w) != 0;
-      } else {
-        for (int x = 0; x < 16 && n + x < e; ++x) live |= f[x] != 0;
-      }
-    }
-    const unsigned bal = __ballot_sync(FULL, live);
-    if (lane == 0) vote[warp] = bal;
-    __syncthreads();
-    int first = WIN;
-    for (int v = 0; v < NT / 32; ++v) {
-      const unsigned b = vote[v];
-      if (b != 0) {
-        first = v * 4 + ((__ffs(b) - 1) >> 3);
-        break;
-      }
-    }
-    __syncthreads();
-    g0 = w.step(g0, first);
-    if (first < WIN) break;
-  }
-  return g0;
-}
-
 template <typename T, int RT>
 __global__ void __launch_bounds__(Shape<RT>::NT, Shape<RT>::MIN_BLOCKS)
 distance_topk_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
@@ -566,8 +519,8 @@ distance_topk_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
   for (int kk = 0; kk < nk; ++kk)
     wide::copy_rows<T, RT, S::NT, ROW_BYTES>(sm.q() + kk * RT * ROW_BYTES, q,
                                              b0, B, kk * BK, d, aq);
-  tile::cp_async_commit();
-  tile::cp_async_wait<0>();
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
   if (tid < RT) {
     const int nq = wide::norm_index(tid);
@@ -587,7 +540,7 @@ distance_topk_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
 #pragma unroll 1
     for (int gs = 0; gs < G; ++gs) {
       if (pk == 0 && valid != nullptr && ptile >= 0)
-        ptile = skip_dead<RT>(sm.vote(), valid, w, ptile);
+        ptile = tile::skip_dead<S::NT, 8>(sm.vote(), valid, w, ptile);
       if (ptile < 0) break;
       if (pk == 0) {
         pstart = w.start(ptile);
@@ -604,7 +557,7 @@ distance_topk_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
       }
     }
     issued += any;
-    tile::cp_async_commit();
+    cp_async_commit();
   };
 
   for (int s = 0; s < ng - 1; ++s) produce(s);
@@ -622,9 +575,9 @@ distance_topk_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
   for (int u = 0; u < issued; ++u) {
     // the group u in: ng - 2 groups may stay in flight
     if (ng == 2)
-      tile::cp_async_wait<0>();
+      cp_async_wait<0>();
     else
-      tile::cp_async_wait<1>();
+      cp_async_wait<1>();
     __syncthreads();
     const int slot = u % ng;
     const int g = sm.group_tile()[slot];
@@ -651,7 +604,7 @@ distance_topk_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
       }
     }
   }
-  tile::cp_async_wait<0>();
+  cp_async_wait<0>();
   __syncthreads();
   if (pend >= 0) w.epilogue(pend, acc, sm.pnp() + (buf ^ 1) * nk * PT);
   w.advance_to(k);

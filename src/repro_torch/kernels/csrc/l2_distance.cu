@@ -16,15 +16,15 @@
 // service's large buckets (B = 128, d = 1,024: 64 FLOP per byte of
 // points) it is bound by the f32 FMAs.
 //
-// Two main loops, chosen by B alone:
-// - B <= 32: the shared distance main loop of distance_tile.cuh (queries
+// Two main loops; kernels/plan.py says which a bucket takes:
+// - the shared distance main loop of distance_tile.cuh (queries
 //   resident in shared memory, a 4-slab cp.async ring of point tiles,
 //   4 x 4 register tiles, |p|^2 once per point, dead tiles skipped by a
 //   block vote) under a persistent grid: a multiple of the SM count of
 //   blocks per query tile, block x walking point tiles x, x + gridDim.x,
 //   ...  Its 32 x d query tile grows with d (131.6 KB at d = 1,024, one
 //   4-warp block an SM), and each query tile's blocks sweep all the points.
-// - B > 32: l2_distance_wide.cuh, one block's tile spanning the bucket (64
+// - l2_distance_wide.cuh, one block's tile spanning the bucket (64
 //   or 128 rows) with queries and points streamed along d through one
 //   ring: shared memory that does not grow with d, 8 x 8 register tiles
 //   with up to 255 registers a thread, each point byte read from device

@@ -161,7 +161,7 @@ __device__ __forceinline__ void copy_rows(char* slab,
 #pragma unroll
     for (int i = 0; i < ROWS / STEP; ++i) {
       const bool in = n0 + i * STEP < r_end && kk < d;
-      tile::cp_async16(
+      cp_async16(
           d0 + i * STEP * ROW + (tile::swz(row0 + i * STEP, c % CHUNKS) << 4),
           in ? s0 + (long long)i * STEP * d : src, in ? 16 : 0);
     }
@@ -335,7 +335,9 @@ struct Walk {
 // The first item from g0 on (in the walk's order) whose point tile has a
 // valid point, or -1; dead() runs for each item skipped.  One vote covers
 // WIN items: eight threads an item, each testing 16 flags.  All threads
-// call it.
+// call it.  distance_tile.cuh's skip_dead in this loop's own terms: the
+// shared template gave two of its instances more registers (bf16 x 128
+// rows 173 -> 176, f32 x 64 rows 162 -> 164).
 template <int RT>
 __device__ int skip_dead(unsigned* vote,
                          const unsigned char* __restrict__ valid,
@@ -416,7 +418,7 @@ l2_distance_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
         item = w.next(item);
       }
     }
-    tile::cp_async_commit();
+    cp_async_commit();
   };
 
   for (int s = 0; s < STAGES - 1; ++s) produce(s);
@@ -427,7 +429,7 @@ l2_distance_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   int ck = 0, buf = 0, pend = -1;
   for (int u = 0; u < issued; ++u) {
-    tile::cp_async_wait<STAGES - 2>();
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
     const int stage = u % STAGES;
     const int g = slab_item[stage];
@@ -473,7 +475,7 @@ l2_distance_wide_kernel(const T* __restrict__ q, const T* __restrict__ p,
       buf ^= 1;
     }
   }
-  tile::cp_async_wait<0>();
+  cp_async_wait<0>();
   __syncthreads();
   if (pend >= 0) w.epilogue(pend, acc, qn_s + (buf ^ 1) * RT,
                             pn_s + (buf ^ 1) * PT);

@@ -54,7 +54,9 @@
 // Keys order exactly as knn::key_lt: the float's bits under the
 // order-preserving map (all bits flipped when the sign is set, else the
 // sign bit) above the id, with -0.0 folded to +0.0 first, so equal values
-// tie to the smaller id.  A key decodes to +0.0 for either zero.
+// tie to the smaller id.  A key decodes to +0.0 for either zero.  (The
+// distance kernels' keys, common.cuh's key_of, take values >= +0 and keep
+// their bits as they are: another format.)
 #include <stdint.h>
 
 #include "common.cuh"
@@ -218,20 +220,6 @@ __device__ __forceinline__ float element<__nv_bfloat16>(const uint4& q,
   return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // One row segment [c0, c1) of row r: every warp offers its rounds, then
 // the warps' runs are folded and the block writes partial slot j.
 template <typename T, bool IDS, bool FLOOR>
@@ -285,10 +273,11 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int vi = rd * 32 * U + u * 32 + lane;
-        if (vi < nv) cp_async16(ring + (st * U + u) * 32 + lane, xv + vi);
+        if (vi < nv)
+          knn::cp_async16(ring + (st * U + u) * 32 + lane, xv + vi);
       }
     }
-    cp_commit();
+    knn::cp_async_commit();
   };
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) copy_round(warp + st * NW, st);
@@ -296,7 +285,7 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
       reinterpret_cast<const volatile unsigned*>(w.thr) + 1;
   int st = 0;
   for (int rd = warp; rd < rounds; rd += NW) {
-    cp_wait<STAGES - 2>();
+    knn::cp_async_wait<STAGES - 2>();
     uint4 cur[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) cur[u] = ring[(st * U + u) * 32 + lane];
@@ -354,7 +343,7 @@ __device__ void segment(const T* __restrict__ x, const int* __restrict__ ids,
     }
     offer<E>(v, col, ok, ir, w);
   }
-  cp_wait<0>();
+  knn::cp_async_wait<0>();
   if (w.cnt) absorb(w);
   __syncthreads();
   const int stride = R + CAND;

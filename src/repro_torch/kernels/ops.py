@@ -10,10 +10,9 @@ of the reference's shape gate that sent unaligned routing shapes to
 jnp: at k = 8 the card runs the routing kernel.  Where the reference
 sends ``l > 256`` to its jnp oracle, the card runs kernels too:
 ``distance_topk`` becomes l2_distance then the multi-pass local_topk
-(:func:`fused_topk` decides, by l and by whether the fused block's
-shared memory fits at the width).  Each wrapper's counter
-counts its kernel's launches where it launches it; the plain versions
-count nothing.  A thread's launches inside :func:`counted_apart` are
+where the step's plan (``kernels/plan.py``) says so.  Each wrapper's
+counter counts its kernel's launches where it launches it; the plain
+versions count nothing.  A thread's launches inside :func:`counted_apart` are
 counted in that block's tally instead.
 """
 
@@ -27,9 +26,9 @@ from repro_torch.kernels import _cuda
 from repro_torch.kernels import distance_topk as _dtk
 from repro_torch.kernels import l2_distance as _l2
 from repro_torch.kernels import local_topk as _ltk
+from repro_torch.kernels import plan
 from repro_torch.kernels import routing as _rt
 from repro_torch.kernels import ref
-from repro_torch.kernels._cuda import MAX_L
 
 COUNTERS = {c.name: c for c in (_l2.COUNT, _l2.COUNT_WIDE, _dtk.COUNT,
                                 _dtk.COUNT_WIDE, _ltk.COUNT, _rt.COUNT)}
@@ -57,22 +56,17 @@ def l2_distance(queries, points, *, valid=None):
     return out
 
 
-def fused_topk(l: int, dim: int, elem_bytes: int = 4) -> bool:
-    """Whether the card's distance + top-l step at ``l`` and width ``dim``
-    is the fused distance_topk kernel (``l <= MAX_L``, its slots, and its
-    block's query tile and slots fit in shared memory: at d = 896 up to
-    l = 192), or else l2_distance then the multi-pass local_topk."""
-    return l <= MAX_L and _dtk.smem(dim, l, elem_bytes) <= _l2.SMEM_MAX
-
-
 def distance_topk(queries, points, l: int, *, valid=None):
     """Fused distance + top-l: ``((..., B, l) ascending, int32 indices
     into the point axis)``; +inf slots carry ``2**31-1``.  On the card,
-    where the fused kernel does not take ``l`` (:func:`fused_topk`), the
-    distances are written by l2_distance and their top-l taken in passes
-    by local_topk."""
+    where the plan's path is not the fused kernel, the distances are
+    written by l2_distance and their top-l taken in passes by
+    local_topk."""
     if _path("distance_topk", queries) == "cuda":
-        if fused_topk(l, queries.shape[-1], points.element_size()):
+        sp = plan.step(queries.shape[0], queries.shape[-1], l,
+                       points.element_size(), points.shape[-2],
+                       _ltk.sm_count(queries.device.index or 0))
+        if sp.path == plan.DISTANCE_TOPK:
             return _dtk.distance_topk_cuda(queries, points, l, valid=valid)
         v, i = _ltk.local_topk_cuda(
             _l2.l2_distance_cuda(queries, points, valid=valid), l)
@@ -158,24 +152,11 @@ def reset_launch_counts() -> None:
 def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
                      k: int, device) -> dict:
     """Which path each kernel takes for one service bucket shape, without
-    launching anything: ``cuda`` on the card, ``plain`` on the CPU.
-
-    On the card, ``dtk_path`` names the distance + top-l step
-    (:func:`fused_topk`): ``"distance_topk"``, with ``dtk_tile`` the rows
-    of the query tile it takes for the bucket (32: the 32-row kernel; 64
-    or 128: the whole-bucket path, :func:`distance_topk.row_tile`),
-    ``dtk_chunk`` the points per chunk and ``dtk_blocks`` its persistent
-    blocks (each walks its chunk in all k shards), or ``"l2+local_topk"``
-    where the fused kernel does not take ``l``, with ``ltk_passes``
-    local_topk's passes;
-    ``l2_tile`` is the rows of the query tile that l2_distance takes for
-    the bucket (32: the 32-row loop; 64 or 128: the whole-bucket loop,
-    :func:`l2_distance.row_tiles`), and ``l2_blocks`` the 32-row loop's
-    persistent blocks per query tile (None where the whole-bucket loop,
-    whose blocks the occupancy API gives at launch, is taken).  All None
-    on the CPU.  A width whose query tile does not fit in shared
-    memory has no kernel on the card (``unsupported``), and the wrappers
-    raise on it.
+    launching anything: ``cuda`` on the card, ``plain`` on the CPU.  On
+    the card, the f32 step's plan (``kernels/plan.py``) under these keys:
+    its path (``dtk_path``), the fused kernel's tile, chunk and blocks or
+    local_topk's passes, l2_distance's tile and blocks; all None on the
+    CPU, and on the card where the plan is ``unsupported``.
     """
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
@@ -185,23 +166,14 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
            "l2_tile": None, "l2_blocks": None, "unsupported": None}
     if path == "plain":
         return env
-    fused = fused_topk(l, dim)
-    smem = (_dtk.smem_of(bucket_b, dim, l, 4) if fused
-            else _l2.smem_of(bucket_b, dim, 4))
-    if smem > _l2.SMEM_MAX:
-        env["unsupported"] = (f"dim={dim}: {smem} bytes of shared memory a "
-                              f"block > {_l2.SMEM_MAX}: no kernel")
+    sp = plan.step(bucket_b, dim, l, 4, m_local,
+                   _ltk.sm_count(dev.index or 0))
+    if sp.unsupported:
+        env["unsupported"] = sp.unsupported
         return env
-    sms = _ltk.sm_count(dev.index or 0)
-    tile = _l2.row_tiles(bucket_b)[0]
-    env.update(l2_tile=tile, l2_blocks=_l2.BLOCKS_PER_SM * sms
-               if tile == _l2.QUERY_TILE else None)
-    if fused:
-        dtile = _dtk.row_tile(bucket_b, dim, l, 4)
-        chunk = _dtk.chunking(bucket_b, k, m_local, dev, dtile)
-        env.update(dtk_path="distance_topk", dtk_tile=dtile, dtk_chunk=chunk,
-                   dtk_blocks=-(-m_local // chunk) * -(-bucket_b // dtile))
-    else:
-        env.update(dtk_path="l2+local_topk",
-                   ltk_passes=-(-min(l, m_local) // MAX_L))
+    env.update(dtk_path=sp.path, ltk_passes=sp.passes, l2_tile=sp.l2.tile,
+               l2_blocks=sp.l2.blocks)
+    if sp.path == plan.DISTANCE_TOPK:
+        env.update(dtk_tile=sp.topk.tile, dtk_chunk=sp.topk.chunk,
+                   dtk_blocks=sp.topk.blocks)
     return env

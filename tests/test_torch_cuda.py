@@ -19,6 +19,7 @@ from repro_torch.kernels import distance_topk as dtk
 from repro_torch.kernels import l2_distance as l2
 from repro_torch.kernels import local_topk as ltk
 from repro_torch.kernels import ops
+from repro_torch.kernels import plan
 from repro_torch.kernels import routing as rt
 from repro_torch.runtime import KnnServer
 from repro_torch.store import IndexMaintainer, build_summaries
@@ -70,10 +71,10 @@ def test_distance_topk_kernel(card, shape, l):
     torch.cuda.synchronize()
     # one launch, plus local_topk's merge launches when the points were
     # chunked: one, and one more where the merge split its rows again
-    nchunks = -(-m // dtk.chunking(B, k, m, card))
+    tp = plan.topk(B, d, l, 4, m, ltk.sm_count(0))
     slots = ltk.blocks_per_sm(l, 0, True) * ltk.sm_count(0)
-    merges = (0 if nchunks == 1 else
-              len(ltk.merge_plans(k * B, nchunks * dtk.slots(l), l, slots)))
+    merges = (0 if tp.nchunks == 1 else
+              len(ltk.merge_plans(k * B, tp.nchunks * tp.width, l, slots)))
     assert (dtk.COUNT.n, ltk.COUNT.n) == (before[0] + 1, before[1] + merges)
     rv, ri = dtk.distance_topk_plain(q, p, l)
     torch.testing.assert_close(v, rv, **F32)
@@ -162,8 +163,8 @@ def test_l2_distance_wide_kernel(card, B, d, dtype, km, mode):
     out = l2.l2_distance_cuda(q, p, valid=valid)
     torch.cuda.synchronize()
     assert (l2.COUNT.n, l2.COUNT_WIDE.n) == (before[0] + 1, before[1] + 1)
-    parts = [l2.l2_distance_cuda(q[i:i + l2.QUERY_TILE], p, valid=valid)
-             for i in range(0, B, l2.QUERY_TILE)]
+    parts = [l2.l2_distance_cuda(q[i:i + plan.QUERY_TILE], p, valid=valid)
+             for i in range(0, B, plan.QUERY_TILE)]
     torch.cuda.synchronize()
     assert (l2.COUNT.n, l2.COUNT_WIDE.n) == (before[0] + 1 + len(parts),
                                              before[1] + 1)
@@ -182,8 +183,8 @@ def test_l2_distance_wide_kernel_several_row_tiles(card, B, d, mode):
     q, p = _randn(card, B, d, seed=B), _randn(card, k, m, d, seed=d)
     valid = None if mode is None else _mask(card, k, m, mode, seed=B)
     out = l2.l2_distance_cuda(q, p, valid=valid)
-    parts = [l2.l2_distance_cuda(q[i:i + l2.QUERY_TILE], p, valid=valid)
-             for i in range(0, B, l2.QUERY_TILE)]
+    parts = [l2.l2_distance_cuda(q[i:i + plan.QUERY_TILE], p, valid=valid)
+             for i in range(0, B, plan.QUERY_TILE)]
     assert torch.equal(out, torch.cat(parts, dim=1))
     torch.testing.assert_close(out, _masked_plain(q, p, valid), **F32)
 
@@ -244,9 +245,9 @@ def test_distance_kernels_ragged(card, m, B, masked):
 def _dtk_by_slices(q, p, l, valid):
     """distance_topk's 32-row kernel on the 32-row slices of the queries,
     joined along the rows."""
-    parts = [dtk.distance_topk_cuda(q[i:i + dtk.QUERY_TILE], p, l,
+    parts = [dtk.distance_topk_cuda(q[i:i + plan.QUERY_TILE], p, l,
                                     valid=valid)
-             for i in range(0, q.shape[0], dtk.QUERY_TILE)]
+             for i in range(0, q.shape[0], plan.QUERY_TILE)]
     return (torch.cat([v for v, _ in parts], dim=1),
             torch.cat([i for _, i in parts], dim=1))
 
@@ -264,7 +265,8 @@ def test_distance_topk_wide_kernel(card, B, d, l, dtype, km):
     call counts one distance_topk launch; only the B > 32 call counts one
     of the whole-bucket path."""
     k, m = km
-    assert dtk.row_tile(B, d, l, 4 if dtype == torch.float32 else 2) > 32
+    elem = 4 if dtype == torch.float32 else 2
+    assert plan.topk(B, d, l, elem, m, ltk.sm_count(0)).wide
     q = _randn(card, B, d, seed=B + d + l).to(dtype)
     p = _randn(card, k, m, d, seed=k * m + d).to(dtype)
     for mode in (None, "random", "one", "none"):
@@ -308,7 +310,7 @@ def test_distance_topk_wide_kernel_one_chunk(card):
     """A bucket whose points fit one chunk: the partial is the answer, the
     l smallest ascending, (+inf, 2**31-1) past the shard's points."""
     B, k, m, d, l = 128, 2, 90, 96, 100
-    assert -(-m // dtk.chunking(B, k, m, card, 128)) == 1
+    assert plan.topk(B, d, l, 4, m, ltk.sm_count(0)).nchunks == 1
     q, p = _randn(card, B, d, seed=1), _randn(card, k, m, d, seed=2)
     v, i = dtk.distance_topk_cuda(q, p, l)
     sv, si = _dtk_by_slices(q, p, l, None)
@@ -1226,7 +1228,8 @@ def test_distance_kernels_at_lm_width(card, l):
     p = _randn(card, 8, 16384, 896, seed=31) * 0.02
     full = l2.l2_distance_plain(q, p)
     torch.testing.assert_close(l2.l2_distance_cuda(q, p), full, **F32)
-    assert ops.fused_topk(l, 896) == (l <= 192)
+    sp = plan.step(8, 896, l, 4, 16384, ltk.sm_count(0))
+    assert (sp.path == plan.DISTANCE_TOPK) == (l <= 192)
     before = (dtk.COUNT.n, l2.COUNT.n)
     v, i = ops.distance_topk(q, p, l)
     torch.cuda.synchronize()

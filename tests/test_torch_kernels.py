@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import distance_topk as tdtk
 from repro_torch.kernels import l2_distance as tl2
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import plan
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.local_topk import local_topk_plain
 
@@ -230,7 +231,9 @@ def test_dispatch_is_by_device_only():
     (129, 128, 2), (300, 128, 3), (512, 128, 4)])
 def test_l2_distance_row_tile_follows_rows(B, tile, tiles):
     """l2_distance's row tile is a function of the bucket's rows alone."""
-    assert tl2.row_tiles(B) == (tile, tiles)
+    got = {plan.l2(B, d, elem, 132).tile
+           for d in (16, 96, 1024, 2048) for elem in (4, 2)}
+    assert got == {tile} and -(-B // tile) == tiles
 
 
 class _FakeLibrary:
@@ -282,7 +285,8 @@ def test_l2_distance_launches_the_loop_of_its_rows(fake_card, B, entry,
     assert tl2.l2_distance_cuda(q, p).shape == (2, B, 8)
     [(name, args)] = fake_card.calls
     assert name == entry and args[4:9] == (B, 2, 8, 16, 0)
-    assert args[9] == (tl2.BLOCKS_PER_SM * 132 if tile is None else tile)
+    assert args[9] == (plan.L2_BLOCKS_PER_SM * 132 if tile is None
+                       else tile)
     assert (tl2.COUNT.n - before[0], tl2.COUNT_WIDE.n - before[1]) == (
         1, int(entry == "wide"))
 
@@ -294,7 +298,8 @@ def test_l2_distance_shared_memory_check_by_path(fake_card, B, accepted):
     shared memory (refused, as before); the whole-bucket loop's does not
     grow with d (accepted)."""
     d = 2048
-    assert (tl2.smem_of(B, d, 4) <= tl2.SMEM_MAX) == accepted
+    lp = plan.l2(B, d, 4, 132)
+    assert (lp.smem <= plan.SMEM_MAX) == accepted == (not lp.unsupported)
     q, p = torch.zeros(B, d), torch.zeros(1, 4, d)
     if accepted:
         tl2.l2_distance_cuda(q, p)
@@ -316,7 +321,7 @@ def test_envelope_names_the_l2_distance_tile(monkeypatch):
            for b in (8, 32, 64, 128)}
     assert {b: e["l2_tile"] for b, e in got.items()} == {
         8: 32, 32: 32, 64: 64, 128: 128}
-    assert got[8]["l2_blocks"] == tl2.BLOCKS_PER_SM * 132
+    assert got[8]["l2_blocks"] == plan.L2_BLOCKS_PER_SM * 132
     assert got[64]["l2_blocks"] is None and got[128]["l2_blocks"] is None
     assert all(e["unsupported"] is None for e in got.values())
     wide = tops.service_envelope(128, 1 << 20, 2048, 1024, k=8, device=card)
@@ -337,11 +342,12 @@ def test_distance_topk_row_tile_follows_shape(B, d, l, elem, tile):
     """distance_topk's row tile is a function of (B, d, l, dtype) alone:
     the 32-row kernel up to 32 rows and where the whole-bucket block does
     not fit at the width, else 64 up to 64 rows and 128 above."""
-    assert tdtk.row_tile(B, d, l, elem) == tile
-    fits = tdtk.wide_layout(64 if B <= 64 else 128, d, elem) is not None
-    assert (tile > 32) == (B > 32 and fits)
+    tp = plan.topk(B, d, l, elem, 1 << 20, 132)
+    assert tp.tile == tile
+    fits = plan._wide_layout(64 if B <= 64 else 128, d, elem) is not None
+    assert (tile > 32) == (B > 32 and fits) == tp.wide
     if tile > 32:
-        assert tdtk.wide_smem(tile, d, elem) <= tdtk.WIDE_SMEM[tile]
+        assert tp.smem <= plan.WIDE_SMEM[tile]
 
 
 @pytest.mark.parametrize("d,elem,groups", [(64, 4, 2), (96, 4, 2),
@@ -351,10 +357,10 @@ def test_distance_topk_wide_layout(d, elem, groups):
     """The 128-row block holds two whole point tiles where they leave at
     least 64 candidate keys a row (one barrier a tile), else three slabs;
     its shared memory does not depend on l."""
-    got, cand = tdtk.wide_layout(128, d, elem)
-    assert got == groups
-    assert tdtk.WIDE_MIN_CAND[groups] <= cand <= tdtk.WIDE_MAX_CAND
-    assert tdtk.smem_of(128, d, 1, elem) == tdtk.smem_of(128, d, 256, elem)
+    one, most = (plan.topk(128, d, l, elem, 1 << 20, 132) for l in (1, 256))
+    assert one.groups == most.groups == groups
+    assert plan.WIDE_MIN_CAND[groups] <= one.cand <= plan.WIDE_MAX_CAND
+    assert one.cand == most.cand and one.smem == most.smem
 
 
 @pytest.mark.parametrize("B,entry,tile", [
@@ -372,24 +378,28 @@ def test_distance_topk_launches_the_path_of_its_rows(fake_card, B, entry,
     v, i = tdtk.distance_topk_cuda(q, p, l)
     assert v.shape == i.shape == (k, B, l)
     [(name, args)] = fake_card.calls
-    chunk = tdtk.chunking(B, k, m, torch.device("cpu"), tile)
-    assert name == entry and args[6:13] == (B, k, m, d, l, chunk, 0)
+    tp = plan.topk(B, d, l, 4, m, 132)
+    assert name == entry and args[6:13] == (B, k, m, d, l, tp.chunk, 0)
     if entry == "topk_wide":
-        assert args[13:16] == (tile, *tdtk.wide_layout(tile, d, 4))
-        assert chunk % tdtk.WIDE_POINT_TILE == 0
+        assert args[13:16] == (tile, tp.groups, tp.cand)
+        assert tp.chunk % plan.WIDE_POINT_TILE == 0
+    # two chunks: the whole-bucket partials hold l slots, the 32-row
+    # kernel's its slots unmerged
+    assert (tp.nchunks, tp.width) == (2, l if tp.wide else 128)
     assert (tdtk.COUNT.n - before[0], tdtk.COUNT_WIDE.n - before[1]) == (
         1, int(entry == "topk_wide"))
 
 
-def test_distance_topk_chunking_follows_the_path(monkeypatch):
+def test_distance_topk_chunking_follows_the_path():
     """One 128-row block an SM, two 64-row and two 32-row blocks: chunks
     x query tiles fill the card's SMs that many times over."""
-    monkeypatch.setattr(tdtk._ltk, "sm_count", lambda index: 132)
-    dev, m = torch.device("cpu"), 15_625_000
+    m = 15_625_000
     for B, tile, blocks in [(128, 128, 132), (64, 64, 264), (32, 32, 264),
                             (128, 32, 264), (256, 128, 132)]:
-        chunk = tdtk.chunking(B, 8, m, dev, tile)
-        assert -(-m // chunk) * -(-B // tile) == blocks
+        tp = plan.topk(B, 96, 100, 4, m, 132, tile=tile)
+        assert -(-m // tp.chunk) * -(-B // tile) == tp.blocks == blocks
+    one = plan.topk(8, 96, 10, 4, 1000, 132)      # one chunk: the answer
+    assert (one.nchunks, one.width) == (1, 10)
 
 
 @pytest.mark.parametrize("B,d,l,accepted", [
@@ -400,11 +410,12 @@ def test_distance_topk_shared_memory_check_by_path(fake_card, B, d, l,
     """The shared-memory check applies to the path launched: the
     whole-bucket block at B > 32 where it fits, else the 32-row kernel's
     query tile and slots, refused where they do not fit."""
-    tile = tdtk.row_tile(B, d, l, 4)
-    want = (tdtk.smem(d, l, 4) if tile == 32
-            else tdtk.wide_smem(tile, d, 4))
-    assert tdtk.smem_of(B, d, l, 4) == want
-    assert (want <= tl2.SMEM_MAX) == accepted
+    tp = plan.topk(B, d, l, 4, 100, 132)
+    tile = tp.tile
+    want = (plan._topk32_smem(d, l, 4) if tile == 32 else
+            plan._wide_fixed_smem(tile, d, 4, tp.groups) + 8 * tile * tp.cand)
+    assert tp.smem == want
+    assert (want <= plan.SMEM_MAX) == accepted == (not tp.unsupported)
     q, p = torch.zeros(B, d), torch.zeros(1, 100, d)
     if accepted:
         tdtk.distance_topk_cuda(q, p, l)
@@ -427,8 +438,7 @@ def test_envelope_names_the_distance_topk_tile(monkeypatch):
     assert {b: e["dtk_tile"] for b, e in got.items()} == {
         8: 32, 32: 32, 64: 64, 128: 128}
     for b, e in got.items():
-        assert e["dtk_chunk"] == tdtk.chunking(b, 8, m, card,
-                                               e["dtk_tile"])
+        assert e["dtk_chunk"] == plan.topk(b, 96, 100, 4, m, 132).chunk
         assert e["dtk_blocks"] == (-(-m // e["dtk_chunk"])
                                    * -(-b // e["dtk_tile"]))
     assert got[128]["dtk_blocks"] <= 132 < got[8]["dtk_blocks"] <= 264
