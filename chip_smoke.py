@@ -27,12 +27,17 @@ Phases:
      and bf16, unmasked and routed, one l2_distance_wide launch a call;
      distance_topk's whole-bucket path at B = 64 and 128, d = 96, l =
      100, f32 and bf16, unmasked and routed, one distance_topk_wide
-     launch a call, and none from the 32-row cases);
+     launch a call, and none from the 32-row cases); Algorithm 1's device
+     loop (select_loop) against the host loop on inputs made by the real
+     step and prune at the three selection cells' shapes (B = 128 at l =
+     100 and 1,024, the open cell's bucket of 64 at l = 10) and a bucket
+     of 64 at l_max = 10: thresholds and converged flags torch.equal;
   3. serve the static exact l-NN slice at full width (2**22 x 64 f32
      points, k = 8 shards, l <= 128, buckets <= 32) through
      KnnServer.query_batch under both samplers, check every answer
      against a brute-force top-l over all points, and check that each
-     sampler's path launched its kernels;
+     sampler's path launched its kernels (one select_loop launch a
+     selection batch, none under gather);
   3b. serve_routed: the same widths on 8 Gaussian clusters, one a shard,
      with route="pruned" (device and host routing, both samplers) and
      search="approx": answers byte-identical to the exact route's and
@@ -208,7 +213,8 @@ Phases:
      loop on the bucket's 32-row slices; distance_topk's whole-bucket
      path at a reduced deep1b step (B = 128, 8 shards of 2^20, d = 96, l
      = 100), its values and ids equal to the 32-row kernel's on the
-     bucket's 32-row slices;
+     bucket's 32-row slices; select_loop at phase 2's shapes beside the
+     host loop, the kernel alone, and a bound of one read of its inputs;
   5. print the kernels line, then the device line last.
 
 Exits non-zero, and prints no result, without a CUDA device or without
@@ -267,10 +273,15 @@ KERNELS = {
         counter="route_index_mask",
         runs=("d_device_approx", "store_d_device_approx",
               "predict_exact_vote_approx", "maintained_approx_recall")),
+    # Algorithm 1's whole loop, one launch a batch of the selection sampler
+    "select_loop": dict(
+        source="src/repro_torch/kernels/csrc/select_loop.cu",
+        replaces="src/repro/core/selection.py:315"),
 }
 # every launch counter of the port (kernels/ops.py COUNTERS)
 COUNTERS = ("l2_distance", "l2_distance_wide", "distance_topk",
-            "distance_topk_wide", "local_topk", "route_index_mask")
+            "distance_topk_wide", "local_topk", "route_index_mask",
+            "select_loop")
 # phase 4's extra numbers for the two distance kernels, on the kernels line
 MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
                "masked_bound_ms", "masked_bound_by")
@@ -326,6 +337,10 @@ LM_KEYS = ("lm_shape", "lm_ms", "lm_kernel_ms", "lm_plain_ms",
 # the routed phase's B = 32 routing inputs and approx server, kept for
 # phase 4's timing
 ROUTED_INPUTS = {}
+# phase 2's Algorithm 1 inputs by the real step and prune, by shape name,
+# kept for phase 4's timing; and the select_loop entry's extra numbers
+SELECT_INPUTS = {}
+SELECT_KEYS = ("select_shapes", "device_ms")
 L_LARGE = 1024         # serve_large_l's l_max
 
 
@@ -887,8 +902,97 @@ def phase_kernels(dev, results):
                 f"equal to plain")
     for name in ("route_mask", "index_mask"):
         errs[name] = main_err[name] = 0.0        # masks compared equal
+    select_cases(dev)
+    errs["select_loop"] = main_err["select_loop"] = 0.0  # compared equal
     results["max_abs_err"] = main_err
     results["max_abs_err_all_cases"] = errs
+
+
+# the benchmark's three selection cells at k = 8 (bucket rows, l_max, the
+# rows' l: the open cell's 41 rows of a bucket of 64, the rest padding),
+# and a bucket of 64 at l_max = 10
+SELECT_SHAPES = {"deep1b": (128, 100, [100] * 128),
+                 "knnlm": (128, 1024, [1024] * 128),
+                 "open": (64, 100, [10] * 41 + [0] * 23),
+                 "b64_l10": (64, 10, [10] * 64)}
+
+
+def select_cases(dev):
+    """Algorithm 1's device loop against the host loop (its plain
+    version) on inputs made by the real step and prune over the phase-3
+    points (2^22 x 64, k = 8): thresholds, ids and converged flags
+    torch.equal, one select_loop launch a call.  Keeps the inputs for
+    phase 4."""
+    import torch
+    from repro_torch.core import knn, sampling, selection
+    from repro_torch.kernels import select_loop as sl
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    p = torch.randn((K, M, DIM), generator=g, device=dev)
+    pid = torch.arange(K * M, dtype=torch.int32, device=dev).view(K, M)
+    for name, (b, l_max, ls) in SELECT_SHAPES.items():
+        q = torch.randn((b, DIM), generator=g, device=dev)
+        lt = torch.tensor(ls, dtype=torch.int32, device=dev)
+        d, gid = knn.local_distance_top_l(q, p, pid, l_max)
+        valid = sampling.sample_prune(d, g, lt).valid
+        cap = selection.iteration_cap(K * l_max)
+        SELECT_INPUTS[name] = (d, gid, lt, valid, cap)
+        n0 = sl.COUNT.n
+        dv = sl.select_loop_cuda(d, gid, lt, g, valid=valid,
+                                 max_iterations=cap)
+        host = selection.host_loop(d, gid, lt, g, valid=valid,
+                                   max_iterations=cap)
+        torch.cuda.synchronize()
+        if sl.COUNT.n - n0 != 1:
+            raise PhaseError(f"select_loop {name}: {sl.COUNT.n - n0} "
+                             f"launches, want 1")
+        want = (host.threshold_v, host.threshold_i, host.converged)
+        if not all(torch.equal(x, y) for x, y in zip(dv[:3], want)):
+            raise PhaseError(f"select_loop {name} (B={b}, k*l={K * l_max}):"
+                             f" differs from the host loop")
+        log(f"  select_loop {name} (B={b}, k*l={K * l_max}): thresholds and "
+            f"converged equal to the host loop's; iterations device "
+            f"{int(dv[3].max())}, host {host.iterations}; "
+            f"{int(valid.sum())} of {valid.numel()} keys survive the prune")
+    del p, pid
+
+
+def select_timing(timing):
+    """select_loop's kernels-line entry: at the deep1b cell's shape, the
+    device loop and the host loop by CUDA events, the kernel alone by the
+    profiler, and a bound of one read of that run's keys, ids, masks and
+    l's and one write of its outputs at the card's bandwidth; each shape
+    of SELECT_SHAPES under ``select_shapes``."""
+    from repro_torch.core import selection
+    from repro_torch.kernels import select_loop as sl
+    import torch
+
+    shapes = {}
+    for name, (d, gid, lt, valid, cap) in SELECT_INPUTS.items():
+        g = torch.Generator(device=d.device)
+        g.manual_seed(5)
+        k, b, l_max = d.shape
+        nbytes = k * b * l_max * (4 + 4 + 1) + 4 * b + b * (4 + 4 + 1 + 4)
+        b_ms, by = bound(nbytes, k * b * l_max)
+        kern = lambda: sl.select_loop_cuda(   # noqa: E731
+            d, gid, lt, g, valid=valid, max_iterations=cap)
+        shapes[name] = dict(
+            rows=b, keys_a_row=k * l_max, ms=time_ms(kern, 50),
+            plain_ms=time_ms(lambda: selection.host_loop(
+                d, gid, lt, g, valid=valid, max_iterations=cap), 3),
+            device_ms=device_ms(kern, "select_loop_kernel"),
+            bound_ms=b_ms, bound_by=by, bytes=nbytes)
+        log(f"  select_loop {name}: {shapes[name]['ms']:.4f} ms (kernel "
+            f"{shapes[name]['device_ms']} ms, host loop "
+            f"{shapes[name]['plain_ms']:.4f}, bound {b_ms:.6f} by {by})")
+    main = shapes["deep1b"]
+    timing["select_loop"] = dict(
+        ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        bytes=main["bytes"], device_ms=main["device_ms"],
+        select_shapes=shapes)
+    SELECT_INPUTS.clear()
 
 
 # ---- phase 3: the slice at full width --------------------------------------
@@ -945,7 +1049,8 @@ def phase_serve(dev, gpu, results):
     # distance_topk's merge pass); the kernels line sums both runs
     launches = {name: 0 for name in COUNTERS}
     by_sampler, serve = {}, {}
-    for sampler, needs in (("selection", ["distance_topk", "local_topk"]),
+    for sampler, needs in (("selection", ["distance_topk", "local_topk",
+                                          "select_loop"]),
                            ("gather", ["distance_topk", "local_topk"])):
         torch.cuda.reset_peak_memory_stats()
         srv = KnnServer(points, cfg=cfg.replace(sampler=sampler), shards=K,
@@ -965,6 +1070,11 @@ def phase_serve(dev, gpu, results):
         for name in needs:
             if counts[name] < 1:
                 raise PhaseError(f"{sampler}: {name} was never launched")
+        # Algorithm 1 is one device-loop launch a batch, and only there
+        want = len(groups) if sampler == "selection" else 0
+        if counts["select_loop"] != want:
+            raise PhaseError(f"{sampler}: {counts['select_loop']} "
+                             f"select_loop launches, want {want}")
         for name, n in counts.items():
             launches[name] += n
         by_sampler[sampler] = counts
@@ -1041,13 +1151,14 @@ def phase_serve_routed(dev, gpu, results):
 
     pruned = cfg.replace(route="pruned", route_compute="device")
     runs = [  # name, config, exact twin, kernels the path must launch
-        ("exact_selection", cfg, None, ["distance_topk", "local_topk"]),
+        ("exact_selection", cfg, None,
+         ["distance_topk", "local_topk", "select_loop"]),
         ("exact_gather", cfg.replace(sampler="gather"), None,
          ["distance_topk", "local_topk"]),
         ("a_device_selection", pruned, "exact_selection",
-         ["route_index_mask", "distance_topk", "local_topk"]),
+         ["route_index_mask", "distance_topk", "local_topk", "select_loop"]),
         ("b_host_selection", pruned.replace(route_compute="host"),
-         "exact_selection", ["distance_topk", "local_topk"]),
+         "exact_selection", ["distance_topk", "local_topk", "select_loop"]),
         ("c_device_gather", pruned.replace(sampler="gather"),
          "exact_gather", ["route_index_mask", "distance_topk",
                           "local_topk"]),
@@ -5006,6 +5117,7 @@ def phase_timing(dev, results):
     lm_timing(timing, dev, results)
     wide_timing(timing["l2_distance"], dev, results)
     dtk_wide_timing(timing["distance_topk"], dev, results)
+    select_timing(timing)
     results["timing"] = timing
 
 
@@ -5135,7 +5247,7 @@ def run_phases(args, dev, gpu, results) -> int:
             bound_by=t["bound_by"], library_ms=t["library_ms"],
             **{key: t[key] for key in MASKED_KEYS + LTK_KEYS + ROUTE_KEYS
                + LARGE_L_KEYS + STORE_KEYS + LM_KEYS + WIDE_KEYS
-               if key in t}))
+               + SELECT_KEYS if key in t}))
     log(json.dumps({"kernels": kernels, "not_ported": [], "gpu": gpu}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,8 @@ the fused path and ``kops.l2_distance(valid=)`` elsewhere.
 
 ``phases`` (an :class:`repro_torch.obs.PhaseClock`, optional) marks the
 steps as they are issued: ``topl`` (1-2), ``prune`` (3), ``select`` (4,
-with its ``iterations`` and ``host_syncs``) and ``gather`` (5); in
+with its ``host_syncs``; the iterations stay on the device for the
+caller's readback) and ``gather`` (5); in
 ``knn_simple`` ``topl`` and ``merge`` (the gather and the reduction).
 The last phase stays open for the caller, who marks its readback and
 closes the clock.  Marks add no sync and change no result.
@@ -225,7 +226,7 @@ def _knn_pipeline(points, point_ids, queries, l_buf, l_run, gen, *,
     ph.mark("select")
     sel = select_l_smallest(d, gid, l_run, gen, valid=prune.valid,
                             num_pivots=num_pivots)
-    ph.annotate(iterations=sel.iterations, host_syncs=sel.host_syncs)
+    ph.annotate(host_syncs=sel.host_syncs)
     ph.mark("gather")
     mask = selected_mask(d, gid, sel, valid=prune.valid)
     dists = ids = None

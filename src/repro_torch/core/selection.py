@@ -12,16 +12,30 @@ shard with probability n_i / n (Lemma 2.1), and one count of the
 elements at or below the pivot narrows the interval.  Both bounds are
 exclusive, so the pivot leaves the candidate set every iteration and the
 loop ends deterministically.  ``num_pivots > 1`` (beyond the paper)
-evaluates every shard's proposal in the same two rounds.
+evaluates every shard's proposal in the same two rounds.  The iteration
+cap is the reference's ``8*ceil(log2(m*k))+16``.
 
-The loop is data-dependent: each ``all(done)`` check reads a flag from
-the device to the host, a sync on the card.  They are counted in
-``SelectionResult.host_syncs``.  The iteration cap is the reference's
-``8*ceil(log2(m*k))+16``.
+The loop runs on one of two paths, by the keys' device
+(``kernels.ops.select_path``):
 
-Randomness comes from one ``torch.Generator`` on the data's device; the
-reference's ``jax.random`` streams cannot be reproduced, but the
-selection is exact (Las Vegas), so the answer does not depend on them.
+* on the card, the device loop (``kernels/csrc/select_loop.cu``): one
+  launch runs every row's whole loop, one block a row, as the
+  reference's ``lax.while_loop`` runs it inside one program, and nothing
+  is read back (``host_syncs`` 0);
+* on the CPU, :func:`host_loop`, the plain version: every row in
+  lockstep through ``_select_body``, whose ``all(done)`` check reads a
+  flag each iteration, counted in ``host_syncs``.
+
+Both give each row's iteration count as a ``(B,)`` tensor on the keys'
+device, ``SelectionResult.row_iterations``; ``iterations``, the batch's
+(the largest row's, the lockstep loop's count), reads it, a sync on the
+card, so a hot caller reads the counts with its own readback instead.
+
+Randomness comes from one ``torch.Generator`` on the data's device (the
+device loop draws one Philox seed from it); the reference's
+``jax.random`` streams cannot be reproduced, but the selection is exact
+(Las Vegas), so the thresholds do not depend on them: both paths give
+the same ones.
 """
 
 from __future__ import annotations
@@ -32,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import counting as ck
+from repro_torch.kernels import ops as kops
 from repro_torch.parallel.collectives import all_gather, psum
 
 _INF = float("inf")
@@ -41,14 +56,23 @@ class SelectionResult(NamedTuple):
     """Replicated result of one batched selection.
 
     An element x is selected iff ``x <= (threshold_v, threshold_i)`` in
-    composite order.  ``iterations`` and ``host_syncs`` are host ints.
+    composite order.  ``row_iterations``: each row's iterations until it
+    was done (the cap where it was not), on the keys' device;
+    ``host_syncs``: the reads the selection made, a host int.
     """
 
-    threshold_v: torch.Tensor   # (B,) float
-    threshold_i: torch.Tensor   # (B,) int32
-    iterations: int
-    converged: torch.Tensor     # (B,) bool — False only if the cap was hit
+    threshold_v: torch.Tensor     # (B,) float
+    threshold_i: torch.Tensor     # (B,) int32
+    converged: torch.Tensor       # (B,) bool — False only if the cap was hit
+    row_iterations: torch.Tensor  # (B,) int32
     host_syncs: int
+
+    @property
+    def iterations(self) -> int:
+        """The batch's iterations, the largest row's (one read on the
+        card)."""
+        rows = self.row_iterations
+        return int(rows.max()) if rows.numel() else 0
 
 
 class _State(NamedTuple):
@@ -181,17 +205,33 @@ def select_l_smallest(v, i, l, gen: torch.Generator, *, valid=None,
     once with the ``(-inf, ID_LO)`` threshold, rows asking for every
     element with ``(+inf, ID_HI)``.  ``valid`` (``(k, B, m)`` bool)
     hides elements from the search.  Rows that reach the cap report
-    ``converged=False``.
+    ``converged=False``.  The device loop runs it on the card,
+    :func:`host_loop` on the CPU (module docstring).
     """
     if v.dim() == 2:
         v, i = v.unsqueeze(1), i.unsqueeze(1)
         if valid is not None and valid.dim() == 2:
             valid = valid.unsqueeze(1)
-    k, B, m = v.shape
-    dev = v.device
+    k, _, m = v.shape
     if max_iterations is None:
         max_iterations = iteration_cap(m * k)
+    if kops.select_path(v) == kops.HOST_LOOP:
+        return host_loop(v, i, l, gen, valid=valid,
+                         max_iterations=max_iterations,
+                         num_pivots=num_pivots)
+    thr_v, thr_i, conv, rows = kops.select_loop(
+        v.contiguous(), i.contiguous(), l, gen, valid=valid,
+        max_iterations=max_iterations, num_pivots=num_pivots)
+    return SelectionResult(threshold_v=thr_v, threshold_i=thr_i,
+                           converged=conv, row_iterations=rows, host_syncs=0)
 
+
+def host_loop(v, i, l, gen: torch.Generator, *, valid=None,
+              max_iterations: int, num_pivots: int = 1) -> SelectionResult:
+    """The host-paced loop over ``(k, B, m)`` keys, every row in lockstep:
+    the plain version, :func:`select_l_smallest`'s path on the CPU."""
+    k, B, m = v.shape
+    dev = v.device
     l = torch.as_tensor(l, dtype=torch.int32, device=dev).expand(B)
     if valid is None:
         total = torch.full((B,), m * k, dtype=torch.int32, device=dev)
@@ -211,15 +251,17 @@ def select_l_smallest(v, i, l, gen: torch.Generator, *, valid=None,
         thr_v=torch.where(allsel, _INF, -_INF).to(v.dtype),
         thr_i=torch.where(allsel, ck.ID_HI, ck.ID_LO).to(torch.int32),
     )
+    rows = torch.zeros(B, dtype=torch.int32, device=dev)
     it = syncs = 0
     while it < max_iterations:
         syncs += 1
         if bool(st.done.all()):
             break
+        rows += ~st.done
         st = _select_body(st, v, i, valid, gen, num_pivots)
         it += 1
     return SelectionResult(threshold_v=st.thr_v, threshold_i=st.thr_i,
-                           iterations=it, converged=st.done,
+                           converged=st.done, row_iterations=rows,
                            host_syncs=syncs)
 
 

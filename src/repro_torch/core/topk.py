@@ -117,9 +117,11 @@ def distributed_topk(logits: torch.Tensor, k: int, gen: torch.Generator, *,
     # ascending negated logits == descending logits; the pack is in id
     # order among equal values, which a stable sort keeps
     order = torch.argsort(dists, dim=-1, stable=True)
-    return TopKResult(values=-dists.gather(-1, order),
-                      indices=out_ids.gather(-1, order),
-                      iterations=sel.iterations, host_syncs=sel.host_syncs)
+    values, indices = -dists.gather(-1, order), out_ids.gather(-1, order)
+    # the device loop's counts, read after the answer
+    return TopKResult(values=values, indices=indices,
+                      iterations=sel.iterations,
+                      host_syncs=sel.host_syncs + sel.row_iterations.is_cuda)
 
 
 def categorical(gen: torch.Generator, logits: torch.Tensor) -> torch.Tensor:

@@ -22,16 +22,19 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import _cuda
+from repro_torch.kernels import _build, _cuda
 from repro_torch.kernels import distance_topk as _dtk
 from repro_torch.kernels import l2_distance as _l2
 from repro_torch.kernels import local_topk as _ltk
 from repro_torch.kernels import plan
 from repro_torch.kernels import routing as _rt
 from repro_torch.kernels import ref
+from repro_torch.kernels import select_loop as _sel
 
 COUNTERS = {c.name: c for c in (_l2.COUNT, _l2.COUNT_WIDE, _dtk.COUNT,
-                                _dtk.COUNT_WIDE, _ltk.COUNT, _rt.COUNT)}
+                                _dtk.COUNT_WIDE, _ltk.COUNT, _rt.COUNT,
+                                _sel.COUNT)}
+DEVICE_LOOP, HOST_LOOP = "device_loop", "host_loop"   # Algorithm 1's paths
 
 
 def _path(entry: str, t: torch.Tensor) -> str:
@@ -79,6 +82,22 @@ def local_topk(values, l: int):
     if _path("local_topk", values) == "cuda":
         return _ltk.local_topk_cuda(values, l)
     return _ltk.local_topk_plain(values, l)
+
+
+def select_path(v) -> str:
+    """Where Algorithm 1 runs over keys ``v``: ``DEVICE_LOOP`` on the card
+    (``csrc/select_loop.cu``), ``HOST_LOOP`` on the CPU (the plain
+    version, ``core/selection.py``'s ``host_loop``)."""
+    return DEVICE_LOOP if _path("select", v) == "cuda" else HOST_LOOP
+
+
+def select_loop(v, i, l, gen, *, valid=None, max_iterations: int,
+                num_pivots: int = 1):
+    """Algorithm 1's device loop, one launch: ``(thr_v, thr_i, converged,
+    iterations (B,) int32)`` (``kernels/select_loop.py``)."""
+    return _sel.select_loop_cuda(v, i, l, gen, valid=valid,
+                                 max_iterations=max_iterations,
+                                 num_pivots=num_pivots)
 
 
 def _rows_i32(x, device) -> torch.Tensor:
@@ -140,6 +159,12 @@ def counted_apart():
         _cuda._APART.tally = prev
 
 
+def load_library() -> None:
+    """Build (a checkout's first use) and load the card's kernel library
+    now rather than at the first launch."""
+    _build.library()
+
+
 def launch_counts() -> dict:
     return {name: c.n for name, c in COUNTERS.items()}
 
@@ -157,15 +182,19 @@ def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
     its path (``dtk_path``), the fused kernel's tile, chunk and blocks or
     local_topk's passes, l2_distance's tile and blocks; all None on the
     CPU, and on the card where the plan is ``unsupported``.
+    ``select_path``: where Algorithm 1 runs, ``device_loop`` on the card
+    and ``host_loop`` on the CPU.
     """
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
     env = {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
            "k": k, "path": path, "dtk_path": None, "dtk_tile": None,
            "dtk_chunk": None, "dtk_blocks": None, "ltk_passes": None,
-           "l2_tile": None, "l2_blocks": None, "unsupported": None}
+           "l2_tile": None, "l2_blocks": None, "unsupported": None,
+           "select_path": HOST_LOOP}
     if path == "plain":
         return env
+    env["select_path"] = DEVICE_LOOP
     sp = plan.step(bucket_b, dim, l, 4, m_local,
                    _ltk.sm_count(dev.index or 0))
     if sp.unsupported:

@@ -22,7 +22,12 @@ rule:
   so that chunks x query tiles fill the SMs ``TOPK_BLOCKS_PER_SM`` or
   ``WIDE_BLOCKS_PER_SM`` times over;
 - a block above ``SMEM_MAX`` bytes of shared memory has no kernel: the
-  plan says why in ``unsupported`` and the wrappers raise it.
+  plan says why in ``unsupported`` and the wrappers raise it;
+- Algorithm 1 (``select``) is the device loop (``csrc/select_loop.cu``),
+  one block a row of k*m keys, ``SELECT_PER`` keys a thread up to
+  ``SELECT_MAX_THREADS`` threads and more a thread beyond; the keys in
+  shared memory where they fit beside the in-range bits, else read where
+  they lie; 2-byte or 4-byte keys, 1 pivot or k (``num_pivots > 1``).
 
 The tile and shared-memory constants are declared here once; the C
 sources hold their own copies.
@@ -54,6 +59,11 @@ WIDE_BLOCKS_PER_SM = {64: 2, 128: 1}   # distance_topk_wide.cuh's
 WIDE_SMEM = {64: 115712, 128: SMEM_MAX}
 WIDE_MAX_CAND = 128        # candidate keys a row, at most
 WIDE_MIN_CAND = {2: 64, 3: 32}  # at least, by the ring's groups
+
+# csrc/select_loop.cu: threads a block, and the keys a thread is given
+# where the row allows
+SELECT_MAX_THREADS = 1024
+SELECT_PER = 8
 
 DISTANCE_TOPK, L2_LOCAL_TOPK = "distance_topk", "l2+local_topk"
 
@@ -206,3 +216,36 @@ def step(B: int, d: int, l: int, elem: int, m: int, sms: int) -> StepPlan:
         return StepPlan(DISTANCE_TOPK, lp, tp, None, tp.unsupported)
     return StepPlan(L2_LOCAL_TOPK, lp, tp, -(-min(l, m) // MAX_L),
                     lp.unsupported)
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectPlan:
+    threads: int                # a block (one block a row)
+    per: int                    # keys a thread
+    smem_keys: bool             # the row's keys in shared memory
+    smem: int                   # dynamic shared memory a block, bytes
+    unsupported: Optional[str]  # why no block holds the row
+
+
+@functools.lru_cache(maxsize=1024)
+def select(n: int, elem: int, pivots: int) -> SelectPlan:
+    """Algorithm 1's device loop over rows of ``n`` = k*m keys of ``elem``
+    bytes with ``pivots`` pivots an iteration (1, or k where
+    ``num_pivots > 1``): ``SELECT_PER`` keys a thread (32 threads at
+    least), more where 1,024 threads do not hold the row.  A block holds
+    a bit a key (in words of 32 a thread), each warp's two partial sums
+    and a key a pivot, and the keys (8 bytes each) where they fit too."""
+    threads = min(SELECT_MAX_THREADS,
+                  max(32, -(-n // (32 * SELECT_PER)) * 32))
+    per = -(-n // threads)
+    fixed = 4 * -(-per // 32) * threads + 8 * pivots * (threads // 32 + 1)
+    keys = 8 * threads * per
+    why = None
+    if elem not in (2, 4):
+        why = f"select: {elem}-byte keys (the device loop takes 2 or 4)"
+    elif fixed > SMEM_MAX:
+        why = (f"select: {n} keys a row with {pivots} pivots need {fixed} "
+               f"bytes of shared memory (limit {SMEM_MAX})")
+    smem_keys = keys + fixed <= SMEM_MAX
+    return SelectPlan(threads, per, smem_keys,
+                      fixed + keys if smem_keys else fixed, why)

@@ -65,8 +65,8 @@ included; its children are the phases a
 ``select``, ``gather``, ``merge``, ``readback``, ``predict``), each with
 its ``device_s`` by CUDA events where the card gives one: the stream's
 time from the phase's first mark to the next, so a phase that syncs (the
-Algorithm 1 loop) holds a longer host wall, the wait for the work before
-it.  The clock runs on every batch, traced or not, and feeds
+host-paced Algorithm 1 loop) holds a longer host wall, the wait for the
+work before it.  The clock runs on every batch, traced or not, and feeds
 ``ServerStats.topl_device_s``, ``select_s`` and ``merge_s``; each
 ``dispatch`` span carries the ``anchor`` that maps its tree onto a
 profiler's clock (``obs.trace``).  The
@@ -123,7 +123,8 @@ class QueryResult(NamedTuple):
     where absent.  ``rounds``/``messages`` are the carrying batch's
     k-machine bill (``parallel.collectives.accounting``).
     ``host_syncs`` counts the carrying batch's device-to-host reads: the
-    Algorithm 1 loop's done checks, the answer readbacks and, under
+    host-paced Algorithm 1 loop's done checks (the device loop makes
+    none), the answer readbacks and, under
     device routing, the one readback of the touched shards and kept
     buckets.  ``generation``: the store generation the answer was
     computed against (0 for a static point set).
@@ -202,8 +203,8 @@ class ServerStats:
     # summed over the batches: the distance + top-l step's device time by
     # CUDA events (0.0 on the CPU), and the Algorithm 1 loop's wall: on
     # the card the stream's, from the events at its two ends, since the
-    # loop's first sync waits out the step and its host wall holds that
-    # wait; on the CPU the host's; and the gather sampler's merge (the
+    # host loop's first sync waits out the step and its host wall holds
+    # that wait; on the CPU the host's; and the gather sampler's merge (the
     # all_gather, the reduction over k*l and the per-request cut), timed
     # as the loop is
     topl_device_s: float = 0.0
@@ -344,6 +345,9 @@ class KnnServer:
             # the port's numerics are f32 throughout (no TF32 anywhere)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            # the kernel library's build (a checkout's first use) and load
+            # here, not inside the first request's wait
+            kops.load_library()
         self._store = store
         self._summaries = self._index = None
         self._points = self._ids = self._values = None
@@ -641,9 +645,13 @@ class KnnServer:
                 use_sampling=cfg.use_sampling, num_pivots=cfg.num_pivots,
                 point_labels=labels, phases=phases, **masks)
             ph.mark("readback")
+            sel = res.selection
             d, i = res.dists.cpu().numpy(), res.ids.cpu().numpy()
-            surv = res.prune.survivors.cpu().numpy()
-            syncs += res.selection.host_syncs + 3
+            # Algorithm 1's per-row counts ride with the survivors
+            surv, rows = torch.stack(
+                [res.prune.survivors, sel.row_iterations]).cpu().numpy()
+            iters = int(rows.max()) if len(rows) else 0
+            syncs += sel.host_syncs + 3
             pred = None
             if labels is not None:
                 # the fold and one readback of (label, confidence)
@@ -653,7 +661,7 @@ class KnnServer:
                     num_classes=cfg.num_classes)
                 lc = torch.stack([label, conf]).cpu().numpy()
                 pred, syncs = (lc[0], lc[1]), syncs + 1
-            return _Batch(d, i, res.selection.iterations, surv, syncs,
+            return _Batch(d, i, iters, surv, syncs,
                           touched, frac, pred, active=act,
                           keep_any=keep_any, phases=_closed(phases))
         sd, si = knn_mod.knn_simple(points, ids, qt, cfg.l_max,
@@ -885,6 +893,7 @@ class KnnServer:
         kspan = tracer.record("kernel", t_route1 if routed else t_snap,
                               t_done, parent=dspan, sampler=cfg.sampler,
                               route_compute=cfg.route_compute,
+                              iterations=out.iterations,
                               host_syncs=out.host_syncs)
         topl_device_s, select_s, merge_s = None, 0.0, 0.0
         for name, p0, p1, device_s, attrs in out.phases:

@@ -1365,3 +1365,190 @@ def test_family_on_the_card_matches_the_cpu(card, arch):
                                atol=1e-4)
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     assert abs(out["cuda"][2] - out["cpu"][2]) <= 1e-5
+
+
+# ---- Algorithm 1: the device loop against the host loop and a sort ------
+
+def _select_oracle(v, i, l, valid):
+    """The rank-l key of every row by a sort in f64, ties to the smaller
+    id: ``(thr_v, thr_i)``; ``(-inf, -2**31)`` at l <= 0 and ``(+inf,
+    2**31-1)`` at l >= the row's valid total."""
+    k, B, m = v.shape
+    vv = v.double().permute(1, 0, 2).reshape(B, k * m)
+    ii = i.permute(1, 0, 2).reshape(B, k * m).long()
+    ok = (torch.ones_like(vv, dtype=torch.bool) if valid is None
+          else valid.permute(1, 0, 2).reshape(B, k * m))
+    # (hidden last, value, id): three stable sorts, the last key first
+    order = torch.argsort(ii, dim=1, stable=True)
+    order = order.gather(1, torch.argsort(vv.gather(1, order), dim=1,
+                                          stable=True))
+    order = order.gather(1, torch.argsort((~ok).gather(1, order).int(),
+                                          dim=1, stable=True))
+    total = ok.sum(1)
+    lt = torch.minimum(torch.as_tensor(l, device=v.device).expand(B).long(),
+                       total)
+    pick = order.gather(1, (lt - 1).clamp(min=0)[:, None])[:, 0]
+    tv = vv.gather(1, pick[:, None])[:, 0]
+    ti = ii.gather(1, pick[:, None])[:, 0]
+    allsel, zero = lt >= total, lt <= 0
+    tv = torch.where(allsel, float("inf"),
+                     torch.where(zero, float("-inf"), tv))
+    ti = torch.where(allsel, INT32_MAX, torch.where(zero, -2**31, ti))
+    return tv.to(v.dtype), ti.to(torch.int32)
+
+
+def _select_case(card, B, m, kind, seed, k=8):
+    """``(v, ids, l, valid)`` of one selection: per-shard ascending runs
+    of m distances as the step writes them (+inf slots with the sentinel
+    id at the tail of some shards), unique ids, l mixing 0, 1, m and
+    beyond the valid total (as many as B has rows); ``kind``: ``prune``
+    (sample_prune's mask, two rows all invalid, one where B < 6), ``ties`` (distances on a grid of 8, the prune's
+    mask) or ``plain`` (no mask)."""
+    from repro_torch.core import sampling
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    v = torch.rand((k, B, m), generator=g, device=card)
+    if kind == "ties":
+        v = torch.round(v * 8) / 8
+    v = torch.sort(v, dim=-1).values
+    ids = torch.randperm(k * B * m, generator=g, device=card).to(
+        torch.int32).view(k, B, m)
+    tail = torch.rand((k, B, 1), generator=g, device=card) < 0.3
+    slot = torch.arange(m, device=card) >= m - m // 5
+    v = torch.where(tail & slot, float("inf"), v)
+    ids = torch.where(tail & slot, INT32_MAX, ids)
+    l = torch.randint(0, m + 1, (B,), generator=g, device=card,
+                      dtype=torch.int32)
+    l[:4] = torch.tensor([0, 1, m, k * m + 5], dtype=torch.int32)[:B]
+    if kind == "plain":
+        return v, ids, l, None
+    valid = sampling.sample_prune(v, g, l.clamp(max=m)).valid.clone()
+    valid[:, 5 % B] = False
+    valid[:, B - 1] = False
+    return v, ids, l, valid
+
+
+def _check_select(card, v, ids, l, valid, pivots, seed=1):
+    """The device loop against the host loop and an f64 sort on one case:
+    thresholds and converged flags torch.equal, one launch, no sync, the
+    rows done at once at 0 iterations and the rest at 1 or more; returns
+    the device loop's result."""
+    from repro_torch.core import selection
+    from repro_torch.kernels import select_loop as sl
+    assert ops.select_path(v) == ops.DEVICE_LOOP
+    k, _, m = v.shape
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    before = sl.COUNT.n
+    dev = selection.select_l_smallest(v, ids, l, g, valid=valid,
+                                      num_pivots=pivots)
+    assert sl.COUNT.n - before == 1 and dev.host_syncs == 0
+    cap = selection.iteration_cap(k * m)
+    host = selection.host_loop(v, ids, l, g, valid=valid,
+                               max_iterations=cap, num_pivots=pivots)
+    assert sl.COUNT.n - before == 1
+    ov, oi = _select_oracle(v, ids, l, valid)
+    for got in (dev, host):
+        assert torch.equal(got.threshold_v, ov)
+        assert torch.equal(got.threshold_i, oi)
+        assert bool(got.converged.all())
+    total = k * m if valid is None else valid.sum((0, 2))
+    done_at_once = (l.clamp(max=k * m) <= 0) | (l >= total)
+    assert bool((dev.row_iterations[done_at_once] == 0).all())
+    assert bool((dev.row_iterations[~done_at_once] > 0).all())
+    assert dev.iterations == int(dev.row_iterations.max()) <= cap
+    return dev
+
+
+@pytest.mark.parametrize("B,m", [(128, 100), (128, 1024), (64, 100)])
+@pytest.mark.parametrize("kind", ["prune", "ties", "plain"])
+@pytest.mark.parametrize("pivots", [1, 8])
+def test_select_device_loop_equals_host_loop(card, B, m, kind, pivots):
+    """Algorithm 1 at k = 8, one pivot or every shard's (num_pivots > 1):
+    the device loop's thresholds and converged flags torch.equal to the
+    host loop's and to an f64 sort's, in one launch; every row converged
+    within the cap, and the batch's iterations inside the Theorem-1
+    envelope."""
+    from repro_torch.obs import ContractAuditor
+    from repro_torch.obs.metrics import MetricsRegistry
+    v, ids, l, valid = _select_case(card, B, m, kind, seed=B + m)
+    assert plan.select(8 * m, 4, pivots).smem_keys
+    dev = _check_select(card, v, ids, l, valid, pivots)
+    auditor = ContractAuditor(MetricsRegistry(), k=8)
+    assert 2 * dev.iterations <= auditor.rounds_bound(
+        m, 8 * m, use_sampling=valid is not None, sampler="selection")
+
+
+@pytest.mark.parametrize("B,m,kind", [(4, 8192, "prune"), (4, 8192, "ties"),
+                                      (2, 16384, "plain")])
+@pytest.mark.parametrize("pivots", [1, 8])
+def test_select_device_loop_keys_in_global_memory(card, B, m, kind, pivots):
+    """Rows too long for their keys to sit in shared memory (65,536 and
+    131,072 keys: the LM sampler's vocabulary scale) read them where they
+    lie, with several words of in-range bits a thread: thresholds as the
+    host loop's and the sort's."""
+    v, ids, l, valid = _select_case(card, B, m, kind, seed=m + pivots)
+    assert not plan.select(8 * m, 4, pivots).smem_keys
+    _check_select(card, v, ids, l, valid, pivots)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_select_device_loop_half_keys(card, dtype):
+    """bf16 and f16 keys take the device loop too, thresholds as the host
+    loop's and the sort's."""
+    v, ids, l, valid = _select_case(card, 128, 100, "ties", seed=7)
+    _check_select(card, v.to(dtype), ids, l, valid, 1, seed=2)
+
+
+def test_select_device_loop_stops_at_the_cap(card):
+    """``max_iterations=1``: converged rows hold the exact threshold, the
+    rest the initial one; one iteration each, none for rows done at
+    once."""
+    from repro_torch.core import selection
+    v, ids, l, valid = _select_case(card, 128, 1024, "prune", seed=3)
+    g = torch.Generator(device=card)
+    g.manual_seed(4)
+    res = selection.select_l_smallest(v, ids, l, g, valid=valid,
+                                      max_iterations=1)
+    ov, oi = _select_oracle(v, ids, l, valid)
+    c = res.converged
+    assert not bool(c.all())
+    assert torch.equal(res.threshold_v[c], ov[c])
+    assert torch.equal(res.threshold_i[c], oi[c])
+    assert bool((res.threshold_v[~c] == float("-inf")).all())
+    assert bool((res.threshold_i[~c] == -2**31).all())
+    assert bool((res.row_iterations <= 1).all())
+    assert res.iterations == 1
+
+
+@pytest.mark.parametrize("shape", ["deep1b", "knnlm", "open"])
+def test_knn_query_batched_paths_equal(card, monkeypatch, shape):
+    """Algorithm 2 at scaled-down cell shapes (deep1b: B 128, l 100, d 96;
+    knnlm: l 1,024, d 64; the open cell: a bucket of 64 with 41 rows at l
+    = 10 and 23 padding rows): the (B, l) distances and ids torch.equal
+    between the device loop and the host loop, one device-loop launch a
+    batch."""
+    from repro_torch.core import knn, selection
+    from repro_torch.kernels import select_loop as sl
+    B, m, d, l_max = {"deep1b": (128, 4096, 96, 100),
+                      "knnlm": (128, 4096, 64, 1024),
+                      "open": (64, 4096, 96, 100)}[shape]
+    p = _randn(card, 8, m, d, seed=40)
+    q = _randn(card, B, d, seed=41)
+    pid = torch.arange(8 * m, dtype=torch.int32, device=card).view(8, m)
+    ls = torch.full((B,), l_max, dtype=torch.int32, device=card)
+    if shape == "open":
+        ls[:41], ls[41:] = 10, 0
+    out = {}
+    for path in (ops.DEVICE_LOOP, ops.HOST_LOOP):
+        monkeypatch.setattr(selection.kops, "select_path",
+                            lambda v, path=path: path)
+        g = torch.Generator(device=card)
+        g.manual_seed(5)
+        before = sl.COUNT.n
+        res = knn.knn_query_batched(p, pid, q, l_max, ls, g)
+        assert sl.COUNT.n - before == int(path == ops.DEVICE_LOOP)
+        out[path] = res
+    a, b = out[ops.DEVICE_LOOP], out[ops.HOST_LOOP]
+    assert torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
+    assert torch.equal(a.mask, b.mask)

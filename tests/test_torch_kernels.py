@@ -21,6 +21,7 @@ from repro_torch.kernels import l2_distance as tl2
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import plan
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import select_loop as tsl
 from repro_torch.kernels.local_topk import local_topk_plain
 
 # the cases are small: one intra-op thread a process is faster here than
@@ -259,6 +260,10 @@ class _FakeLibrary:
         self.calls.append(("topk_wide", args))
         return 0
 
+    def knn_select_loop(self, *args):
+        self.calls.append(("select", args))
+        return 0
+
 
 @pytest.fixture
 def fake_card(monkeypatch):
@@ -448,3 +453,99 @@ def test_envelope_names_the_distance_topk_tile(monkeypatch):
     assert big_l["dtk_path"] == "l2+local_topk" and big_l["dtk_tile"] is None
     cpu = tops.service_envelope(128, m, 96, 100, k=8, device="cpu")
     assert cpu["dtk_tile"] is None
+
+
+def test_envelope_names_the_select_path(monkeypatch):
+    """``service_envelope``'s ``select_path``: the device loop on the
+    card, at every l and bucket; the host loop on the CPU."""
+    monkeypatch.setattr(tops._ltk, "sm_count", lambda index: 132)
+    card, m = torch.device("cuda"), 1 << 20
+    got = {tops.service_envelope(b, m, 96, l, k=8,
+                                 device=card)["select_path"]
+           for l in (10, 100, 1024, 4096) for b in (1, 32, 128)}
+    assert got == {tops.DEVICE_LOOP}
+    cpu = tops.service_envelope(128, m, 96, 100, k=8, device="cpu")
+    assert cpu["select_path"] == tops.HOST_LOOP
+
+
+@pytest.mark.parametrize("B,m,dtype,pivots,per_row,want", [
+    (128, 100, torch.float32, 1, False, (128, 7, 1, 1, 0)),
+    (5, 1024, torch.bfloat16, 1, True, (1024, 8, 1, 1, 1)),
+    (5, 100, torch.float16, 4, True, (128, 7, 8, 1, 2)),
+    (2, 8192, torch.float32, 1, False, (1024, 64, 1, 0, 0)),
+    (0, 100, torch.float32, 1, False, (128, 7, 1, 1, 0))])
+def test_select_loop_launch_args(fake_card, B, m, dtype, pivots, per_row,
+                                 want):
+    """The device loop's one launch: the grid's rows, k and m, the cap,
+    the plan's threads and keys a thread, the pivots (k where num_pivots
+    > 1), whether the keys sit in shared memory (a row of 65,536 keys
+    does not), the key code; an int l travels as a scalar, a (B,) l as
+    int32 rows on the device; an empty batch launches nothing."""
+    v = torch.zeros(8, B, m, dtype=dtype)
+    ids = torch.zeros(8, B, m, dtype=torch.int32)
+    l = torch.arange(B, dtype=torch.int64) if per_row else 100
+    before = tsl.COUNT.n
+    out = tsl.select_loop_cuda(v, ids, l, torch.Generator(),
+                               valid=torch.ones(8, 1, m, dtype=torch.bool),
+                               max_iterations=70, num_pivots=pivots)
+    assert [(t.shape, t.dtype) for t in out] == [
+        ((B,), dtype), ((B,), torch.int32), ((B,), torch.bool),
+        ((B,), torch.int32)]
+    if B == 0:
+        assert fake_card.calls == [] and tsl.COUNT.n == before
+        return
+    [(name, args)] = fake_card.calls
+    assert name == "select" and tsl.COUNT.n == before + 1
+    assert args[10:14] == (B, 8, m, 70) and args[14:19] == want
+    assert args[2] is not None and (args[3] is None) != per_row
+    assert args[4] == (0 if per_row else 100)
+
+
+def test_select_loop_refuses_what_no_block_holds(fake_card):
+    """A row whose in-range bits pass a block's shared memory, f64 keys
+    or int64 ids raise; nothing is launched."""
+    with pytest.raises(ValueError, match="shared memory"):
+        tsl.select_loop_cuda(torch.zeros(1, 1, 1835009),
+                             torch.zeros(1, 1, 1835009, dtype=torch.int32),
+                             10, torch.Generator(), max_iterations=8)
+    with pytest.raises(TypeError, match="float16"):
+        tsl.select_loop_cuda(torch.zeros(8, 2, 100, dtype=torch.float64),
+                             torch.zeros(8, 2, 100, dtype=torch.int32), 10,
+                             torch.Generator(), max_iterations=8)
+    with pytest.raises(ValueError, match="int32"):
+        tsl.select_loop_cuda(torch.zeros(8, 2, 100),
+                             torch.zeros(8, 2, 100, dtype=torch.int64), 10,
+                             torch.Generator(), max_iterations=8)
+    assert fake_card.calls == []
+
+
+def test_select_takes_the_path_of_the_device(fake_card, monkeypatch):
+    """``select_l_smallest``: keys on the card take the device loop, one
+    launch, with no sync and per-row counts, num_pivots > 1 too (k
+    pivots); CPU keys take the unchanged host loop, which launches
+    nothing and counts its done checks, the batch's iterations its
+    largest row's."""
+    from repro_torch.core import selection
+    v = torch.rand(8, 4, 100)
+    ids = torch.arange(3200, dtype=torch.int32).view(8, 4, 100)
+    before = tsl.COUNT.n
+    cpu = selection.select_l_smallest(v, ids, 10, torch.Generator())
+    host = selection.host_loop(v, ids, 10, torch.Generator(),
+                               max_iterations=selection.iteration_cap(800))
+    assert tsl.COUNT.n == before and fake_card.calls == []
+    assert tops.select_path(v) == tops.HOST_LOOP
+    for a, b in zip(cpu, host):
+        assert a == b if isinstance(a, int) else torch.equal(a, b)
+    assert cpu.host_syncs == cpu.iterations + 1
+    assert cpu.iterations == int(cpu.row_iterations.max()) > 0
+    monkeypatch.setattr(tops, "_path", lambda entry, t: "cuda")
+    assert tops.select_path(v) == tops.DEVICE_LOOP
+    res = selection.select_l_smallest(v, ids, 10, torch.Generator())
+    multi = selection.select_l_smallest(v, ids, 10, torch.Generator(),
+                                        num_pivots=4)
+    assert [c[0] for c in fake_card.calls] == ["select", "select"]
+    assert tsl.COUNT.n == before + 2
+    assert fake_card.calls[0][1][13] == selection.iteration_cap(800)
+    assert [c[1][16] for c in fake_card.calls] == [1, 8]
+    for r in (res, multi):
+        assert r.host_syncs == 0 and r.row_iterations.shape == (4,)

@@ -402,8 +402,7 @@ def test_phase_clock_marks_algorithm2_on_cpu_tensors():
     assert [p[0] for p in phases] == ["topl", "prune", "select", "gather",
                                       "readback"]
     assert all(p[3] is None for p in phases)
-    assert phases[2][4] == {"iterations": res.selection.iterations,
-                            "host_syncs": res.selection.host_syncs}
+    assert phases[2][4] == {"host_syncs": res.selection.host_syncs}
     assert all(a[2] == b[1] for a, b in zip(phases, phases[1:]))
     tr = ttrace.Tracer()
     kernel = tr.record("kernel", phases[0][1], phases[-1][2])

@@ -326,3 +326,43 @@ def test_envelopes_report_the_plain_path_on_cpu(pts):
     srv = _port(pts)
     assert [e["bucket_b"] for e in srv.envelopes] == [4, 8]
     assert all(e["path"] == "plain" for e in srv.envelopes)
+    assert all(e["select_path"] == "host_loop" for e in srv.envelopes)
+
+
+def test_device_loop_counts_ride_with_the_answers(monkeypatch, rng, pts):
+    """With a stand-in for Algorithm 1's device loop (the host loop's
+    thresholds, per-row counts left as a tensor and no sync): the same
+    answers as the host loop; the batch's iterations the largest row's,
+    read in the survivors' transfer, so a batch makes its 3 readbacks and
+    no loop sync; the kernel span carries the count."""
+    from repro_torch.core import selection
+
+    def stand_in(v, i, l, gen, *, valid=None, max_iterations,
+                 num_pivots=1):
+        r = selection.host_loop(v, i, l, gen, valid=valid,
+                                max_iterations=max_iterations)
+        return r.threshold_v, r.threshold_i, r.converged, r.row_iterations
+
+    qs = rng.normal(size=(6, DIM)).astype(np.float32)
+    ls = [1, 3, 16, 11, 8, 16]
+    host = _port(pts).query_batch(qs, ls)
+    monkeypatch.setattr(selection.kops, "select_path",
+                        lambda v: selection.kops.DEVICE_LOOP)
+    monkeypatch.setattr(selection.kops, "select_loop", stand_in)
+    srv = KnnServer(pts, cfg=CONFIG.replace(obs_trace=True, **KW),
+                    device="cpu", seed=0)
+    dev = srv.query_batch(qs, ls)
+    for a, b in zip(dev, host):
+        assert a.dists.tobytes() == b.dists.tobytes()
+        assert np.array_equal(a.ids, b.ids)
+        assert a.iterations == b.iterations > 0
+        assert a.survivors == b.survivors
+        assert a.host_syncs == 3 == b.host_syncs - b.iterations - 1
+    spans = srv.obs.tracer.spans()
+    kern = [r for r in spans if r["name"] == "kernel"]
+    assert kern and all(isinstance(r["attrs"]["iterations"], int)
+                        for r in kern)
+    assert {r["attrs"]["iterations"] for r in kern} == {
+        r.iterations for r in dev}
+    assert all("iterations" not in r["attrs"] for r in spans
+               if r["name"] == "select")
