@@ -27,7 +27,10 @@ Phases:
      and bf16, unmasked and routed, one l2_distance_wide launch a call;
      distance_topk's whole-bucket path at B = 64 and 128, d = 96, l =
      100, f32 and bf16, unmasked and routed, one distance_topk_wide
-     launch a call, and none from the 32-row cases); Algorithm 1's device
+     launch a call, and none from the 32-row cases; the uint8 step,
+     distance_topk_u8, at its 64- and 128-row tiles, d = 96 / 100 / 128,
+     l = 1 to 256, ties, a random mask and l > m, torch.equal to its
+     plain version, one distance_topk_u8 launch a call); Algorithm 1's device
      loop (select_loop) against the host loop on inputs made by the real
      step and prune at the three selection cells' shapes (B = 128 at l =
      100 and 1,024, the open cell's bucket of 64 at l = 10) and a bucket
@@ -281,7 +284,7 @@ KERNELS = {
 # every launch counter of the port (kernels/ops.py COUNTERS)
 COUNTERS = ("l2_distance", "l2_distance_wide", "distance_topk",
             "distance_topk_wide", "local_topk", "route_index_mask",
-            "select_loop")
+            "select_loop", "distance_topk_u8")
 # phase 4's extra numbers for the two distance kernels, on the kernels line
 MASKED_KEYS = ("kernel_ms", "masked_ms", "masked_kernel_ms", "masked_plain_ms",
                "masked_bound_ms", "masked_bound_by")
@@ -637,6 +640,41 @@ def phase_kernels(dev, results):
         del full
     results["dtk_wide"] = dict(launches=dtk_wide_launches,
                                max_abs_err=dtk_wide_err)
+
+    # the uint8 step (distance_topk_u8.cu, no TPU counterpart): its tiles
+    # of 64 and 128 rows, l at 1/10/256, d = 96 / 128 / 100 (rows no
+    # multiple of 16 bytes), ties (values in {0, 1, 2}), a random mask and
+    # l > m; each call one distance_topk_u8 launch, torch.equal to the
+    # plain version (exact integer distances)
+    u8_launches = 0
+    for (b, k, m, d, l, mode) in [(128, K, 65536, 128, 10, None),
+                                  (33, K, 65536, 96, 256, None),
+                                  (1, K, 65536, 128, 1, None),
+                                  (64, 3, 4099, 100, 10, None),
+                                  (128, K, 8192, 128, 100, "ties"),
+                                  (32, K, 8192, 128, 10, "random"),
+                                  (5, 2, 96, 128, 256, None)]:
+        high = 3 if mode == "ties" else 256
+        q = torch.randint(0, high, (b, d), generator=g, device=dev,
+                          dtype=torch.uint8)
+        p = torch.randint(0, high, (k, m, d), generator=g, device=dev,
+                          dtype=torch.uint8)
+        valid = (torch.rand((k, m), generator=g, device=dev) > 0.4
+                 if mode == "random" else None)
+        n0 = dtk.COUNT_U8.n
+        v, i = kops.distance_topk(q, p, l, valid=valid)
+        torch.cuda.synchronize()
+        if dtk.COUNT_U8.n - n0 != 1:
+            raise PhaseError(f"distance_topk_u8 {(b, k, m, d, l, mode)}: "
+                             f"{dtk.COUNT_U8.n - n0} launches; want 1")
+        u8_launches += 1
+        rv, ri = dtk.distance_topk_u8_plain(q, p, l, valid=valid)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise PhaseError(f"distance_topk_u8 {(b, k, m, d, l, mode)}: "
+                             f"differs from the plain version")
+        log(f"  distance_topk_u8 B={b} k={k} m={m} d={d} l={l} "
+            f"{mode or ''}: values and ids equal")
+    results["dtk_u8"] = dict(launches=u8_launches)
 
     # local_topk: the gather path's two shapes, l seam, ties, bf16, rows
     # no multiple of 4 (8 in bf16) long and short, negative values with

@@ -4,7 +4,8 @@ Port of ``repro.core.knn``.  Per query batch, with the shard as
 dimension 0 of every per-shard tensor:
 
   1-2. distances and the per-shard top-L (Steps 8 and 2): one fused
-       distance_topk kernel on the card (``local_distance_top_l``)
+       distance_topk kernel on the card (``local_distance_top_l``; f32
+       points, or uint8 points and queries with exact distances)
   3.   sample-and-prune to O(l) survivors (``core.sampling``)
   4.   Algorithm 1 selection on the survivors (``core.selection``)
   5.   per-shard winner mask, and optionally the replicated (B, l)
@@ -125,8 +126,12 @@ def local_distance_top_l(queries, points, point_ids, l: int, valid=None,
     and global ids, without the ``(k, B, m)`` matrix (distance_topk).
     ``valid`` (``(k, m)`` bool) puts masked points at +inf; ``extra``
     (``(k, m)``, optional) adds the payload behind each slot as a third
-    output (:func:`local_top_l`)."""
-    if points.shape[-2] <= l:
+    output (:func:`local_top_l`).  uint8 points take the uint8 step
+    whatever m and l: the queries, integers in [0, 255], are converted
+    to uint8 here, once a batch."""
+    if points.dtype == torch.uint8:
+        queries = queries.to(torch.uint8)
+    elif points.shape[-2] <= l:
         return local_top_l(kops.l2_distance(queries, points, valid=valid),
                            point_ids, l, extra=extra)
     v, idx = kops.distance_topk(queries, points, l, valid=valid)

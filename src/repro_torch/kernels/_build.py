@@ -46,6 +46,9 @@ SIGNATURES = {
     # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, dtype,
     # row_tile, groups, cand; stream
     "knn_distance_topk_wide": ([_P] * 6 + [_I] * 10 + [_P], _I),
+    # q, p, valid, gthr, out_v, out_i; B, k, m, d, l, chunk, row_tile,
+    # cand; stream
+    "knn_distance_topk_u8": ([_P] * 6 + [_I] * 8 + [_P], _I),
     # v, ids, valid, ls; l_all; seed, thr_v, thr_i, converged, iters; B, k,
     # m, max_it, threads, per, pivots, smem_keys, dtype; stream
     "knn_select_loop": ([_P] * 4 + [_I] + [_P] * 5 + [_I] * 9 + [_P], _I),

@@ -17,6 +17,13 @@ bit-equal and the keys order as (value, id), ties to the smaller id.  The
 by the local_topk kernel with ids carried.  Points with ``valid == 0``
 never win a slot (a tile with none valid is not even read), and a slot
 that no point fills reports ``(+inf, 2**31-1)``.
+
+uint8 points (with uint8 queries) take a third kernel,
+``csrc/distance_topk_u8.cu``: the whole-bucket walk with its product on
+the int8 tensor cores (counted in ``COUNT`` and apart, ``COUNT_U8``).
+Their distances are exact integers, exact in f32 up to d = 258, so the
+kernel equals :func:`distance_topk_u8_plain` (an f64 product rounded once)
+bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch.kernels import local_topk as _ltk
 
 COUNT = _cuda.LaunchCounter("distance_topk")            # every launch
 COUNT_WIDE = _cuda.LaunchCounter("distance_topk_wide")  # the B > 32 path
+COUNT_U8 = _cuda.LaunchCounter("distance_topk_u8")      # uint8 points
 
 # the key of (+inf, 2**31-1): float bits of +inf above the id; equal to
 # INF_KEY of csrc/common.cuh
@@ -50,21 +58,43 @@ def distance_topk_plain(queries, points, l: int, valid=None):
                           torch.full_like(i, ref.INT32_MAX))
 
 
+def distance_topk_u8_plain(queries, points, l: int, valid=None):
+    """``(B, d) x (..., m, d)`` uint8 -> ``((..., B, l) ascending f32, int32
+    ids)``: the squared distances in f64 (exact integers), rounded once to
+    f32 (exact up to d = 258); ``valid`` and sentinels as
+    :func:`distance_topk_plain`."""
+    q, p = queries.double(), points.double()
+    d = ((q * q).sum(-1, keepdim=True) + (p * p).sum(-1).unsqueeze(-2)
+         - 2.0 * torch.matmul(q, p.transpose(-1, -2))).float()
+    if valid is not None:
+        d = torch.where(valid.bool().unsqueeze(-2), d,
+                        torch.full_like(d, float("inf")))
+    v, i = _ltk.local_topk_plain(d, l)
+    return v, torch.where(torch.isfinite(v), i,
+                          torch.full_like(i, ref.INT32_MAX))
+
+
 def distance_topk_cuda(queries, points, l: int, valid=None):
     """The kernel: ``(B, d) x (m, d)`` or ``(k, m, d)`` points ->
-    ``((B, l) or (k, B, l) ascending f32, int32 local point indices)``."""
+    ``((B, l) or (k, B, l) ascending f32, int32 local point indices)``.
+    Queries and points both f32, both bf16 or both uint8."""
     flat = points.dim() == 2
     p3 = points.unsqueeze(0) if flat else points
     _cuda.check_cuda("distance_topk", queries, p3)
     _cuda.check_l("distance_topk", l)
-    code = _cuda.dtype_code(queries, p3)
+    u8 = p3.dtype == torch.uint8
+    if u8 and queries.dtype != torch.uint8:
+        raise TypeError(f"distance_topk: uint8 points take uint8 queries, "
+                        f"got {queries.dtype}")
+    code = None if u8 else _cuda.dtype_code(queries, p3)
     if queries.dim() != 2 or p3.dim() != 3 or queries.shape[1] != p3.shape[2]:
         raise ValueError(f"distance_topk: shapes {tuple(queries.shape)} x "
                          f"{tuple(points.shape)} do not contract")
     B, d = queries.shape
     k, m, _ = p3.shape
-    tp = plan.topk(B, d, l, p3.element_size(), m,
-                   _ltk.sm_count(queries.device.index or 0))
+    sms = _ltk.sm_count(queries.device.index or 0)
+    tp = (plan.topk_u8(B, d, l, m, sms) if u8
+          else plan.topk(B, d, l, p3.element_size(), m, sms))
     if tp.unsupported:
         raise ValueError(f"distance_topk: {tp.unsupported}")
     vf = (None if valid is None
@@ -83,14 +113,19 @@ def distance_topk_cuda(queries, points, l: int, valid=None):
         lib = _build.library()
         args = (queries.data_ptr(), p3.data_ptr(),
                 None if vf is None else vf.data_ptr(), gthr.data_ptr(),
-                pv.data_ptr(), pi.data_ptr(), B, k, m, d, l, tp.chunk, code)
+                pv.data_ptr(), pi.data_ptr(), B, k, m, d, l, tp.chunk)
         stream = _cuda.stream_of(queries)
-        if tp.wide:
+        if u8:
+            _cuda.ok("distance_topk", lib.knn_distance_topk_u8(
+                *args, tp.tile, tp.cand, stream))
+            COUNT_U8.add()
+        elif tp.wide:
             _cuda.ok("distance_topk", lib.knn_distance_topk_wide(
-                *args, tp.tile, tp.groups, tp.cand, stream))
+                *args, code, tp.tile, tp.groups, tp.cand, stream))
             COUNT_WIDE.add()
         else:
-            _cuda.ok("distance_topk", lib.knn_distance_topk(*args, stream))
+            _cuda.ok("distance_topk", lib.knn_distance_topk(*args, code,
+                                                            stream))
         COUNT.add()
         v, i = _ltk.merge_partials(pv, pi, l)
         v, i = v.reshape(k, B, l), i.reshape(k, B, l)

@@ -33,7 +33,7 @@ from repro_torch.kernels import select_loop as _sel
 
 COUNTERS = {c.name: c for c in (_l2.COUNT, _l2.COUNT_WIDE, _dtk.COUNT,
                                 _dtk.COUNT_WIDE, _ltk.COUNT, _rt.COUNT,
-                                _sel.COUNT)}
+                                _sel.COUNT, _dtk.COUNT_U8)}
 DEVICE_LOOP, HOST_LOOP = "device_loop", "host_loop"   # Algorithm 1's paths
 
 
@@ -62,18 +62,21 @@ def l2_distance(queries, points, *, valid=None):
 def distance_topk(queries, points, l: int, *, valid=None):
     """Fused distance + top-l: ``((..., B, l) ascending, int32 indices
     into the point axis)``; +inf slots carry ``2**31-1``.  On the card,
-    where the plan's path is not the fused kernel, the distances are
+    where the plan's path is not a fused kernel, the distances are
     written by l2_distance and their top-l taken in passes by
-    local_topk."""
+    local_topk.  uint8 points take uint8 queries and exact integer
+    distances (``distance_topk_u8``; on the CPU its plain version)."""
     if _path("distance_topk", queries) == "cuda":
         sp = plan.step(queries.shape[0], queries.shape[-1], l,
                        points.element_size(), points.shape[-2],
                        _ltk.sm_count(queries.device.index or 0))
-        if sp.path == plan.DISTANCE_TOPK:
+        if sp.path in (plan.DISTANCE_TOPK, plan.DISTANCE_TOPK_U8):
             return _dtk.distance_topk_cuda(queries, points, l, valid=valid)
         v, i = _ltk.local_topk_cuda(
             _l2.l2_distance_cuda(queries, points, valid=valid), l)
         return v, torch.where(torch.isfinite(v), i, ref.INT32_MAX)
+    if points.dtype == torch.uint8:
+        return _dtk.distance_topk_u8_plain(queries, points, l, valid=valid)
     return _dtk.distance_topk_plain(queries, points, l, valid=valid)
 
 
@@ -175,34 +178,39 @@ def reset_launch_counts() -> None:
 
 
 def service_envelope(bucket_b: int, m_local: int, dim: int, l: int, *,
-                     k: int, device) -> dict:
+                     k: int, device, dtype=torch.float32) -> dict:
     """Which path each kernel takes for one service bucket shape, without
     launching anything: ``cuda`` on the card, ``plain`` on the CPU.  On
-    the card, the f32 step's plan (``kernels/plan.py``) under these keys:
-    its path (``dtk_path``), the fused kernel's tile, chunk and blocks or
-    local_topk's passes, l2_distance's tile and blocks; all None on the
-    CPU, and on the card where the plan is ``unsupported``.
+    the card, the step's plan (``kernels/plan.py``) for points of
+    ``dtype`` (``points_dtype``; any type but uint8 is planned as f32)
+    under these keys: its path (``dtk_path``), the fused kernel's tile,
+    chunk and blocks or local_topk's passes, l2_distance's tile and blocks
+    (None for uint8 points, whose step is ``distance_topk_u8``); all None
+    on the CPU, and on the card where the plan is ``unsupported``.
     ``select_path``: where Algorithm 1 runs, ``device_loop`` on the card
     and ``host_loop`` on the CPU.
     """
     dev = torch.device(device)
     path = "cuda" if dev.type == "cuda" else "plain"
+    u8 = dtype == torch.uint8
     env = {"bucket_b": bucket_b, "m_local": m_local, "dim": dim, "l": l,
-           "k": k, "path": path, "dtk_path": None, "dtk_tile": None,
+           "k": k, "path": path, "points_dtype": str(dtype).split(".")[-1],
+           "dtk_path": None, "dtk_tile": None,
            "dtk_chunk": None, "dtk_blocks": None, "ltk_passes": None,
            "l2_tile": None, "l2_blocks": None, "unsupported": None,
            "select_path": HOST_LOOP}
     if path == "plain":
         return env
     env["select_path"] = DEVICE_LOOP
-    sp = plan.step(bucket_b, dim, l, 4, m_local,
+    sp = plan.step(bucket_b, dim, l, plan.U8_ELEM if u8 else 4, m_local,
                    _ltk.sm_count(dev.index or 0))
     if sp.unsupported:
         env["unsupported"] = sp.unsupported
         return env
-    env.update(dtk_path=sp.path, ltk_passes=sp.passes, l2_tile=sp.l2.tile,
-               l2_blocks=sp.l2.blocks)
-    if sp.path == plan.DISTANCE_TOPK:
+    env.update(dtk_path=sp.path, ltk_passes=sp.passes)
+    if not u8:
+        env.update(l2_tile=sp.l2.tile, l2_blocks=sp.l2.blocks)
+    if sp.path != plan.L2_LOCAL_TOPK:
         env.update(dtk_tile=sp.topk.tile, dtk_chunk=sp.topk.chunk,
                    dtk_blocks=sp.topk.blocks)
     return env

@@ -2,7 +2,8 @@
 maps a bucket's shape to its kernels, tiles, layouts and chunks.
 
 Inputs: the bucket's rows B, the width d, the rank l, the element size
-(4 or 2), the points a shard m and the card's SM count.  The kernel
+(4 or 2, or 1 for uint8 points), the points a shard m and the card's SM
+count.  The kernel
 wrappers launch what the plan says, ``ops.distance_topk`` branches on
 its path and ``ops.service_envelope`` reports its fields.  The dispatch
 rule:
@@ -21,6 +22,11 @@ rule:
   kernel.  Each shard's points are cut into chunks of whole point tiles
   so that chunks x query tiles fill the SMs ``TOPK_BLOCKS_PER_SM`` or
   ``WIDE_BLOCKS_PER_SM`` times over;
+- uint8 points (element size 1) take one kernel whatever B, l and d:
+  ``distance_topk_u8`` (``csrc/distance_topk_u8.cu``), the whole-bucket
+  walk with its product on the int8 tensor cores, a tile of 64 rows up to
+  64 (a smaller bucket padded), else 128, a ring of three 128-byte slabs;
+  l above ``MAX_L`` or d above ``U8_MAX_D`` has no uint8 kernel;
 - a block above ``SMEM_MAX`` bytes of shared memory has no kernel: the
   plan says why in ``unsupported`` and the wrappers raise it;
 - Algorithm 1 (``select``) is the device loop (``csrc/select_loop.cu``),
@@ -65,7 +71,13 @@ WIDE_MIN_CAND = {2: 64, 3: 32}  # at least, by the ring's groups
 SELECT_MAX_THREADS = 1024
 SELECT_PER = 8
 
+# uint8 points: the distance d * 255**2 is an exact f32 up to this width
+U8_ELEM, U8_MAX_D = 1, 258
+U8_GROUPS = 3              # distance_topk_u8.cu's ring: three slabs
+U8_BARS = 8 * (U8_GROUPS + 1)   # its mbarriers a slab, 8-byte aligned
+
 DISTANCE_TOPK, L2_LOCAL_TOPK = "distance_topk", "l2+local_topk"
+DISTANCE_TOPK_U8 = "distance_topk_u8"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,9 +111,9 @@ class TopkPlan:
 
 @dataclasses.dataclass(frozen=True)
 class StepPlan:
-    path: str                   # DISTANCE_TOPK or L2_LOCAL_TOPK
-    l2: L2Plan
-    topk: Optional[TopkPlan]    # None above MAX_L
+    path: str                   # DISTANCE_TOPK, L2_LOCAL_TOPK or _U8
+    l2: Optional[L2Plan]        # None for uint8 points
+    topk: Optional[TopkPlan]    # None above MAX_L (f32, bf16)
     passes: Optional[int]       # local_topk's, on L2_LOCAL_TOPK
     unsupported: Optional[str]  # of the path's first kernel
 
@@ -189,27 +201,62 @@ def topk(B: int, d: int, l: int, elem: int, m: int, sms: int,
         groups, cand = _wide_layout(tile, d, elem)
         smem = _wide_fixed_smem(tile, d, elem, groups) + 8 * tile * cand
         per_sm, ptile = WIDE_BLOCKS_PER_SM[tile], WIDE_POINT_TILE
-    chunk = nchunks = width = blocks = None
-    if B and m:
-        # every block walks its chunk in all k shards: the card is filled
-        # by chunks x query tiles, whatever k and whichever shards a mask
-        # leaves alive
-        q_tiles = -(-B // tile)
-        n = max(1, min(-(-per_sm * sms // q_tiles), m // MIN_CHUNK))
-        chunk = -(-m // n)
-        chunk = -(-chunk // ptile) * ptile
-        nchunks = -(-m // chunk)
-        # one chunk: the answer; else the 32-row kernel's slots unmerged,
-        # the whole-bucket path's l smallest
-        width = l if nchunks == 1 or tile != QUERY_TILE else _slots(l)
-        blocks = nchunks * q_tiles
-    return TopkPlan(tile, groups, cand, smem, chunk, nchunks, width, blocks,
+    return TopkPlan(tile, groups, cand, smem,
+                    *_chunks(B, m, l, tile, per_sm, ptile, sms),
                     _unsupported(smem, d))
+
+
+def _chunks(B: int, m: int, l: int, tile: int, per_sm: int, ptile: int,
+            sms: int) -> tuple:
+    """``(chunk, nchunks, width, blocks)`` of a distance_topk launch; all
+    None where B or m is 0."""
+    if not (B and m):
+        return None, None, None, None
+    # every block walks its chunk in all k shards: the card is filled by
+    # chunks x query tiles, whatever k and whichever shards a mask leaves
+    # alive
+    q_tiles = -(-B // tile)
+    n = max(1, min(-(-per_sm * sms // q_tiles), m // MIN_CHUNK))
+    chunk = -(-m // n)
+    chunk = -(-chunk // ptile) * ptile
+    nchunks = -(-m // chunk)
+    # one chunk: the answer; else the 32-row kernel's slots unmerged, the
+    # whole-bucket paths' l smallest
+    width = l if nchunks == 1 or tile != QUERY_TILE else _slots(l)
+    return chunk, nchunks, width, nchunks * q_tiles
+
+
+@functools.lru_cache(maxsize=1024)
+def topk_u8(B: int, d: int, l: int, m: int, sms: int) -> TopkPlan:
+    """``distance_topk_u8``'s launch over a bucket of B rows of uint8
+    queries against uint8 points: the whole-bucket block's layout at
+    ``U8_GROUPS`` ring slabs (a slab of 128 dims), its candidate keys what
+    the budget leaves, at most ``WIDE_MAX_CAND``."""
+    tile = 64 if B <= 64 else 128
+    fixed = _wide_fixed_smem(tile, d, U8_ELEM, U8_GROUPS) + U8_BARS
+    cand = min(WIDE_MAX_CAND, (WIDE_SMEM[tile] - fixed) // (8 * tile))
+    smem = fixed + 8 * tile * max(cand, 0)
+    why = _unsupported(smem, d)
+    if d > U8_MAX_D:
+        why = (f"uint8 points at d={d}: a distance reaches d * 255**2, an "
+               f"exact f32 only up to d={U8_MAX_D}")
+    elif not 1 <= l <= MAX_L:
+        why = (f"l={l} outside [1, {MAX_L}] with uint8 points (their step "
+               f"is one kernel, with no passes)")
+    elif cand < WIDE_MIN_CAND[U8_GROUPS]:
+        why = (f"d={d}: {cand} candidate keys a row fit beside the uint8 "
+               f"block, below {WIDE_MIN_CAND[U8_GROUPS]}")
+    return TopkPlan(tile, U8_GROUPS, cand, smem,
+                    *_chunks(B, m, l, tile, WIDE_BLOCKS_PER_SM[tile],
+                             WIDE_POINT_TILE, sms), why)
 
 
 @functools.lru_cache(maxsize=1024)
 def step(B: int, d: int, l: int, elem: int, m: int, sms: int) -> StepPlan:
-    """The step over a bucket of B rows: its path and both kernels'."""
+    """The step over a bucket of B rows: its path and its kernels'."""
+    if elem == U8_ELEM:
+        tp = topk_u8(B, d, l, m, sms)
+        return StepPlan(DISTANCE_TOPK_U8, None, tp, None, tp.unsupported)
     lp = l2(B, d, elem, sms)
     tp = topk(B, d, l, elem, m, sms) if l <= MAX_L else None
     if tp is not None and _topk32_smem(d, l, elem) <= SMEM_MAX:

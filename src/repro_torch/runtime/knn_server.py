@@ -101,6 +101,7 @@ from repro_torch.configs.knn_service import CONFIG, KnnServiceConfig
 from repro_torch.core import knn as knn_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import plan
 from repro_torch.kernels import routing as routing_mod
 from repro_torch.obs import (NULL_PHASES, BatchCapture, ContractAuditor,
                              ExplainRecord, ObsPlane, PhaseClock,
@@ -306,6 +307,20 @@ def _check_config(cfg: KnnServiceConfig) -> None:
                 "label agreement is defined on class ids")
 
 
+def _check_u8(cfg: KnnServiceConfig) -> None:
+    """What uint8 points cannot serve: their step is one kernel of at most
+    ``MAX_L`` slots, and the routing summaries and the bucket index are
+    built over f32 points."""
+    if cfg.l_max > plan.MAX_L:
+        raise ValueError(f"l_max={cfg.l_max} above {plan.MAX_L} with uint8 "
+                         f"points: their step has no l2_distance + "
+                         f"local_topk passes")
+    if cfg.route != "exact" or cfg.search != "exact":
+        raise ValueError(f"uint8 points serve route='exact' and "
+                         f"search='exact', got route={cfg.route!r}, "
+                         f"search={cfg.search!r}")
+
+
 class KnnServer:
     """Serve l-NN queries against k shards of a static point set or a
     mutable store.
@@ -313,6 +328,11 @@ class KnnServer:
     ``points``: an ``(n, dim)`` numpy array (split by the reference's
     row -> shard rule, ``convert.shards_from_numpy``) or an ``(n, dim)``
     float32 tensor (viewed in place on its device when it is there).
+    uint8 points (array or tensor) stay uint8, with no f32 copy: their
+    step is the exact uint8 kernel, a query must then hold integers in
+    [0, 255], and ``l_max`` above 256, ``route="pruned"`` and
+    ``search="approx"`` are refused (the JAX reference serves f32 points
+    only).
     ``values``: optional ``(n,)`` int payload, looked up on the host.
     ``labels``: optional ``(n,)`` label payload (class ids or regression
     targets as f32), required when ``cfg.predict`` is set; it lives on
@@ -361,7 +381,8 @@ class KnnServer:
         self.seed = int(seed)
         self.envelopes = [
             kops.service_envelope(b, self.m_local, self.dim, cfg.l_max,
-                                  k=self.k, device=self.device)
+                                  k=self.k, device=self.device,
+                                  dtype=self._points_dtype)
             for b in cfg.bucket_sizes]
 
         # device routing operands and the index's slot decode, built
@@ -420,8 +441,13 @@ class KnnServer:
         self.k = int(shards)
         if labels is not None:
             labels = np.asarray(labels, np.float32)
+        if (not isinstance(points, torch.Tensor)
+                and np.asarray(points).dtype == np.uint8):
+            points = torch.from_numpy(np.ascontiguousarray(points))
         if isinstance(points, torch.Tensor):
-            pts = points.to(device=self.device, dtype=torch.float32)
+            pts = points.to(device=self.device,
+                            dtype=(torch.uint8 if points.dtype == torch.uint8
+                                   else torch.float32))
             self._points, self._ids = convert.shards_from_tensor(pts, self.k)
             n = pts.shape[0]
             if values is not None:
@@ -440,6 +466,9 @@ class KnnServer:
                              f"needs the labels= constructor argument")
         self._labels_host = labels
         self._points = self._points.contiguous()
+        self._points_dtype = self._points.dtype
+        if self._points_dtype == torch.uint8:
+            _check_u8(cfg)
         self._values = values
         self.m_local = n // self.k
         self.dim = int(self._points.shape[-1])
@@ -470,6 +499,7 @@ class KnnServer:
             raise ValueError(f"store on {store.device}, server on "
                              f"{self.device}")
         self.k, self.dim, self.m_local = store.k, store.dim, store.cap
+        self._points_dtype = torch.float32
         # the sketch and the index are the store's, frozen with each
         # generation: a conflicting config fails loudly
         if cfg.route == "pruned" and (
@@ -797,6 +827,13 @@ class KnnServer:
         l = self.cfg.l if l is None else int(l)
         if not 1 <= l <= self.cfg.l_max:
             raise ValueError(f"l={l} outside [1, l_max={self.cfg.l_max}]")
+        if (self._points_dtype == torch.uint8
+                and np.asarray(query).dtype != np.uint8):
+            raw = np.asarray(query, np.float64)
+            if not (np.all(raw == np.round(raw)) and np.all(raw >= 0)
+                    and np.all(raw <= 255)):
+                raise ValueError("a query to uint8 points must hold "
+                                 "integers in [0, 255]")
         query = np.asarray(query, np.float32)
         if query.shape != (self.dim,):
             raise ValueError(f"query shape {query.shape} != ({self.dim},)")

@@ -1552,3 +1552,130 @@ def test_knn_query_batched_paths_equal(card, monkeypatch, shape):
     a, b = out[ops.DEVICE_LOOP], out[ops.HOST_LOOP]
     assert torch.equal(a.dists, b.dists) and torch.equal(a.ids, b.ids)
     assert torch.equal(a.mask, b.mask)
+
+
+def _u8(card, *shape, seed=0, high=256):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return torch.randint(0, high, shape, generator=g, device=card,
+                         dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("l", [1, 10, 100, 256])
+@pytest.mark.parametrize("B", [1, 32, 33, 64, 128])
+def test_distance_topk_u8_kernel(card, B, l, d):
+    """The uint8 step equals its plain version bit for bit (exact integer
+    distances, ties to the smaller id) at every tile the plan takes, one
+    distance_topk_u8 launch a call and no f32 kernel's."""
+    k, m = 8, 20000
+    q, p = _u8(card, B, d), _u8(card, k, m, d, seed=1)
+    before = (dtk.COUNT.n, dtk.COUNT_U8.n, dtk.COUNT_WIDE.n)
+    v, i = ops.distance_topk(q, p, l)
+    torch.cuda.synchronize()
+    assert (dtk.COUNT.n, dtk.COUNT_U8.n, dtk.COUNT_WIDE.n) == (
+        before[0] + 1, before[1] + 1, before[2])
+    rv, ri = dtk.distance_topk_u8_plain(q, p, l)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    assert plan.topk_u8(B, d, l, m, ltk.sm_count(0)).tile == (
+        64 if B <= 64 else 128)
+
+
+@pytest.mark.parametrize("case", ["ties", "masked", "none", "d100", "d16",
+                                  "small_m", "d258", "rows200"])
+def test_distance_topk_u8_kernel_edges(card, case):
+    """Ties (values in {0, 1, 2}: many equal distances, ids ascending),
+    masks, rows no multiple of 16 bytes, l > m, the widest exact d and a
+    bucket of two row tiles, each equal to the plain version."""
+    B, k, m, d, l, high = 128, 8, 4099, 128, 10, 256
+    valid = None
+    if case == "ties":
+        high, l = 3, 100
+    elif case == "masked":
+        valid = _randn(card, k, m, seed=3) > 0.3
+    elif case == "none":
+        valid = torch.zeros((k, m), dtype=torch.bool, device=card)
+    elif case == "d100":
+        B, d = 64, 100
+    elif case == "d16":
+        B, d = 33, 16
+    elif case == "small_m":
+        B, k, m, l = 5, 2, 96, 256
+    elif case == "d258":
+        d = 258
+    elif case == "rows200":
+        B = 200
+    q, p = _u8(card, B, d, high=high), _u8(card, k, m, d, seed=1, high=high)
+    v, i = ops.distance_topk(q, p, l, valid=valid)
+    rv, ri = dtk.distance_topk_u8_plain(q, p, l, valid=valid)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    if case == "ties":
+        same = v[..., 1:] == v[..., :-1]
+        assert bool(same.any())
+        assert not bool((same & (i[..., 1:] < i[..., :-1])).any())
+    if case == "none":
+        assert bool((i == INT32_MAX).all())
+
+
+def test_distance_topk_u8_refuses_what_it_cannot_hold_exactly(card):
+    q, p = _u8(card, 4, 259), _u8(card, 2, 1000, 259)
+    with pytest.raises(ValueError, match="258"):
+        ops.distance_topk(q, p, 10)
+    with pytest.raises(TypeError, match="uint8 queries"):
+        dtk.distance_topk_cuda(q.float(), p, 10)
+
+
+def test_distance_topk_u8_shard_above_2gb(card):
+    """A shard of more than 2^31 bytes: points planted past the 2 GiB
+    mark are found, and the answer equals the plain version's top-l over
+    the shard taken in chunks."""
+    B, m, d, l = 8, (1 << 31) // 128 + 50000, 128, 10
+    q = _u8(card, B, d)
+    p = _u8(card, 1, m, d, seed=5)
+    p[0, m - B:] = q                  # each query's own point, distance 0
+    v, i = ops.distance_topk(q, p, l)
+    assert bool((v[0, :, 0] == 0).all())
+    assert torch.equal(i[0, :, 0].long(),
+                       torch.arange(m - B, m, device=card))
+    vs, ids = [], []
+    step = 1 << 22
+    for r0 in range(0, m, step):
+        cv, ci = dtk.distance_topk_u8_plain(q, p[:, r0:r0 + step], l)
+        vs.append(cv)
+        ids.append(ci.long() + r0)
+    cv, ci = torch.cat(vs, -1), torch.cat(ids, -1)
+    o = torch.argsort(ci, dim=-1, stable=True)
+    cv, ci = cv.gather(-1, o), ci.gather(-1, o)
+    o = torch.argsort(cv, dim=-1, stable=True)[..., :l]
+    assert torch.equal(v, cv.gather(-1, o))
+    assert torch.equal(i.long(), ci.gather(-1, o))
+
+
+def test_u8_server_on_the_card_matches_the_cpu(card):
+    """A KnnServer over uint8 points keeps them as uint8 on the card and
+    answers as the CPU server does, id for id; one distance_topk_u8
+    launch a batch."""
+    import dataclasses
+
+    rng = np.random.default_rng(11)
+    pts = rng.integers(0, 256, (8 * 5000, 128), dtype=np.uint8)
+    qs = rng.integers(0, 256, (128, 128), dtype=np.uint8)
+    ls = rng.integers(1, 11, 128)
+    cfg = dataclasses.replace(CONFIG, dim=128, l=10, l_max=10,
+                              bucket_sizes=(1, 4, 32, 128))
+    out = {}
+    for dev in ("cpu", card):
+        srv = KnnServer(pts, cfg=cfg, device=dev, seed=3)
+        assert srv._points.dtype == torch.uint8
+        n0 = dtk.COUNT_U8.n
+        out[str(dev)] = srv.query_batch(qs, ls)
+        if dev == card:
+            assert dtk.COUNT_U8.n == n0 + 1
+            env = srv.envelopes[-1]
+            assert env["points_dtype"] == "uint8"
+            assert env["dtk_path"] == plan.DISTANCE_TOPK_U8
+            assert env["dtk_tile"] == 128
+        srv.close()
+    for a, b in zip(out["cpu"], out[str(card)]):
+        assert np.array_equal(a.ids, b.ids)
+        assert np.array_equal(a.dists, b.dists)
